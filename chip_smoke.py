@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+The path is the paper's compiler serving stencil tiles: each of the five
+stencil apps of the paper's Table III is lowered, planned, certified and
+compiled to one hand-written CUDA kernel per planned kernel group
+(``repro_torch.backend.cuda_codegen``, built with nvcc for ``sm_90a``), and
+served through ``repro_torch.backend.PipelineServer``.  Phases:
+
+1. device: the card's name and power limit; a CUDA device is required.
+2. build: every pipeline's CUDA library, one nvcc per library, all started
+   together (seconds printed per build).
+3. small-size reference: each app at a tile of about 32, run through its
+   CUDA kernels and held against the reference interpreter — bit-exact for
+   gaussian and upsample on integer inputs, ``rtol=1e-4, atol=1e-3`` for
+   harris, unsharp and camera.
+4. full size, kernel vs plain: each app at full size, batch 8, on the
+   H100's shared memory per block; every kernel group's output is compared
+   with its plain PyTorch version on the same CUDA inputs (max abs diff, 0
+   expected) and both are timed with CUDA events.  Each is also held
+   against a computation that shares no code with the port: gaussian
+   against ``F.conv2d`` (atol 1e-3), upsample against
+   ``expand().contiguous()`` (exact) — both timed as the library call — and
+   harris, unsharp and camera's two groups, on one slot, against the app's
+   math written as whole-image torch expressions (``rtol=1e-4, atol=1e-3``).
+5. serve: per app a ``PipelineServer(pipe, batch_slots=8)`` answers 20
+   seeded requests (three dispatches, the last ragged); every served tile
+   must equal the per-tile pipeline's result.  After one warm-up round,
+   every kernel's launch count is zeroed just before the timed round and
+   read just after; CUDA events around each dispatch's kernels give their
+   share of the wall time.
+
+Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
+as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero before that line.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+SMALL = [
+    ("gaussian", {"size": 34}, True),
+    ("harris", {"schedule": "sch3", "size": 36}, False),
+    ("unsharp", {"size": 34}, False),
+    ("camera", {"size": 16}, False),
+    ("upsample", {"size": 32}, True),
+]
+FULL = [
+    ("gaussian", {"size": 1082, "width": 1922}),
+    ("harris", {"schedule": "sch3", "size": 1024}),
+    ("unsharp", {"size": 1024}),
+    ("camera", {"size": 512}),
+    ("upsample", {"size": 1024}),
+]
+BATCH = 8
+N_REQUESTS = 20
+SEED = 20261016
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def inputs_for(app, rng, batch=None, integer=False):
+    import numpy as np
+
+    out = {}
+    for name, shape in app.input_extents.items():
+        shape = ((batch,) if batch else ()) + tuple(shape)
+        if integer:
+            arr = rng.integers(0, 16, shape)
+        else:
+            arr = rng.uniform(0.0, 256.0, shape)
+        out[name] = np.asarray(arr, np.float32)
+    return out
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``reps`` calls, each between CUDA events."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def variants(kg) -> list:
+    out = ["(a) streamed panels" if kg.streamed else "(a) unstreamed"]
+    if kg.padded_grid is not None:
+        out.append("(a) padded rows")
+    if any(key is not None for _sp, key in kg.scratch_entries()):
+        out.append("(b) fused recompute")
+    if kg.rings:
+        out.append("(d) input ring")
+    if kg.line_buffered:
+        out.append("(d) line buffer")
+    if kg.batch_grid is not None:
+        out.append("(g) batch grid")
+    return out
+
+
+def _bsum(terms):
+    """The apps' balanced adder tree (``paper_apps.balanced_sum``), on tensors."""
+    terms = list(terms)
+    while len(terms) > 1:
+        nxt = [terms[i] + terms[i + 1] for i in range(0, len(terms) - 1, 2)]
+        if len(terms) % 2:
+            nxt.append(terms[-1])
+        terms = nxt
+    return terms[0]
+
+
+def independent(name: str, a):
+    """Each app's math written directly as whole-image torch expressions on
+    one tile ``a`` (``[y, x]``), in the apps' order of operations.  Shares
+    no code with the lowering, the plan or the kernels; returns
+    ``{kernel name: tensor}`` in the kernels' loop-order layouts."""
+    import torch
+
+    def sh(t, dx, dy, h, w):
+        return t[dy:dy + h, dx:dx + w]
+
+    if name == "harris":
+        n = a.shape[0] - 4
+        g = n + 2
+        gx = _bsum([sh(a, 0, 0, g, g) * -1, sh(a, 2, 0, g, g) * 1,
+                    sh(a, 0, 1, g, g) * -2, sh(a, 2, 1, g, g) * 2,
+                    sh(a, 0, 2, g, g) * -1, sh(a, 2, 2, g, g) * 1])
+        gy = _bsum([sh(a, 0, 0, g, g) * -1, sh(a, 1, 0, g, g) * -2,
+                    sh(a, 2, 0, g, g) * -1, sh(a, 0, 2, g, g) * 1,
+                    sh(a, 1, 2, g, g) * 2, sh(a, 2, 2, g, g) * 1])
+
+        def box3(t):
+            return _bsum([sh(t, dx, dy, n, n) for dy in range(3) for dx in range(3)])
+
+        sxx, syy, sxy = box3(gx * gx / 64), box3(gy * gy / 64), box3(gx * gy / 64)
+        trace = sxx + syy
+        resp = (sxx * syy - sxy * sxy) - (trace * trace) / 16
+        return {"harris": torch.where(resp > 100, resp, torch.zeros_like(resp))}
+    if name == "unsharp":
+        n = a.shape[0] - 2
+        bx = (sh(a, 0, 0, n + 2, n) + sh(a, 1, 0, n + 2, n) * 2 + sh(a, 2, 0, n + 2, n)) / 4
+        by = (sh(bx, 0, 0, n, n) + sh(bx, 0, 1, n, n) * 2 + sh(bx, 0, 2, n, n)) / 4
+        c = sh(a, 1, 1, n, n)
+        ratio = (c * 2 - by) / torch.maximum(c, torch.ones_like(c))
+        zero, top = torch.zeros_like(c), torch.full_like(c, 255)
+        return {"unsharp": torch.minimum(torch.maximum(ratio * c, zero), top)}
+    if name == "camera":
+        d = a.shape[0] - 2                  # denoise extent, 2 * s + 2
+        s = (d - 2) // 2
+        r = lambda dx, dy: sh(a, dx, dy, d, d)  # noqa: E731
+        nmax = torch.maximum(torch.maximum(r(0, 1), r(2, 1)), torch.maximum(r(1, 0), r(1, 2)))
+        nmin = torch.minimum(torch.minimum(r(0, 1), r(2, 1)), torch.minimum(r(1, 0), r(1, 2)))
+        dn = torch.minimum(torch.maximum(r(1, 1), nmin), nmax)
+
+        def at(dx, dy):        # dn[2y + dy, 2x + dx] as [y, 1, x, 1]
+            return dn[dy:dy + 2 * s:2, dx:dx + 2 * s:2][:, None, :, None]
+
+        xi = torch.arange(2, dtype=a.dtype, device=a.device).view(1, 1, 1, 2)
+        yi = xi.view(1, 2, 1, 1)
+
+        def phase(px, py):
+            return (xi if px else 1 - xi) * (yi if py else 1 - yi)
+
+        g = (phase(0, 0) * at(0, 0) + phase(1, 1) * at(1, 1)
+             + (phase(1, 0) + phase(0, 1)) * ((at(0, 0) + at(1, 1)) / 2))
+        rr = phase(1, 0) * at(1, 0) + (1 - phase(1, 0)) * ((at(1, 0) + at(3, 0)) / 2)
+        b = phase(0, 1) * at(0, 1) + (1 - phase(0, 1)) * ((at(0, 1) + at(0, 3)) / 2)
+        cr = (rr * 14 + g * 2 - b) / 16
+        cg = (rr * -1 + g * 14 + b * 2) / 16
+        cb = (rr * 2 - g + b * 14) / 16
+        lum = (cr * 5 + cg * 9 + cb * 2) / 16
+        v = lum + lum * lum / 256
+        out = torch.minimum(torch.maximum(v, torch.zeros_like(v)), torch.full_like(v, 255))
+        return {"denoise": dn, "camera": out}
+    raise KeyError(name)
+
+
+def bytes_and_ops(k) -> tuple:
+    """Bytes the group must move (each input region read once, the output
+    written once) and the f32 operations its stages do on this run's
+    shapes (each fused row evaluated once)."""
+    import math
+
+    kg = k.kg
+    nb = kg.batch_steps
+    nbytes = 4 * nb * math.prod(kg.output.nstage.pure_extents)
+    for need in kg.required_extents().values():
+        nbytes += 4 * nb * math.prod(need)
+    per_stage = {}
+    for (name, _shift), prog in k.lg.programs.items():
+        per_stage[name] = sum(1 for op in prog if op[0] in ("bin", "sel"))
+    ops = sum(
+        n * nb * math.prod(kg.stage_plan(name).nstage.pure_extents)
+        for name, n in per_stage.items()
+    )
+    return nbytes, ops
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke.py: src/repro_torch not found beside the script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device is visible", file=sys.stderr)
+        return 2
+
+    from repro_torch.apps import make_app
+    from repro_torch.backend import (
+        PipelineServer, compile_pipeline, reference_arrays,
+    )
+    from repro_torch.backend.build import build_many
+    from repro_torch.backend.cuda_codegen import REPLACES, emit_library
+    from repro_torch.backend.eager import LoweredGroup
+    from repro_torch.backend.plan import build_pipeline_plan
+    from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # -- 1. device -----------------------------------------------------------
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # -- 2. build: every library at once ---------------------------------------
+    configs = []
+    for name, kw, _exact in SMALL:
+        configs.append((make_app(name, **kw).pipeline, {}))
+    full_apps = {}
+    for name, kw in FULL:
+        app = make_app(name, **kw)
+        full_apps[name] = app
+        configs.append((app.pipeline, {"batch": BATCH, "batch_capacity": BATCH}))
+        configs.append((app.pipeline, {}))
+    sources = []
+    for pipe, ckw in configs:
+        plan = build_pipeline_plan(pipe, vmem_budget=H100_SMEM_PER_BLOCK, **ckw)
+        sources.append(emit_library([LoweredGroup(kg) for kg in plan.kernels]))
+    t0 = time.perf_counter()
+    build_secs = build_many(sources)
+    log(f"[build] {len(build_secs)} nvcc builds in parallel, wall "
+        f"{time.perf_counter() - t0:.1f} s; per build: "
+        + ", ".join(f"{s:.1f}" for s in build_secs.values()))
+
+    # -- 3. small-size reference -----------------------------------------------
+    rng = np.random.default_rng(SEED)
+    for name, kw, exact in SMALL:
+        app = make_app(name, **kw)
+        pp = compile_pipeline(app.pipeline)
+        ins = inputs_for(app, rng, integer=True)
+        got = pp.run(ins)
+        torch.cuda.synchronize()
+        want = reference_arrays(app.pipeline, ins)
+        for k in pp.kernels:
+            g = got[k.name].cpu().numpy().astype(np.float64)
+            w = want[k.name]
+            err = float(np.max(np.abs(g - w)))
+            if exact:
+                ok = np.array_equal(g, w)
+            else:
+                ok = np.allclose(g, w, rtol=1e-4, atol=1e-3)
+            log(f"[small] {name}/{k.name} {kw}: max|cuda - reference| = {err!r} "
+                f"({'exact' if exact else 'rtol=1e-4 atol=1e-3'}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name}/{k.name} disagrees with the reference")
+
+    # -- 4. full size: kernel vs plain -----------------------------------------
+    rows = {}
+    for name, _kw in FULL:
+        app = full_apps[name]
+        t0 = time.perf_counter()
+        pp = compile_pipeline(app.pipeline, batch=BATCH, batch_capacity=BATCH, cache=True)
+        compile_s = time.perf_counter() - t0
+        ins = inputs_for(app, rng, batch=BATCH)
+        bufs = {n: torch.from_numpy(a).cuda() for n, a in ins.items()}
+        for k in pp.kernels:
+            out = k(bufs)
+            plain = k.plain(bufs)
+            torch.cuda.synchronize()
+            bufs[k.name] = out
+            if out.shape != plain.shape or not torch.isfinite(out).all():
+                raise AssertionError(f"{name}/{k.name}: bad output {tuple(out.shape)}")
+            err = float((out - plain).abs().max())
+            ms = time_ms(lambda: k(bufs), 10)
+            plain_ms = time_ms(lambda: k.plain(bufs), 1)
+            nbytes, ops = bytes_and_ops(k)
+            t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+            t_ops = 1e3 * ops / PEAK_F32_FLOPS
+            # the one PyTorch call computing the same function, where there is
+            # one: it is also a check that shares no code with the port
+            library_ms = None
+            if name == "gaussian":
+                x = bufs["input"].unsqueeze(1)
+                w = torch.tensor([[1, 2, 1], [2, 4, 2], [1, 2, 1]],
+                                 dtype=torch.float32, device="cuda").view(1, 1, 3, 3) / 16
+                library = lambda x=x, w=w: torch.nn.functional.conv2d(x, w)  # noqa: E731
+                lib_err = float((library()[:, 0] - out).abs().max())
+                lib_ok = lib_err <= 1e-3
+                log(f"[full] gaussian: max|cuda - F.conv2d| = {lib_err!r} "
+                    f"(atol 1e-3; another summation order) {'ok' if lib_ok else 'FAIL'}")
+                library_ms = time_ms(library, 10)
+            elif name == "upsample":
+                x = bufs["input"]
+                b_, h_, w_ = x.shape
+                library = lambda x=x: x[:, :, None, :, None].expand(b_, h_, 2, w_, 2).contiguous()  # noqa: E731
+                lib_ok = torch.equal(library(), out)
+                log(f"[full] upsample: cuda == expand().contiguous() (exact) "
+                    f"{'ok' if lib_ok else 'FAIL'}")
+                library_ms = time_ms(library, 10)
+            else:
+                # the last slot, whole image, held against the app's math
+                # written as whole-image torch expressions
+                (src,) = app.input_extents
+                want = independent(name, bufs[src][BATCH - 1])[k.name]
+                got = out[BATCH - 1]
+                lib_err = float((got - want).abs().max())
+                lib_ok = got.shape == want.shape and torch.allclose(got, want, rtol=1e-4, atol=1e-3)
+                log(f"[full] {name}/{k.name} slot {BATCH - 1}: max|cuda - torch expression| = "
+                    f"{lib_err!r} (rtol=1e-4 atol=1e-3) {'ok' if lib_ok else 'FAIL'}")
+            if not lib_ok:
+                raise AssertionError(f"{name}/{k.name}: CUDA kernel disagrees with an independent computation")
+            rows[f"{name}/{k.name}"] = {
+                "name": f"{name}/{k.name}",
+                "route": "cuda",
+                "source": "src/repro_torch/backend/cuda_codegen.py",
+                "replaces": REPLACES,
+                "launches": 0,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms,
+                "plan_hbm_bound_ms": 1e3 * k.kg.hbm_bytes() / PEAK_BYTES_PER_S,
+                "variants": variants(k.kg),
+                "app": name,
+            }
+            log(f"[full] {name}/{k.name} grid={k.kg.grid} bh={k.kg.bh} "
+                f"smem={k.kg.scratch_bytes} B: max|cuda - plain| = {err!r} "
+                f"(tolerance 0); "
+                f"{ms:.4f} ms/launch, plain {plain_ms:.2f} ms, bound "
+                f"{max(t_bytes, t_ops):.4f} ms, compile {compile_s:.2f} s")
+            if err != 0.0:
+                raise AssertionError(f"{name}/{k.name}: CUDA kernel differs from plain by {err}")
+
+    # -- 5. serve ----------------------------------------------------------------
+    for name, _kw in FULL:
+        app = full_apps[name]
+        server = PipelineServer(app.pipeline, batch_slots=BATCH)
+        tile_pp = compile_pipeline(app.pipeline)
+        reqs = [inputs_for(app, rng) for _ in range(N_REQUESTS)]
+        server.run(reqs)                     # warm-up: allocator, first copies
+        # time the kernels of each dispatch through the server's one seam
+        spans = []
+        seam = server._run_pipeline
+
+        def timed(pp, ins, seam=seam, spans=spans):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = seam(pp, ins)
+            b.record()
+            spans.append((a, b))
+            return out
+
+        server._run_pipeline = timed
+        before = server.stats()["dispatches"]
+        for k in server.pipeline.kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = server.run(reqs)
+        secs = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in server.pipeline.kernels}
+        dispatches = server.stats()["dispatches"] - before
+        if dispatches != 3 or not all(r.ok for r in done):
+            raise AssertionError(f"{name}: serve stats {server.stats()}")
+        kernel_ms = sum(a.elapsed_time(b) for a, b in spans)
+        for k in server.pipeline.kernels:
+            if counts[k.name] == 0:
+                raise AssertionError(f"{name}/{k.name}: kernel never launched while serving")
+            rows[f"{name}/{k.name}"]["launches"] = counts[k.name]
+            rows[f"{name}/{k.name}"]["launches_per_dispatch"] = counts[k.name] / dispatches
+        for req, ins in zip(done, reqs):
+            want = tile_pp.run(ins)
+            for kname, arr in req.outputs.items():
+                if not np.array_equal(arr, want[kname].cpu().numpy()):
+                    raise AssertionError(f"{name}/{kname}: served tile differs from the per-tile pipeline")
+        log(f"[serve] {name}: {N_REQUESTS} requests in {dispatches} dispatches, "
+            f"{secs:.4f} s, {N_REQUESTS / secs:.1f} img/s; kernels {kernel_ms:.3f} ms "
+            f"({100 * kernel_ms / (1e3 * secs):.1f}% of wall); launches {counts}; "
+            "every tile equals the per-tile pipeline")
+
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,439 @@
+"""The paper's seven evaluation applications (Table III) in the mini-Halide DSL.
+
+Each builder returns an ``AppBundle``: the scheduled func graph, the lowered
+pipeline, and metadata used by the benchmark harness.  Schedule variants for
+Harris reproduce Table V (sch1..sch6).
+
+Sizes follow the paper's "modest problem sizes" methodology (§VI-B): 64x64
+accelerator tiles for the stencil pipelines, small channel counts for the DNN
+layers.
+
+Conventions:
+  * ``f[x, y]`` — x is the fastest (innermost) dimension, as in Halide.
+  * Input arrays / extents are given in **loop order** (outermost first),
+    i.e. a 2-D image is indexed ``[y, x]`` (row-major).
+  * Rate-changing stages (upsample, demosaic) are written with explicit
+    phase vars so every access map stays affine (see DESIGN.md §5).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Tuple
+
+from repro_torch.frontend.expr import Const, IterVal, Select, maximum, minimum
+from repro_torch.frontend.func import Func, RDom, Var
+from repro_torch.frontend.lower import Pipeline, lower_pipeline
+
+x, y = Var("x"), Var("y")
+
+
+def balanced_sum(terms):
+    """Balanced adder tree — matches the paper's HLS latency model (a chain
+    of adds would give gaussian a depth-10 body; the paper's sequential
+    completion times imply log-depth trees)."""
+    terms = list(terms)
+    while len(terms) > 1:
+        nxt = []
+        for i in range(0, len(terms) - 1, 2):
+            nxt.append(terms[i] + terms[i + 1])
+        if len(terms) % 2:
+            nxt.append(terms[-1])
+        terms = nxt
+    return terms[0]
+xi, yi = Var("xi"), Var("yi")   # phase vars (upsample / demosaic)
+co = Var("co")                  # output-channel var
+ch = Var("ch")                  # per-channel var
+
+
+@dataclass
+class AppBundle:
+    name: str
+    kind: str                    # "stencil" | "dnn"
+    pipeline: Pipeline
+    funcs: List[Func]
+    output: Func
+    output_extents: Dict[str, int]
+    input_extents: Dict[str, Tuple[int, ...]]   # loop order (outermost first)
+    tile_count: int = 1          # coarse-pipeline trip count (DNN apps)
+    description: str = ""
+
+
+# ---------------------------------------------------------------------------
+# gaussian — 3x3 convolutional blur
+# ---------------------------------------------------------------------------
+
+
+def build_gaussian(size: int = 64, width: int = None) -> AppBundle:
+    """``size`` is the *input tile* edge (the paper's convention); the output
+    shrinks by the stencil halo.  ``width`` makes the tile rectangular
+    (``size`` rows x ``width`` columns) — the wide-extent shape the
+    lane-blocked 2-D grids exist for."""
+    if width is None:
+        width = size
+    out_h, out_w = size - 2, width - 2
+    inp = Func.input("input", 2)
+    blur = Func("gaussian")
+    w = [1, 2, 1, 2, 4, 2, 1, 2, 1]
+    terms = []
+    k = 0
+    for dy in range(3):
+        for dx in range(3):
+            terms.append(inp[x + dx, y + dy] * w[k])
+            k += 1
+    blur[x, y] = balanced_sum(terms) / 16
+    blur.hw_accelerate()
+    funcs = [inp, blur]
+    pipe = lower_pipeline(blur, funcs, {"x": out_w, "y": out_h})
+    return AppBundle(
+        "gaussian", "stencil", pipe, funcs, blur,
+        {"x": out_w, "y": out_h},
+        {"input": (size, width)},
+        description="3x3 convolutional blur",
+    )
+
+
+# ---------------------------------------------------------------------------
+# harris — corner detector, six schedules (Table V)
+# ---------------------------------------------------------------------------
+
+
+def build_harris(schedule: str = "sch3", size: int = 64) -> AppBundle:
+    """Schedules (paper Table V):
+    sch1 recompute all | sch2 recompute some | sch3 no recompute |
+    sch4 unroll by 2 | sch5 4x larger tile | sch6 last stage on host
+    """
+    inp = Func.input("input", 2)
+
+    gx = Func("grad_x")      # sobel x
+    gx[x, y] = balanced_sum([
+        inp[x, y] * -1, inp[x + 2, y] * 1,
+        inp[x, y + 1] * -2, inp[x + 2, y + 1] * 2,
+        inp[x, y + 2] * -1, inp[x + 2, y + 2] * 1,
+    ])
+    gy = Func("grad_y")      # sobel y
+    gy[x, y] = balanced_sum([
+        inp[x, y] * -1, inp[x + 1, y] * -2, inp[x + 2, y] * -1,
+        inp[x, y + 2] * 1, inp[x + 1, y + 2] * 2, inp[x + 2, y + 2] * 1,
+    ])
+
+    lxx, lyy, lxy = Func("lxx"), Func("lyy"), Func("lxy")
+    lxx[x, y] = gx[x, y] * gx[x, y] / 64
+    lyy[x, y] = gy[x, y] * gy[x, y] / 64
+    lxy[x, y] = gx[x, y] * gy[x, y] / 64
+
+    def box3(name: str, src: Func) -> Func:
+        f = Func(name)
+        f[x, y] = balanced_sum(
+            [src[x + dx, y + dy] for dy in range(3) for dx in range(3)]
+        )
+        return f
+
+    sxx, syy, sxy = box3("sxx", lxx), box3("syy", lyy), box3("sxy", lxy)
+
+    resp = Func("response")
+    det = sxx[x, y] * syy[x, y] - sxy[x, y] * sxy[x, y]
+    trace = sxx[x, y] + syy[x, y]
+    resp[x, y] = det - (trace * trace) / 16
+
+    out = Func("harris")
+    out[x, y] = Select(resp[x, y] > 100, resp[x, y], Const(0))
+
+    funcs = [inp, gx, gy, lxx, lyy, lxy, sxx, syy, sxy, resp, out]
+    tile = size - 4          # input tile convention: 3x3 over 3x3 halo
+
+    if schedule == "sch1":          # recompute all: everything inlined
+        pass
+    elif schedule == "sch2":        # recompute some: buffer gradients only
+        gx.store_root(); gy.store_root()
+    elif schedule in ("sch3", "sch4", "sch5", "sch6"):  # no recompute
+        gx.store_root(); gy.store_root()
+        sxx.store_root(); syy.store_root(); sxy.store_root()
+        if schedule == "sch4":      # unroll by 2 -> 2 output pixels / cycle
+            for f in (out, gx, gy, sxx, syy, sxy):
+                f.unroll(x, 2)
+        if schedule == "sch5":      # tile 2x larger in each dimension
+            tile = 2 * size - 4
+        if schedule == "sch6":      # last stage on the host processor
+            out.compute_on_host()
+            resp.store_root()
+    else:
+        raise ValueError(f"unknown harris schedule {schedule}")
+
+    out.hw_accelerate()
+    pipe = lower_pipeline(out, funcs, {"x": tile, "y": tile})
+    return AppBundle(
+        "harris" if schedule == "sch3" else f"harris-{schedule}",
+        "stencil", pipe, funcs, out,
+        {"x": tile, "y": tile},
+        {"input": (tile + 4, tile + 4)},
+        description=f"corner detector ({schedule})",
+    )
+
+
+# ---------------------------------------------------------------------------
+# upsample — x2 nearest-neighbour (phase dims keep accesses affine)
+# ---------------------------------------------------------------------------
+
+
+def build_upsample(size: int = 64) -> AppBundle:
+    inp = Func.input("input", 2)
+    up = Func("upsample")
+    # up[(xi, x), (yi, y)] = in[x, y]; logical output is (2*size) x (2*size)
+    up[xi, x, yi, y] = inp[x, y] + 0
+    up.hw_accelerate()
+    funcs = [inp, up]
+    pipe = lower_pipeline(up, funcs, {"xi": 2, "x": size, "yi": 2, "y": size})
+    return AppBundle(
+        "upsample", "stencil", pipe, funcs, up,
+        {"xi": 2, "x": size, "yi": 2, "y": size},
+        {"input": (size, size)},
+        description="up sampling by repeating pixels",
+    )
+
+
+# ---------------------------------------------------------------------------
+# unsharp — separable blur + sharpening mask
+# ---------------------------------------------------------------------------
+
+
+def build_unsharp(size: int = 64) -> AppBundle:
+    out_sz = size - 2
+    inp = Func.input("input", 2)
+    blur_x = Func("blur_x")
+    blur_x[x, y] = (inp[x, y] + inp[x + 1, y] * 2 + inp[x + 2, y]) / 4
+    blur_y = Func("blur_y")
+    blur_y[x, y] = (blur_x[x, y] + blur_x[x, y + 1] * 2 + blur_x[x, y + 2]) / 4
+    sharp = Func("sharpen")
+    center = inp[x + 1, y + 1]
+    sharp[x, y] = center * 2 - blur_y[x, y]
+    ratio = Func("ratio")
+    ratio[x, y] = sharp[x, y] / maximum(center, 1)
+    out = Func("unsharp")
+    out[x, y] = minimum(maximum(ratio[x, y] * center, 0), 255)
+
+    blur_x.store_root()
+    blur_y.store_root()
+    sharp.store_root()
+    out.hw_accelerate()
+    funcs = [inp, blur_x, blur_y, sharp, ratio, out]
+    pipe = lower_pipeline(out, funcs, {"x": out_sz, "y": out_sz})
+    return AppBundle(
+        "unsharp", "stencil", pipe, funcs, out,
+        {"x": out_sz, "y": out_sz},
+        {"input": (size, size)},
+        description="mask to sharpen the image",
+    )
+
+
+# ---------------------------------------------------------------------------
+# camera — denoise + demosaic (bayer phases) + colour-correction + gamma
+# ---------------------------------------------------------------------------
+
+
+def _is_phase(px: int, py: int):
+    """1.0 iff (xi, yi) == (px, py), as 16-bit-friendly arithmetic."""
+    tx = IterVal("xi") if px == 1 else (Const(1) - IterVal("xi"))
+    ty = IterVal("yi") if py == 1 else (Const(1) - IterVal("yi"))
+    return tx * ty
+
+
+def build_camera(size: int = 30) -> AppBundle:
+    raw = Func.input("raw", 2)
+
+    # hot-pixel suppression: clamp centre pixel into the neighbourhood range
+    dn = Func("denoise")
+    neigh_max = maximum(
+        maximum(raw[x, y + 1], raw[x + 2, y + 1]),
+        maximum(raw[x + 1, y], raw[x + 1, y + 2]),
+    )
+    neigh_min = minimum(
+        minimum(raw[x, y + 1], raw[x + 2, y + 1]),
+        minimum(raw[x + 1, y], raw[x + 1, y + 2]),
+    )
+    dn[x, y] = minimum(maximum(raw[x + 1, y + 1], neigh_min), neigh_max)
+
+    # demosaic over bayer phases (GRBG): all taps forward-shifted so access
+    # maps stay inside the (positive) required box
+    def at(dx: int, dy: int):
+        return dn[x * 2 + dx, y * 2 + dy]
+
+    g = Func("demosaic_g")
+    g[xi, x, yi, y] = (
+        _is_phase(0, 0) * at(0, 0)
+        + _is_phase(1, 1) * at(1, 1)
+        + (_is_phase(1, 0) + _is_phase(0, 1)) * ((at(0, 0) + at(1, 1)) / 2)
+    )
+    r = Func("demosaic_r")
+    r[xi, x, yi, y] = (
+        _is_phase(1, 0) * at(1, 0)
+        + (Const(1) - _is_phase(1, 0)) * ((at(1, 0) + at(3, 0)) / 2)
+    )
+    b = Func("demosaic_b")
+    b[xi, x, yi, y] = (
+        _is_phase(0, 1) * at(0, 1)
+        + (Const(1) - _is_phase(0, 1)) * ((at(0, 1) + at(0, 3)) / 2)
+    )
+
+    # colour-correction matrix + gamma (quadratic approx), luminance output
+    ccm_r, ccm_g, ccm_b = Func("ccm_r"), Func("ccm_g"), Func("ccm_b")
+    ccm_r[xi, x, yi, y] = (r[xi, x, yi, y] * 14 + g[xi, x, yi, y] * 2 - b[xi, x, yi, y]) / 16
+    ccm_g[xi, x, yi, y] = (r[xi, x, yi, y] * -1 + g[xi, x, yi, y] * 14 + b[xi, x, yi, y] * 2) / 16
+    ccm_b[xi, x, yi, y] = (r[xi, x, yi, y] * 2 - g[xi, x, yi, y] + b[xi, x, yi, y] * 14) / 16
+
+    out = Func("camera")
+    lum = (ccm_r[xi, x, yi, y] * 5 + ccm_g[xi, x, yi, y] * 9 + ccm_b[xi, x, yi, y] * 2) / 16
+    out[xi, x, yi, y] = minimum(maximum(lum + lum * lum / 256, 0), 255)
+
+    dn.store_root()
+    g.store_root(); r.store_root(); b.store_root()
+    out.hw_accelerate()
+    funcs = [raw, dn, g, r, b, ccm_r, ccm_g, ccm_b, out]
+    pipe = lower_pipeline(out, funcs, {"xi": 2, "x": size, "yi": 2, "y": size})
+    return AppBundle(
+        "camera", "stencil", pipe, funcs, out,
+        {"xi": 2, "x": size, "yi": 2, "y": size},
+        {"raw": (2 * size + 4, 2 * size + 4)},
+        description="demosaicing and image correction",
+    )
+
+
+# ---------------------------------------------------------------------------
+# resnet — multi-channel 3x3 convolution layer (DNN pipeline, §V-B Fig. 7)
+# ---------------------------------------------------------------------------
+
+
+def build_resnet(
+    img: int = 16, cin: int = 8, cout: int = 8, tiles: int = 4
+) -> AppBundle:
+    inp = Func.input("ifmap", 3)     # indexed [x, y, ci]
+    wgt = Func.input("weights", 4)   # indexed [kx, ky, ci, co]
+    r = RDom(3, 3, cin, name="r")    # (kx, ky, ci) reduction
+    rx, ry, rc = r[0], r[1], r[2]
+
+    conv = Func("resnet")
+    conv[x, y, co] = 0
+    conv.update(
+        (x, y, co),
+        conv[x, y, co] + inp[x + rx, y + ry, rc] * wgt[rx, ry, rc, co],
+        r,
+    )
+    # unroll the channel MACs (64 multipliers), keep spatial reduction loops
+    # rolled -> the paper's DNN scheduling policy is selected
+    conv.unroll(rc, cin)
+    conv.unroll(co, cout)
+    conv.hw_accelerate()
+    funcs = [inp, wgt, conv]
+    pipe = lower_pipeline(conv, funcs, {"x": img, "y": img, "co": cout})
+    return AppBundle(
+        "resnet", "dnn", pipe, funcs, conv,
+        {"x": img, "y": img, "co": cout},
+        {"ifmap": (cin, img + 2, img + 2), "weights": (cout, cin, 3, 3)},
+        tile_count=tiles,
+        description="layer using multi-channel convolution",
+    )
+
+
+# ---------------------------------------------------------------------------
+# mobilenet — depthwise-separable convolution layer (DNN pipeline)
+# ---------------------------------------------------------------------------
+
+
+def build_mobilenet(
+    img: int = 16, cin: int = 8, cout: int = 8, tiles: int = 4
+) -> AppBundle:
+    inp = Func.input("ifmap", 3)      # [c, x, y] — channel fastest
+    wdw = Func.input("dw_weights", 3)  # [kx, ky, c]
+    wpw = Func.input("pw_weights", 2)  # [c, co]
+
+    rs = RDom(3, 3, name="s")          # spatial reduction (depthwise)
+    sx, sy = rs[0], rs[1]
+    # channels indexed *innermost* -> the fused stream interleaves channels
+    # per pixel, which is what lets the pointwise stage consume immediately
+    dw = Func("dw_conv")
+    dw[ch, x, y] = 0
+    dw.update(
+        (ch, x, y),
+        dw[ch, x, y] + inp[ch, x + sx, y + sy] * wdw[sx, sy, ch],
+        rs,
+    )
+    # every reduction loop fully unrolled -> the paper's *stencil* policy is
+    # selected (mobilenet "is structurally similar to a stencil pipeline",
+    # §VI-D), with 2 channels of MACs in parallel
+    dw.unroll(sx, 3).unroll(sy, 3).unroll(ch, 2)
+    dw.store_root()
+
+    rc_dom = RDom(cin, name="q")       # channel reduction (pointwise)
+    q = rc_dom[0]
+    pw = Func("mobilenet")
+    pw[co, x, y] = 0
+    pw.update((co, x, y), pw[co, x, y] + dw[q, x, y] * wpw[q, co], rc_dom)
+    pw.unroll(q, cin).unroll(co, 2)
+    pw.hw_accelerate()
+
+    funcs = [inp, wdw, wpw, dw, pw]
+    pipe = lower_pipeline(pw, funcs, {"co": cout, "x": img, "y": img})
+    return AppBundle(
+        "mobilenet", "dnn", pipe, funcs, pw,
+        {"co": cout, "x": img, "y": img},
+        {
+            "ifmap": (img + 2, img + 2, cin),   # loop order (y, x, c)
+            "dw_weights": (cin, 3, 3),
+            "pw_weights": (cout, cin),
+        },
+        tile_count=tiles,
+        description="layer using separable, multi-channel convolution",
+    )
+
+
+# ---------------------------------------------------------------------------
+# matmul — (M, K) x (K, N) tile, the GEMM-shaped workload for the backend
+# ---------------------------------------------------------------------------
+
+
+def build_matmul(m: int = 32, n: int = 32, k: int = 32) -> AppBundle:
+    """One accelerator tile of C = A @ B (loop order: A is (M, K), B is
+    (K, N), C is (M, N)).  Not one of the paper's seven Table III apps — it
+    exists so the generated-kernel backend is exercised on a matmul-shaped
+    iteration space (reduction-only operand axes, broadcast streams)."""
+    a = Func.input("A", 2)
+    b = Func.input("B", 2)
+    i, j = Var("i"), Var("j")
+    r = RDom(k, name="k")
+    c = Func("matmul")
+    c[j, i] = 0                      # j fastest -> loop order (i, j)
+    c.update((j, i), c[j, i] + a[r[0], i] * b[j, r[0]], r)
+    c.hw_accelerate()
+    funcs = [a, b, c]
+    pipe = lower_pipeline(c, funcs, {"j": n, "i": m})
+    return AppBundle(
+        "matmul", "dnn", pipe, funcs, c,
+        {"j": n, "i": m},
+        {"A": (m, k), "B": (k, n)},
+        description="dense matmul tile (backend workload)",
+    )
+
+
+# ---------------------------------------------------------------------------
+ALL_APPS = ["gaussian", "harris", "upsample", "unsharp", "camera", "resnet", "mobilenet"]
+# additional backend workloads, not part of the paper's Table III set
+EXTRA_APPS = ["matmul"]
+
+
+def make_app(name: str, **kw) -> AppBundle:
+    builders: Dict[str, Callable[..., AppBundle]] = {
+        "gaussian": build_gaussian,
+        "harris": build_harris,
+        "upsample": build_upsample,
+        "unsharp": build_unsharp,
+        "camera": build_camera,
+        "resnet": build_resnet,
+        "mobilenet": build_mobilenet,
+        "matmul": build_matmul,
+    }
+    return builders[name](**kw)
+
+
+__all__ = ["AppBundle", "ALL_APPS", "EXTRA_APPS", "make_app"] + [
+    f"build_{n}" for n in ALL_APPS + EXTRA_APPS
+]

@@ -1,0 +1,390 @@
+"""Whole-pipeline compilation and execution on the card.
+
+``compile_pipeline`` plans a lowered :class:`~repro_torch.frontend.lower.Pipeline`
+(``plan.build_pipeline_plan``), certifies the plan (``verify``) and turns
+each planned :class:`~repro_torch.backend.plan.KernelGroup` into one
+executable kernel, run in topological order.  Only kernel outputs are
+materialized in device memory; fused intermediates live in shared memory.
+
+The execution contract is explicit, with no fallback:
+
+* ``device="cuda"`` (the default) runs on the card and raises when no GPU
+  is visible; ``device="cpu"`` runs on the CPU.
+* ``kernels="cuda"`` (the default) runs each group as its hand-written
+  CUDA kernel (``cuda_codegen``, built by ``build``); it needs a CUDA
+  device.  ``kernels="eager"`` runs the plain PyTorch version
+  (``eager.EagerKernel``) on the named device — what the CPU tests and the
+  on-card comparisons ask for.
+
+``compile_pipeline(..., cache=True)`` keys whole compiled pipelines on a
+content hash of the lowered pipeline, every plan-affecting keyword, the
+device and the kernel choice (:func:`plan_cache_key`).  ``reference_arrays``
+converts the reference interpreter's value tables into zero-based dense
+arrays for differential comparison.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
+from repro_torch.frontend.lower import Pipeline, execute_pipeline, normalize_pipeline
+
+from .build import load_library
+from .cuda_codegen import CudaKernel, emit_library
+from .eager import EagerKernel, LoweredGroup
+from .plan import PipelinePlan, RED_GRID_THRESHOLD, build_pipeline_plan
+from .verify import assert_plan_verified
+
+KERNEL_CHOICES = ("cuda", "eager")
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The device a pipeline runs on; ``cuda`` without a visible GPU raises
+    (the port never carries on on the CPU in its place)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' but no CUDA device is visible; pass "
+                "device='cpu' to run the plain version on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def inputs_to_torch(
+    inputs: Mapping[str, object],
+    device: Union[str, torch.device],
+    pipeline: Optional[Pipeline] = None,
+    batch: Optional[int] = None,
+) -> Dict[str, torch.Tensor]:
+    """Turn the JAX package's input convention — a dict of arrays in loop
+    order (outermost first), with a leading batch dim when batched — into
+    contiguous f32 tensors on ``device``.  With ``pipeline`` given, every
+    input it declares must be present with exactly its declared extents
+    (plus the leading ``batch`` dim)."""
+    dev = torch.device(device)
+    names = list(pipeline.inputs) if pipeline is not None else list(inputs)
+    out: Dict[str, torch.Tensor] = {}
+    for name in names:
+        if name not in inputs:
+            raise KeyError(
+                f"missing input {name!r}; the plan requires {sorted(names)}"
+            )
+        arr = inputs[name]
+        if isinstance(arr, torch.Tensor):
+            t = arr.to(device=dev, dtype=torch.float32)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(dev)
+        t = t.contiguous()
+        if pipeline is not None:
+            want = tuple(pipeline.buffer_boxes[name].extents)
+            if batch is not None:
+                want = (batch,) + want
+            if t.ndim != len(want):
+                raise ValueError(
+                    f"input {name!r}: rank {t.ndim} (shape {tuple(t.shape)}) "
+                    f"!= plan's declared rank {len(want)} (extents {want}"
+                    + (f", leading dim = batch {batch})" if batch else ")")
+                )
+            if tuple(t.shape) != want:
+                raise ValueError(
+                    f"input {name!r}: shape {tuple(t.shape)} != the plan's "
+                    f"declared extents {want}"
+                    + (f" (leading dim = batch {batch})" if batch else "")
+                )
+        out[name] = t
+    return out
+
+
+@dataclass
+class TorchPipeline:
+    """Executable pipeline: one kernel per planned group, in dependency
+    order (``CudaKernel``s or ``EagerKernel``s, per ``kernels``)."""
+
+    pipeline: Pipeline
+    kernels: List[object]
+    plan: PipelinePlan
+    device: torch.device
+    kernel_choice: str = "cuda"
+    cache_key: Optional[str] = None
+
+    def run(self, inputs: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+        """Execute every kernel; returns every *materialized* buffer
+        (zero-based tensors on the pipeline's device): the inputs plus one
+        buffer per kernel.
+
+        A batched pipeline takes every input with one extra leading dim of
+        exactly ``batch`` tiles; when the plan's slot capacity exceeds it,
+        the inputs are zero-padded to capacity before the sweep and every
+        returned buffer is sliced back to the ``batch`` valid tiles."""
+        batch = self.plan.notes.get("batch")
+        cap = self.plan.notes.get("batch_capacity", batch)
+        buffers = inputs_to_torch(inputs, self.device, self.pipeline, batch)
+        if batch is not None and cap > batch:
+            buffers = {
+                n: torch.cat([a, a.new_zeros((cap - batch,) + tuple(a.shape[1:]))])
+                for n, a in buffers.items()
+            }
+        for k in self.kernels:
+            buffers[k.name] = k(buffers)
+        if batch is not None and cap > batch:
+            buffers = {n: a[:batch] for n, a in buffers.items()}
+        return buffers
+
+    def __call__(self, inputs: Mapping[str, object]) -> torch.Tensor:
+        return self.run(inputs)[self.pipeline.output]
+
+
+# ---------------------------------------------------------------------------
+# Plan-keyed pipeline cache
+# ---------------------------------------------------------------------------
+
+_PIPELINE_CACHE: "OrderedDict[str, TorchPipeline]" = OrderedDict()
+_PIPELINE_CACHE_MAX = 128
+_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+
+# the planner's own defaults, except the budget, which is the port's: an
+# entry equal to its default is dropped before hashing, so an explicit
+# default and an omitted keyword share one cache entry
+_PLAN_KWARG_DEFAULTS: Dict[str, object] = dict(
+    block_h=None,
+    block_w=None,
+    lane_block="auto",
+    fuse=True,
+    grid_reduction=True,
+    red_grid_threshold=RED_GRID_THRESHOLD,
+    vmem_budget=H100_SMEM_PER_BLOCK,
+    cost_model="scheduler",
+    align_tpu=False,
+    line_buffer="auto",
+    red_resident=True,
+    batch=None,
+    batch_capacity=None,
+    red_chunk=None,
+    lane_price="joint",
+)
+
+# the schedule knobs (as opposed to the problem: budgets, batching); the
+# serve bridge's heuristic recompile strips them
+TUNABLE_KEYS = frozenset(
+    {"block_h", "block_w", "line_buffer", "red_chunk", "fuse", "lane_price"}
+)
+
+
+def _normalize_plan_kwargs(plan_kwargs: Mapping) -> Dict[str, object]:
+    return {
+        k: v
+        for k, v in plan_kwargs.items()
+        if not (k in _PLAN_KWARG_DEFAULTS and v == _PLAN_KWARG_DEFAULTS[k])
+    }
+
+
+def _hash_pipeline_content(h, pipe: Pipeline) -> None:
+    h.update(repr(pipe.output).encode())
+    h.update(repr(sorted(pipe.inputs)).encode())
+    for name, box in sorted(pipe.buffer_boxes.items()):
+        h.update(f"{name}:{box.dims}:{box.intervals};".encode())
+    for ns in normalize_pipeline(pipe):
+        h.update(repr((
+            ns.name, ns.pure_dims, ns.pure_extents, ns.red_dims,
+            ns.red_extents, ns.value, ns.init, ns.loads, ns.dim_lower,
+            ns.on_host,
+        )).encode())
+    h.update(b"elem:f32")
+
+
+def plan_cache_key(
+    pipe: Pipeline, device: Union[str, torch.device], kernels: str,
+    plan_kwargs: Mapping,
+) -> str:
+    """Content hash of a compiled pipeline: the lowered pipeline, every
+    non-default plan keyword, the device and the kernel choice.  Planning
+    itself is not run to compute it."""
+    h = hashlib.sha256()
+    h.update(f"{torch.device(device)}|{kernels}".encode())
+    norm = _normalize_plan_kwargs(plan_kwargs)
+    h.update(repr(sorted(norm.items(), key=lambda kv: kv[0])).encode())
+    _hash_pipeline_content(h, pipe)
+    return h.hexdigest()
+
+
+def clear_pipeline_cache(reset_stats: bool = False) -> None:
+    """Evict every cached pipeline (counters kept unless ``reset_stats``)."""
+    _PIPELINE_CACHE.clear()
+    if reset_stats:
+        _CACHE_STATS.update(hits=0, misses=0, evictions=0)
+
+
+def drop_pipeline_cache_entry(key: Optional[str]) -> bool:
+    """Evict one entry by its :func:`plan_cache_key` (the serve bridge's
+    retry-with-recompile path); returns whether it was present."""
+    if key is None:
+        return False
+    return _PIPELINE_CACHE.pop(key, None) is not None
+
+
+def pipeline_cache_stats() -> Dict[str, int]:
+    """Hit/miss/eviction counters plus the live entry count."""
+    return {**_CACHE_STATS, "entries": len(_PIPELINE_CACHE)}
+
+
+def compile_pipeline(
+    pipe: Pipeline,
+    *,
+    device: Union[str, torch.device] = "cuda",
+    kernels: str = "cuda",
+    cache: bool = False,
+    block_h: Optional[int] = None,
+    block_w: Optional[int] = None,
+    lane_block: object = "auto",
+    fuse: bool = True,
+    grid_reduction: bool = True,
+    red_grid_threshold: int = RED_GRID_THRESHOLD,
+    vmem_budget: int = H100_SMEM_PER_BLOCK,
+    cost_model: str = "scheduler",
+    align_tpu: bool = False,
+    line_buffer: object = "auto",
+    red_resident: bool = True,
+    batch: Optional[int] = None,
+    batch_capacity: Optional[int] = None,
+    red_chunk: Optional[int] = None,
+    lane_price: str = "joint",
+    verify: object = "auto",
+) -> TorchPipeline:
+    """Plan, certify and emit ``pipe``.  The plan keywords are the JAX
+    package's (``repro.backend.compile_pipeline``), with the H100's shared
+    memory per block as the default ``vmem_budget``.  ``device`` and
+    ``kernels`` are the execution contract of the module docstring;
+    ``verify`` gates static plan certification (``"auto"``: fresh plans
+    only, ``True``: cache hits too, ``False``: never)."""
+    if kernels not in KERNEL_CHOICES:
+        raise ValueError(f"kernels must be one of {KERNEL_CHOICES}: {kernels!r}")
+    if verify not in (True, False, "auto"):
+        raise ValueError(f"verify must be True, False, or 'auto': {verify!r}")
+    dev = resolve_device(device)
+    if kernels == "cuda" and dev.type != "cuda":
+        raise ValueError(
+            "kernels='cuda' needs device='cuda'; use kernels='eager' for "
+            "the plain version on the CPU"
+        )
+    plan_kwargs = dict(
+        block_h=block_h,
+        block_w=block_w,
+        lane_block=lane_block,
+        fuse=fuse,
+        grid_reduction=grid_reduction,
+        red_grid_threshold=red_grid_threshold,
+        vmem_budget=vmem_budget,
+        cost_model=cost_model,
+        align_tpu=align_tpu,
+        line_buffer=line_buffer,
+        red_resident=red_resident,
+        batch=batch,
+        batch_capacity=batch_capacity,
+        red_chunk=red_chunk,
+        lane_price=lane_price,
+    )
+    key: Optional[str] = None
+    if cache:
+        key = plan_cache_key(pipe, dev, kernels, plan_kwargs)
+        hit = _PIPELINE_CACHE.get(key)
+        if hit is not None:
+            _CACHE_STATS["hits"] += 1
+            _PIPELINE_CACHE.move_to_end(key)
+            if verify is True:
+                assert_plan_verified(hit.plan)
+            return hit
+        _CACHE_STATS["misses"] += 1
+    plan = build_pipeline_plan(pipe, **plan_kwargs)
+    if verify is not False:
+        assert_plan_verified(plan)
+    lowered = [LoweredGroup(kg) for kg in plan.kernels]
+    if kernels == "cuda":
+        lib = load_library(emit_library(lowered))
+        ks: List[object] = [
+            CudaKernel(lg, lib, str(i)) for i, lg in enumerate(lowered)
+        ]
+    else:
+        ks = [EagerKernel(lg) for lg in lowered]
+    pp = TorchPipeline(pipe, ks, plan, dev, kernels, cache_key=key)
+    if cache:
+        _PIPELINE_CACHE[key] = pp
+        while len(_PIPELINE_CACHE) > _PIPELINE_CACHE_MAX:
+            _PIPELINE_CACHE.popitem(last=False)
+            _CACHE_STATS["evictions"] += 1
+    return pp
+
+
+def reference_arrays(
+    pipe: Pipeline, inputs: Mapping[str, np.ndarray]
+) -> Dict[str, np.ndarray]:
+    """Reference interpreter results as zero-based dense arrays."""
+    values = execute_pipeline(pipe, inputs)
+    out: Dict[str, np.ndarray] = {}
+    for name, tbl in values.items():
+        box = pipe.buffer_boxes[name]
+        lo = tuple(l for l, _ in box.intervals)
+        arr = np.zeros(box.extents, np.float64)
+        for idx, v in tbl.items():
+            arr[tuple(i - l for i, l in zip(idx, lo))] = v
+        out[name] = arr
+    return out
+
+
+def max_abs_error(
+    pp: TorchPipeline,
+    inputs: Mapping[str, np.ndarray],
+    got: Optional[Mapping[str, torch.Tensor]] = None,
+) -> Dict[str, float]:
+    """Per-kernel max |generated - reference| over every materialized
+    buffer; for a batched pipeline the per-tile reference runs once per
+    slot and the error is the max over slots."""
+    if got is None:
+        got = pp.run(inputs)
+    host = {k.name: got[k.name].detach().cpu().numpy() for k in pp.kernels}
+    batch = pp.plan.notes.get("batch")
+    if batch is not None:
+        errs = {k.name: 0.0 for k in pp.kernels}
+        for b in range(batch):
+            tile_in = {n: np.asarray(a)[b] for n, a in inputs.items()}
+            want = reference_arrays(pp.pipeline, tile_in)
+            for k in pp.kernels:
+                w = want[k.name]
+                if w.size:
+                    e = float(np.max(np.abs(host[k.name][b] - w)))
+                    errs[k.name] = max(errs[k.name], e)
+        return errs
+    want = reference_arrays(pp.pipeline, inputs)
+    return {
+        k.name: float(np.max(np.abs(host[k.name] - want[k.name])))
+        if want[k.name].size
+        else 0.0
+        for k in pp.kernels
+    }
+
+
+__all__ = [
+    "KERNEL_CHOICES",
+    "TUNABLE_KEYS",
+    "TorchPipeline",
+    "clear_pipeline_cache",
+    "compile_pipeline",
+    "drop_pipeline_cache_entry",
+    "inputs_to_torch",
+    "max_abs_error",
+    "pipeline_cache_stats",
+    "plan_cache_key",
+    "reference_arrays",
+    "resolve_device",
+]

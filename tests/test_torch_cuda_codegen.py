@@ -1,0 +1,168 @@
+"""The CUDA emitter and the port's execution contract, on the CPU.
+
+No ``nvcc`` and no card here: these tests check what the CPU can check.
+``cuda_codegen`` writes deterministic sources for every plan of the slice,
+with shared memory exactly the plan's scratch; it refuses, with
+:class:`EmitError`, the variants not ported yet and a scratch footprint over
+the H100's shared memory per block; and ``compile_pipeline`` defaults to the
+card and raises without one instead of running on the CPU.  The one test
+that builds and launches the kernel is marked ``gpu`` and skips here.
+"""
+
+import math
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import sweep_inputs
+from repro_torch.apps import make_app
+from repro_torch.backend import EmitError, compile_pipeline
+from repro_torch.backend.cuda_codegen import CudaKernel, _flit, emit_kernel, emit_library, smem_layout
+from repro_torch.backend.eager import LoweredGroup
+from repro_torch.backend.plan import build_pipeline_plan
+from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
+
+pytestmark = pytest.mark.torch
+
+SLICE_PLANS = [
+    ("gaussian", {"size": 34}, {}),
+    ("harris", {"schedule": "sch3", "size": 36}, {}),
+    ("unsharp", {"size": 34}, {}),
+    ("camera", {"size": 16}, {}),
+    ("upsample", {"size": 32}, {}),
+    ("gaussian", {"size": 1082, "width": 1922}, {"batch": 8, "batch_capacity": 8}),
+    ("harris", {"schedule": "sch3", "size": 1024}, {"batch": 8, "batch_capacity": 8}),
+    ("unsharp", {"size": 1024}, {"batch": 8, "batch_capacity": 8}),
+    ("camera", {"size": 512}, {"batch": 8, "batch_capacity": 8}),
+    ("upsample", {"size": 1024}, {"batch": 8, "batch_capacity": 8}),
+    ("unsharp", {"size": 15}, {"line_buffer": True, "batch": 3, "batch_capacity": 4}),
+    ("camera", {"size": 7}, {"block_h": 3}),
+]
+
+
+def _ids(cases):
+    return ["-".join([n] + [str(v) for v in kw.values()] + [f"{k}{v}" for k, v in ckw.items()])
+            for n, kw, ckw in cases]
+
+
+def _plan(name, kw, ckw):
+    ckw = {"vmem_budget": H100_SMEM_PER_BLOCK, **ckw}
+    return build_pipeline_plan(make_app(name, **kw).pipeline, **ckw)
+
+
+@pytest.mark.parametrize("name,kw,ckw", SLICE_PLANS, ids=_ids(SLICE_PLANS))
+def test_source_is_deterministic_for_slice_plans(name, kw, ckw):
+    plan = _plan(name, kw, ckw)
+    src = emit_library([LoweredGroup(kg) for kg in plan.kernels])
+    again = emit_library([LoweredGroup(kg) for kg in _plan(name, kw, ckw).kernels])
+    assert src == again
+    assert src.count('#include "ub_kernel.cuh"') == 1
+    for i, kg in enumerate(plan.kernels):
+        assert f'extern "C" int ub_launch_{i}(' in src
+        _s, _r, smem = smem_layout(kg)
+        assert smem == kg.scratch_bytes <= H100_SMEM_PER_BLOCK
+        # the launch carries exactly the plan's scratch as dynamic smem
+        assert f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});" in src
+        carried = bool(kg.rings or kg.line_buffered)
+        grid_x = 1 if carried else kg.steps0
+        assert f"<<<dim3({grid_x}, {kg.batch_steps})," in src
+        # carried groups sweep their row steps in order inside one block
+        body = emit_kernel(kg, str(i))
+        assert (f"for (int i0 = 0; i0 < {kg.steps0}; ++i0)" in body) == carried
+    assert "fmaf" not in src and "__fdividef" not in src
+
+
+@pytest.mark.parametrize("name,kw,ckw,variant", [
+    ("gaussian", {"size": 33, "width": 255}, {"block_w": 128}, "lane grid"),
+    ("matmul", {"m": 19, "n": 13, "k": 70}, {"red_grid_threshold": 64}, "grid reduction"),
+    ("harris", {"schedule": "sch3", "size": 20}, {"block_w": 8, "line_buffer": True}, "lane"),
+], ids=["lane-grid", "red-grid", "lane-carry"])
+def test_unported_variants_raise(name, kw, ckw, variant):
+    plan = build_pipeline_plan(make_app(name, **kw).pipeline, **ckw)
+    kg = next(k for k in plan.kernels if k.lane_grid is not None or k.red_grid is not None)
+    with pytest.raises(EmitError, match=variant):
+        emit_kernel(kg)
+    # the plain version refuses the same plans: no path falls back to it
+    with pytest.raises(EmitError, match=variant):
+        compile_pipeline(make_app(name, **kw).pipeline, device="cpu", kernels="eager", **ckw)
+
+
+def test_over_budget_scratch_raises():
+    plan = build_pipeline_plan(
+        make_app("gaussian", size=200, width=1000).pipeline,
+        block_h=64, vmem_budget=96 * 1024 * 1024,
+    )
+    (kg,) = plan.kernels
+    assert kg.scratch_bytes > H100_SMEM_PER_BLOCK
+    with pytest.raises(EmitError, match="shared memory per block"):
+        emit_kernel(kg)
+
+
+@pytest.mark.parametrize("v", [0.0, -0.0, 1 / 3, 0.299, 255.0, 1e-30, -2.5, 3.4e38, 1e39])
+def test_float_literals_are_exact_f32(v):
+    lit = _flit(v)
+    with np.errstate(over="ignore"):
+        f32 = float(np.float32(v))
+    if math.isinf(f32):
+        assert lit == "__int_as_float(0x7f800000)"
+    else:
+        assert lit.endswith("f") and float.fromhex(lit[:-1]) == f32
+        assert math.copysign(1, float.fromhex(lit[:-1])) == math.copysign(1, v)
+
+
+def test_default_device_needs_a_gpu():
+    """The entry point defaults to the card; without one it raises instead
+    of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible; this checks the no-GPU contract")
+    app = make_app("gaussian", size=9)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compile_pipeline(app.pipeline)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compile_pipeline(app.pipeline, kernels="eager")
+
+
+def test_kernel_choice_contract():
+    app = make_app("gaussian", size=9)
+    with pytest.raises(ValueError, match="kernels='cuda' needs device='cuda'"):
+        compile_pipeline(app.pipeline, device="cpu")
+    with pytest.raises(ValueError, match="kernels must be one of"):
+        compile_pipeline(app.pipeline, device="cpu", kernels="compiled")
+
+
+def test_wrapper_runs_plain_version_only_on_cpu_tensors():
+    """``CudaKernel`` takes the plain version for CPU tensors (and counts no
+    launch); any other non-CUDA device is refused."""
+    app = make_app("unsharp", size=12)
+    plan = build_pipeline_plan(app.pipeline, vmem_budget=H100_SMEM_PER_BLOCK)
+    (kg,) = plan.kernels
+    fake_lib = types.SimpleNamespace(
+        ub_launch_0=types.SimpleNamespace(), ub_error_string=types.SimpleNamespace()
+    )
+    k = CudaKernel(LoweredGroup(kg), fake_lib, "0")
+    ins = sweep_inputs(app, 2, "u4")
+    bufs = {"input": torch.from_numpy(ins["input"])}
+    got = k(bufs)
+    assert torch.equal(got, k.plain(bufs)) and k.launches == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        k({"input": bufs["input"].to("meta")})
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_version_on_card():
+    """Build and launch the generated kernels; hold every materialized
+    buffer against the plain version's on the same CUDA inputs (bit for
+    bit), with one launch per kernel group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; run on the GPU machine")
+    for name, kw, ckw in SLICE_PLANS[:5] + SLICE_PLANS[10:]:
+        app = make_app(name, **kw)
+        pp = compile_pipeline(app.pipeline, **ckw)
+        plain = compile_pipeline(app.pipeline, kernels="eager", **ckw)
+        ins = sweep_inputs(app, 4, "f32", batch=ckw.get("batch"))
+        got, want = pp.run(ins), plain.run(ins)
+        for k in pp.kernels:
+            assert got[k.name].is_cuda and k.launches == 1
+            assert torch.equal(got[k.name], want[k.name]), (name, k.name)

@@ -1,0 +1,50 @@
+"""The port stands alone: nothing under ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``,
+and importing the port's backend leaves ``jax`` unloaded."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytestmark = pytest.mark.torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_repro_imports(path):
+    bad = [
+        m for m in _imported_modules(path)
+        if m.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_backend_import_leaves_jax_unloaded():
+    code = (
+        "import sys, repro_torch.backend, repro_torch.apps, repro_torch.serve; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
+        "assert not bad, bad"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert res.returncode == 0, res.stderr
