@@ -3,34 +3,44 @@
 
     python3 chip_smoke.py
 
-The path is the paper's compiler serving stencil tiles: each of the five
-stencil apps of the paper's Table III is lowered, planned, certified and
-compiled to one hand-written CUDA kernel per planned kernel group
+The path is the paper's compiler serving image tiles: the five stencil apps
+of the paper's Table III, its two DNN layers (resnet, mobilenet) and a
+matmul tile are lowered, planned, certified and compiled to one
+hand-written CUDA kernel per planned kernel group
 (``repro_torch.backend.cuda_codegen``, built with nvcc for ``sm_90a``), and
 served through ``repro_torch.backend.PipelineServer``.  Phases:
 
 1. device: the card's name and power limit; a CUDA device is required.
 2. build: every pipeline's CUDA library, one nvcc per library, all started
    together (seconds printed per build).
-3. small-size reference: each app at a tile of about 32, run through its
-   CUDA kernels and held against the reference interpreter — bit-exact for
-   gaussian and upsample on integer inputs, ``rtol=1e-4, atol=1e-3`` for
-   harris, unsharp and camera.
-4. full size, kernel vs plain: each app at full size, batch 8, on the
-   H100's shared memory per block; every kernel group's output is compared
-   with its plain PyTorch version on the same CUDA inputs (max abs diff, 0
-   expected) and both are timed with CUDA events.  Each is also held
+3. small-size reference: each app at a small tile, run through its CUDA
+   kernels and held against the reference interpreter — bit-exact for
+   gaussian, upsample, resnet and matmul on integer inputs, ``rtol=1e-4,
+   atol=1e-3`` for harris, unsharp and camera.  The cases cover every
+   variant of the generated kernel: row rings and line buffers, lane grids
+   with padded lane tails, column rings, lane line buffers, and grid
+   reductions with a masked K-tail over resident or chunk-streamed operands.
+4. full size, kernel vs plain: each configuration at full size, batch 8, on
+   the H100's shared memory per block; every kernel group's output is
+   compared with its plain PyTorch version on the same CUDA inputs (max
+   abs diff, 0 expected); the kernel is timed with CUDA events (median of
+   10), the plain version over its comparison call.  Each is also held
    against a computation that shares no code with the port: gaussian
    against ``F.conv2d`` (atol 1e-3), upsample against
-   ``expand().contiguous()`` (exact) — both timed as the library call — and
-   harris, unsharp and camera's two groups, on one slot, against the app's
-   math written as whole-image torch expressions (``rtol=1e-4, atol=1e-3``).
-5. serve: per app a ``PipelineServer(pipe, batch_slots=8)`` answers 20
-   seeded requests (three dispatches, the last ragged); every served tile
-   must equal the per-tile pipeline's result.  After one warm-up round,
-   every kernel's launch count is zeroed just before the timed round and
-   read just after; CUDA events around each dispatch's kernels give their
-   share of the wall time.
+   ``expand().contiguous()`` (exact), resnet against ``F.conv2d`` and
+   matmul against ``torch.matmul`` (all three timed as the library call),
+   mobilenet against a depthwise and a pointwise ``F.conv2d`` (two calls,
+   so no library time), and harris (1024 and 2048), unsharp and camera's
+   two groups, on one slot, against the app's math written as whole-image
+   torch expressions (``rtol=1e-4, atol=1e-3``).  The DNN configurations
+   take integers in [0, 16), so every sum stays below 2**24 and any
+   summation order gives the same f32 result.
+5. serve: per configuration a ``PipelineServer(pipe, batch_slots=8)``
+   answers 20 seeded requests (three dispatches, the last ragged); every
+   served tile must equal the per-tile pipeline's result.  After one
+   warm-up round, every kernel's launch count is zeroed just before the
+   timed round and read just after; CUDA events around each dispatch's
+   kernels give their share of the wall time.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -52,19 +62,41 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
+# (app, app kwargs, compile kwargs, bit-exact against the reference)
 SMALL = [
-    ("gaussian", {"size": 34}, True),
-    ("harris", {"schedule": "sch3", "size": 36}, False),
-    ("unsharp", {"size": 34}, False),
-    ("camera", {"size": 16}, False),
-    ("upsample", {"size": 32}, True),
+    ("gaussian", {"size": 34}, {}, True),
+    ("harris", {"schedule": "sch3", "size": 36}, {}, False),
+    ("unsharp", {"size": 34}, {}, False),
+    ("camera", {"size": 16}, {}, False),
+    ("upsample", {"size": 32}, {}, True),
+    # column rings under a lane grid with a padded lane tail
+    ("gaussian", {"size": 26}, {"block_w": 9, "line_buffer": True}, True),
+    # lane line buffers, column rings and lane recompute panels
+    ("harris", {"schedule": "sch3", "size": 25},
+     {"block_h": 9, "block_w": 5, "line_buffer": True}, False),
+    # a lane grid with a padded lane tail
+    ("resnet", {"img": 8, "cin": 4, "cout": 4}, {"block_w": 3}, True),
+    # a grid reduction over a resident operand, with a masked K-tail
+    ("matmul", {"m": 8, "n": 13, "k": 149}, {"red_grid_threshold": 64, "block_h": 6}, True),
+    # a grid reduction over chunk-streamed operands
+    ("matmul", {"m": 19, "n": 13, "k": 70},
+     {"red_grid_threshold": 64, "red_resident": False}, True),
 ]
+# (label, app, app kwargs, integer inputs)
 FULL = [
-    ("gaussian", {"size": 1082, "width": 1922}),
-    ("harris", {"schedule": "sch3", "size": 1024}),
-    ("unsharp", {"size": 1024}),
-    ("camera", {"size": 512}),
-    ("upsample", {"size": 1024}),
+    ("gaussian", "gaussian", {"size": 1082, "width": 1922}, False),
+    ("harris", "harris", {"schedule": "sch3", "size": 1024}, False),
+    ("unsharp", "unsharp", {"size": 1024}, False),
+    ("camera", "camera", {"size": 512}, False),
+    ("upsample", "upsample", {"size": 1024}, False),
+    # ResNet-18/34 conv2_x: 3x3, 64 -> 64 channels on 56x56 (a lane grid)
+    ("resnet", "resnet", {"img": 56, "cin": 64, "cout": 64}, True),
+    # MobileNet v1: depthwise 3x3 on 112x112x32, then pointwise 32 -> 64
+    ("mobilenet", "mobilenet", {"img": 112, "cin": 32, "cout": 64}, True),
+    # a grid reduction with a masked K-tail (1000 = 7 x 128 + 104)
+    ("matmul", "matmul", {"m": 256, "n": 256, "k": 1000}, True),
+    # a 2K stencil: lane grid, column rings and lane line buffers
+    ("harris2048", "harris", {"schedule": "sch3", "size": 2048}, False),
 ]
 BATCH = 8
 N_REQUESTS = 20
@@ -117,15 +149,32 @@ def variants(kg) -> list:
     out = ["(a) streamed panels" if kg.streamed else "(a) unstreamed"]
     if kg.padded_grid is not None:
         out.append("(a) padded rows")
-    if any(key is not None for _sp, key in kg.scratch_entries()):
+    keys = [key for _sp, key in kg.scratch_entries()]
+    if any(key is not None and not (isinstance(key, tuple) and key[1] is None) for key in keys):
         out.append("(b) fused recompute")
-    if kg.rings:
+    rg = kg.red_grid
+    if rg is not None:
+        out.append("(c) grid reduction")
+        if rg.padded:
+            out.append("(c) masked K-tail")
+        for g in kg.groups:
+            if g.red_axis is not None:
+                out.append("(c) resident operand" if g.resident else "(c) streamed chunks")
+    if any(not r.lane for r in kg.rings):
         out.append("(d) input ring")
-    if kg.line_buffered:
+    if any(key is None for key in keys):
         out.append("(d) line buffer")
+    if kg.lane_grid is not None:
+        out.append("(e) lane grid")
+        if kg.lane_grid.pad:
+            out.append("(e) padded lanes")
+    if any(r.lane for r in kg.rings):
+        out.append("(f) column ring")
+    if any(isinstance(key, tuple) and key[1] is None for key in keys):
+        out.append("(f) lane line buffer")
     if kg.batch_grid is not None:
         out.append("(g) batch grid")
-    return out
+    return sorted(set(out), key=out.index)
 
 
 def _bsum(terms):
@@ -208,7 +257,8 @@ def independent(name: str, a):
 def bytes_and_ops(k) -> tuple:
     """Bytes the group must move (each input region read once, the output
     written once) and the f32 operations its stages do on this run's
-    shapes (each fused row evaluated once)."""
+    shapes (each fused row evaluated once; a grid reduction's terms over
+    its whole extent, without the masked K-tail's padding terms)."""
     import math
 
     kg = k.kg
@@ -217,13 +267,69 @@ def bytes_and_ops(k) -> tuple:
     for need in kg.required_extents().values():
         nbytes += 4 * nb * math.prod(need)
     per_stage = {}
-    for (name, _shift), prog in k.lg.programs.items():
-        per_stage[name] = sum(1 for op in prog if op[0] in ("bin", "sel"))
+    for (name, _shift, _lshift), prog in k.lg.programs.items():
+        n = sum(1 for op in prog if op[0] in ("bin", "sel"))
+        rg = kg.red_grid
+        if rg is not None and name == kg.output.name:
+            n = n * rg.extent / rg.chunk     # one chunk's program holds chunk terms
+        per_stage[name] = n
     ops = sum(
         n * nb * math.prod(kg.stage_plan(name).nstage.pure_extents)
         for name, n in per_stage.items()
     )
     return nbytes, ops
+
+
+def library_check(label: str, bufs, out):
+    """The one PyTorch call computing the same function where there is one
+    (timed as ``library_ms``), else None, and a check of ``out`` against a
+    computation sharing no code with the port: ``(call, ok, message)``."""
+    import torch
+    import torch.nn.functional as F
+
+    if label == "gaussian":
+        x = bufs["input"].unsqueeze(1)
+        w = torch.tensor([[1, 2, 1], [2, 4, 2], [1, 2, 1]],
+                         dtype=torch.float32, device=x.device).view(1, 1, 3, 3) / 16
+        call = lambda: F.conv2d(x, w)  # noqa: E731
+        err = float((call()[:, 0] - out).abs().max())
+        return call, err <= 1e-3, (f"max|cuda - F.conv2d| = {err!r} "
+                                   "(atol 1e-3; another summation order)")
+    if label == "upsample":
+        x = bufs["input"]
+        b_, h_, w_ = x.shape
+        call = lambda: x[:, :, None, :, None].expand(b_, h_, 2, w_, 2).contiguous()  # noqa: E731
+        return call, torch.equal(call(), out), "cuda == expand().contiguous() (exact)"
+    if label == "resnet":
+        # ifmap [slot][ci][y][x], weights [slot][co][ci][ky][kx]: one grouped
+        # convolution over the slots
+        x, w = bufs["ifmap"], bufs["weights"]
+        nb, ci = x.shape[:2]
+        xs = x.reshape(1, nb * ci, *x.shape[2:])
+        ws = w.reshape(-1, *w.shape[2:])
+        call = lambda: F.conv2d(xs, ws, groups=nb).view(out.shape)  # noqa: E731
+        ok = torch.allclose(out, call(), rtol=1e-5, atol=1e-3)
+        err = float((call() - out).abs().max())
+        return call, ok, f"max|cuda - F.conv2d| = {err!r} (rtol=1e-5 atol=1e-3)"
+    if label == "matmul":
+        a, b = bufs["A"], bufs["B"]
+        call = lambda: torch.matmul(a, b)  # noqa: E731
+        err = float((call() - out).abs().max())
+        return call, torch.equal(call(), out), f"max|cuda - torch.matmul| = {err!r} (exact)"
+    if label == "mobilenet":
+        # ifmap [slot][y][x][c] -> NCHW; depthwise 3x3 per channel, then a
+        # 1x1 convolution per slot; the output is [slot][y][x][co]
+        x, wd, wp = bufs["ifmap"], bufs["dw_weights"], bufs["pw_weights"]
+        nb, _, _, c = x.shape
+        xs = x.permute(0, 3, 1, 2).reshape(1, nb * c, x.shape[1], x.shape[2])
+        dw = F.conv2d(xs, wd.reshape(nb * c, 1, 3, 3), groups=nb * c)
+        pw = F.conv2d(dw, wp.reshape(-1, c, 1, 1), groups=nb)
+        want = pw.view(nb, -1, *pw.shape[2:]).permute(0, 2, 3, 1)
+        err = float((want - out).abs().max())
+        ok = torch.allclose(out, want, rtol=1e-5, atol=1e-3)
+        return None, ok, (f"max|cuda - depthwise + pointwise F.conv2d| = {err!r} "
+                          "(rtol=1e-5 atol=1e-3; two calls, no library time)")
+    return None, None, None
 
 
 def main() -> int:
@@ -259,12 +365,12 @@ def main() -> int:
 
     # -- 2. build: every library at once ---------------------------------------
     configs = []
-    for name, kw, _exact in SMALL:
-        configs.append((make_app(name, **kw).pipeline, {}))
+    for name, kw, ckw, _exact in SMALL:
+        configs.append((make_app(name, **kw).pipeline, ckw))
     full_apps = {}
-    for name, kw in FULL:
+    for label, name, kw, _int in FULL:
         app = make_app(name, **kw)
-        full_apps[name] = app
+        full_apps[label] = app
         configs.append((app.pipeline, {"batch": BATCH, "batch_capacity": BATCH}))
         configs.append((app.pipeline, {}))
     sources = []
@@ -278,10 +384,11 @@ def main() -> int:
         + ", ".join(f"{s:.1f}" for s in build_secs.values()))
 
     # -- 3. small-size reference -----------------------------------------------
+    t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    for name, kw, exact in SMALL:
+    for name, kw, ckw, exact in SMALL:
         app = make_app(name, **kw)
-        pp = compile_pipeline(app.pipeline)
+        pp = compile_pipeline(app.pipeline, **ckw)
         ins = inputs_for(app, rng, integer=True)
         got = pp.run(ins)
         torch.cuda.synchronize()
@@ -294,55 +401,47 @@ def main() -> int:
                 ok = np.array_equal(g, w)
             else:
                 ok = np.allclose(g, w, rtol=1e-4, atol=1e-3)
-            log(f"[small] {name}/{k.name} {kw}: max|cuda - reference| = {err!r} "
+            log(f"[small] {name}/{k.name} {kw} {ckw} [{', '.join(variants(k.kg))}]: "
+                f"max|cuda - reference| = {err!r} "
                 f"({'exact' if exact else 'rtol=1e-4 atol=1e-3'}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name}/{k.name} disagrees with the reference")
+    log(f"[small] phase wall {time.perf_counter() - t0:.1f} s")
 
     # -- 4. full size: kernel vs plain -----------------------------------------
     rows = {}
-    for name, _kw in FULL:
-        app = full_apps[name]
+    t_phase = time.perf_counter()
+    for label, name, _kw, integer in FULL:
+        app = full_apps[label]
         t0 = time.perf_counter()
         pp = compile_pipeline(app.pipeline, batch=BATCH, batch_capacity=BATCH, cache=True)
         compile_s = time.perf_counter() - t0
-        ins = inputs_for(app, rng, batch=BATCH)
+        ins = inputs_for(app, rng, batch=BATCH, integer=integer)
         bufs = {n: torch.from_numpy(a).cuda() for n, a in ins.items()}
         for k in pp.kernels:
             out = k(bufs)
-            plain = k.plain(bufs)
             torch.cuda.synchronize()
+            # the plain version is timed over its comparison call
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            plain = k.plain(bufs)
+            b.record()
+            b.synchronize()
+            plain_ms = a.elapsed_time(b)
             bufs[k.name] = out
             if out.shape != plain.shape or not torch.isfinite(out).all():
-                raise AssertionError(f"{name}/{k.name}: bad output {tuple(out.shape)}")
+                raise AssertionError(f"{label}/{k.name}: bad output {tuple(out.shape)}")
             err = float((out - plain).abs().max())
             ms = time_ms(lambda: k(bufs), 10)
-            plain_ms = time_ms(lambda: k.plain(bufs), 1)
             nbytes, ops = bytes_and_ops(k)
             t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
             t_ops = 1e3 * ops / PEAK_F32_FLOPS
             # the one PyTorch call computing the same function, where there is
             # one: it is also a check that shares no code with the port
-            library_ms = None
-            if name == "gaussian":
-                x = bufs["input"].unsqueeze(1)
-                w = torch.tensor([[1, 2, 1], [2, 4, 2], [1, 2, 1]],
-                                 dtype=torch.float32, device="cuda").view(1, 1, 3, 3) / 16
-                library = lambda x=x, w=w: torch.nn.functional.conv2d(x, w)  # noqa: E731
-                lib_err = float((library()[:, 0] - out).abs().max())
-                lib_ok = lib_err <= 1e-3
-                log(f"[full] gaussian: max|cuda - F.conv2d| = {lib_err!r} "
-                    f"(atol 1e-3; another summation order) {'ok' if lib_ok else 'FAIL'}")
-                library_ms = time_ms(library, 10)
-            elif name == "upsample":
-                x = bufs["input"]
-                b_, h_, w_ = x.shape
-                library = lambda x=x: x[:, :, None, :, None].expand(b_, h_, 2, w_, 2).contiguous()  # noqa: E731
-                lib_ok = torch.equal(library(), out)
-                log(f"[full] upsample: cuda == expand().contiguous() (exact) "
-                    f"{'ok' if lib_ok else 'FAIL'}")
-                library_ms = time_ms(library, 10)
-            else:
+            library, lib_ok, msg = library_check(label, bufs, out)
+            library_ms = time_ms(library, 10) if library is not None else None
+            if lib_ok is None:
                 # the last slot, whole image, held against the app's math
                 # written as whole-image torch expressions
                 (src,) = app.input_extents
@@ -350,12 +449,13 @@ def main() -> int:
                 got = out[BATCH - 1]
                 lib_err = float((got - want).abs().max())
                 lib_ok = got.shape == want.shape and torch.allclose(got, want, rtol=1e-4, atol=1e-3)
-                log(f"[full] {name}/{k.name} slot {BATCH - 1}: max|cuda - torch expression| = "
-                    f"{lib_err!r} (rtol=1e-4 atol=1e-3) {'ok' if lib_ok else 'FAIL'}")
+                msg = (f"slot {BATCH - 1}: max|cuda - torch expression| = {lib_err!r} "
+                       "(rtol=1e-4 atol=1e-3)")
+            log(f"[full] {label}/{k.name} {msg} {'ok' if lib_ok else 'FAIL'}")
             if not lib_ok:
-                raise AssertionError(f"{name}/{k.name}: CUDA kernel disagrees with an independent computation")
-            rows[f"{name}/{k.name}"] = {
-                "name": f"{name}/{k.name}",
+                raise AssertionError(f"{label}/{k.name}: CUDA kernel disagrees with an independent computation")
+            rows[f"{label}/{k.name}"] = {
+                "name": f"{label}/{k.name}",
                 "route": "cuda",
                 "source": "src/repro_torch/backend/cuda_codegen.py",
                 "replaces": REPLACES,
@@ -368,22 +468,25 @@ def main() -> int:
                 "library_ms": library_ms,
                 "plan_hbm_bound_ms": 1e3 * k.kg.hbm_bytes() / PEAK_BYTES_PER_S,
                 "variants": variants(k.kg),
-                "app": name,
+                "app": label,
             }
-            log(f"[full] {name}/{k.name} grid={k.kg.grid} bh={k.kg.bh} "
-                f"smem={k.kg.scratch_bytes} B: max|cuda - plain| = {err!r} "
-                f"(tolerance 0); "
+            log(f"[full] {label}/{k.name} grid={k.kg.grid} bh={k.kg.bh} bw={k.kg.bw} "
+                f"smem={k.kg.scratch_bytes} B [{', '.join(variants(k.kg))}]: "
+                f"max|cuda - plain| = {err!r} (tolerance 0); "
                 f"{ms:.4f} ms/launch, plain {plain_ms:.2f} ms, bound "
-                f"{max(t_bytes, t_ops):.4f} ms, compile {compile_s:.2f} s")
+                f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}), "
+                f"library {library_ms if library_ms is None else round(library_ms, 4)} ms, "
+                f"compile {compile_s:.2f} s")
             if err != 0.0:
-                raise AssertionError(f"{name}/{k.name}: CUDA kernel differs from plain by {err}")
+                raise AssertionError(f"{label}/{k.name}: CUDA kernel differs from plain by {err}")
+    log(f"[full] phase wall {time.perf_counter() - t_phase:.1f} s")
 
     # -- 5. serve ----------------------------------------------------------------
-    for name, _kw in FULL:
-        app = full_apps[name]
+    for label, name, _kw, integer in FULL:
+        app = full_apps[label]
         server = PipelineServer(app.pipeline, batch_slots=BATCH)
         tile_pp = compile_pipeline(app.pipeline)
-        reqs = [inputs_for(app, rng) for _ in range(N_REQUESTS)]
+        reqs = [inputs_for(app, rng, integer=integer) for _ in range(N_REQUESTS)]
         server.run(reqs)                     # warm-up: allocator, first copies
         # time the kernels of each dispatch through the server's one seam
         spans = []
@@ -409,23 +512,32 @@ def main() -> int:
         counts = {k.name: k.launches for k in server.pipeline.kernels}
         dispatches = server.stats()["dispatches"] - before
         if dispatches != 3 or not all(r.ok for r in done):
-            raise AssertionError(f"{name}: serve stats {server.stats()}")
+            raise AssertionError(f"{label}: serve stats {server.stats()}")
         kernel_ms = sum(a.elapsed_time(b) for a, b in spans)
         for k in server.pipeline.kernels:
             if counts[k.name] == 0:
-                raise AssertionError(f"{name}/{k.name}: kernel never launched while serving")
-            rows[f"{name}/{k.name}"]["launches"] = counts[k.name]
-            rows[f"{name}/{k.name}"]["launches_per_dispatch"] = counts[k.name] / dispatches
+                raise AssertionError(f"{label}/{k.name}: kernel never launched while serving")
+            rows[f"{label}/{k.name}"]["launches"] = counts[k.name]
+            rows[f"{label}/{k.name}"]["launches_per_dispatch"] = counts[k.name] / dispatches
         for req, ins in zip(done, reqs):
             want = tile_pp.run(ins)
             for kname, arr in req.outputs.items():
                 if not np.array_equal(arr, want[kname].cpu().numpy()):
-                    raise AssertionError(f"{name}/{kname}: served tile differs from the per-tile pipeline")
-        log(f"[serve] {name}: {N_REQUESTS} requests in {dispatches} dispatches, "
+                    raise AssertionError(f"{label}/{kname}: served tile differs from the per-tile pipeline")
+        log(f"[serve] {label}: {N_REQUESTS} requests in {dispatches} dispatches, "
             f"{secs:.4f} s, {N_REQUESTS / secs:.1f} img/s; kernels {kernel_ms:.3f} ms "
             f"({100 * kernel_ms / (1e3 * secs):.1f}% of wall); launches {counts}; "
             "every tile equals the per-tile pipeline")
 
+    # every variant of the generated kernel, with the configurations that
+    # launched it at full size and its largest difference from the plain version
+    by_variant = {}
+    for row in rows.values():
+        for v in row["variants"]:
+            apps, err = by_variant.get(v, ([], 0.0))
+            by_variant[v] = (apps + [row["name"]], max(err, row["max_abs_err"]))
+    for v, (apps, err) in sorted(by_variant.items()):
+        log(f"[variants] {v}: {', '.join(apps)}; max|cuda - plain| = {err!r}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

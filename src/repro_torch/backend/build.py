@@ -18,6 +18,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -86,9 +87,16 @@ def build_many(sources: Sequence[str]) -> Dict[str, float]:
             started.append((d, job))
     times: Dict[str, float] = {}
     errors: List[str] = []
-    for d, (proc, tmp, so, t0) in started:
+
+    def reap(job):
+        # each build is timed at its own exit, not when its turn to be read comes
+        proc, _tmp, _so, t0 = job
         log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
+        return log, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(len(started), 1)) as pool:
+        reaped = list(pool.map(reap, [job for _d, job in started]))
+    for (d, (proc, tmp, so, _t0)), (log, secs) in zip(started, reaped):
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {so.parent}:\n{log}")
             continue

@@ -1,14 +1,17 @@
 """The CUDA emitter and the port's execution contract, on the CPU.
 
 No ``nvcc`` and no card here: these tests check what the CPU can check.
-``cuda_codegen`` writes deterministic sources for every plan of the slice,
-with shared memory exactly the plan's scratch; it refuses, with
-:class:`EmitError`, the variants not ported yet and a scratch footprint over
-the H100's shared memory per block; and ``compile_pipeline`` defaults to the
-card and raises without one instead of running on the CPU.  The one test
-that builds and launches the kernel is marked ``gpu`` and skips here.
+``cuda_codegen`` writes deterministic sources for every plan of the port,
+in the launch geometry of each variant, with shared memory exactly the
+plan's scratch; it refuses, with :class:`EmitError`, an input ring on a
+non-leading axis and a scratch footprint over the H100's shared memory per
+block; the kernel wrapper refuses CPU tensors; and ``compile_pipeline``
+defaults to the card and raises without one instead of running on the
+CPU.  The one test that builds and launches the kernels is marked ``gpu``
+and skips here.
 """
 
+import dataclasses
 import math
 import types
 
@@ -19,6 +22,7 @@ import torch
 from conftest import sweep_inputs
 from repro_torch.apps import make_app
 from repro_torch.backend import EmitError, compile_pipeline
+from repro_torch.backend.build import build_many
 from repro_torch.backend.cuda_codegen import CudaKernel, _flit, emit_kernel, emit_library, smem_layout
 from repro_torch.backend.eager import LoweredGroup
 from repro_torch.backend.plan import build_pipeline_plan
@@ -39,6 +43,19 @@ SLICE_PLANS = [
     ("upsample", {"size": 1024}, {"batch": 8, "batch_capacity": 8}),
     ("unsharp", {"size": 15}, {"line_buffer": True, "batch": 3, "batch_capacity": 4}),
     ("camera", {"size": 7}, {"block_h": 3}),
+]
+
+
+# the small lane-grid, column-carry and grid-reduction plans chip_smoke.py
+# holds against the reference interpreter
+LANE_RED_PLANS = [
+    ("gaussian", {"size": 26}, {"block_w": 9, "line_buffer": True}),
+    ("harris", {"schedule": "sch3", "size": 25}, {"block_h": 9, "block_w": 5, "line_buffer": True}),
+    ("resnet", {"img": 8, "cin": 4, "cout": 4}, {"block_w": 3}),
+    ("matmul", {"m": 8, "n": 13, "k": 149}, {"red_grid_threshold": 64, "block_h": 6}),
+    ("matmul", {"m": 19, "n": 13, "k": 70}, {"red_grid_threshold": 64, "red_resident": False}),
+    ("harris", {"schedule": "sch3", "size": 21},
+     {"block_w": 6, "block_h": 5, "line_buffer": True, "batch": 3, "batch_capacity": 4}),
 ]
 
 
@@ -75,18 +92,68 @@ def test_source_is_deterministic_for_slice_plans(name, kw, ckw):
 
 
 @pytest.mark.parametrize("name,kw,ckw,variant", [
-    ("gaussian", {"size": 33, "width": 255}, {"block_w": 128}, "lane grid"),
-    ("matmul", {"m": 19, "n": 13, "k": 70}, {"red_grid_threshold": 64}, "grid reduction"),
-    ("harris", {"schedule": "sch3", "size": 20}, {"block_w": 8, "line_buffer": True}, "lane"),
+    ("gaussian", {"size": 33, "width": 255}, {"block_w": 128, "line_buffer": False}, "lane"),
+    ("matmul", {"m": 19, "n": 13, "k": 70}, {"red_grid_threshold": 64}, "red"),
+    ("harris", {"schedule": "sch3", "size": 20}, {"block_w": 8, "line_buffer": True}, "lane-carry"),
 ], ids=["lane-grid", "red-grid", "lane-carry"])
-def test_unported_variants_raise(name, kw, ckw, variant):
+def test_ported_variants_emit(name, kw, ckw, variant):
+    """The grid-reduction, lane-grid and column-carry plans emit
+    deterministic sources in their launch geometry: a lane grid that
+    carries nothing gets a block per (row step x lane step, slot); a
+    column-carried group a block per (row step, slot) looping over its lane
+    steps; a grid reduction a block per (row step, slot) looping over its
+    chunks inside each output element.  Dynamic shared memory is the plan's
+    scratch, column rings included."""
     plan = build_pipeline_plan(make_app(name, **kw).pipeline, **ckw)
     kg = next(k for k in plan.kernels if k.lane_grid is not None or k.red_grid is not None)
-    with pytest.raises(EmitError, match=variant):
+    src = emit_kernel(kg)
+    assert src == emit_kernel(next(
+        k for k in build_pipeline_plan(make_app(name, **kw).pipeline, **ckw).kernels
+        if k.name == kg.name
+    ))
+    _s, r_off, smem = smem_layout(kg)
+    assert smem == kg.scratch_bytes
+    assert f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});" in src
+    steps, lanes = kg.steps0, kg.lane_steps
+    if variant == "lane":
+        assert not (kg.rings or kg.line_buffered) and lanes > 1
+        assert f"<<<dim3({steps * lanes}, 1), 256," in src
+        assert f"const int i0 = blockIdx.x / {lanes};" in src
+        assert f"const int j = blockIdx.x % {lanes};" in src
+        assert "for (int j" not in src and "for (int k" not in src
+    elif variant == "red":
+        rg = kg.red_grid
+        assert rg is not None and rg.steps > 1
+        assert f"<<<dim3({steps}, 1), 256," in src
+        assert "const int i0 = blockIdx.x;" in src
+        assert f"for (int k = 0; k < {rg.steps}; ++k) {{" in src
+        assert "for (int j" not in src and "for (int i0" not in src
+    else:
+        assert kg.rings and all(r.lane for r in kg.rings) and kg.line_buffered
+        assert f"<<<dim3({steps}, 1), 512," in src
+        assert f"for (int j = 0; j < {lanes}; ++j) {{" in src
+        assert "for (int i0" not in src and "for (int k" not in src
+        # the column rings sit after the scratch at (bh, ..., bw + halo)
+        assert smem > 4 * r_off[0]
+        assert all(
+            r.ring_shape(kg.bh, kg.bw)[r.axis] == kg.bw + r.halo for r in kg.rings
+        )
+    # the plain version runs the same plans
+    pp = compile_pipeline(make_app(name, **kw).pipeline, device="cpu", kernels="eager", **ckw)
+    assert any(k.kg.lane_grid is not None or k.kg.red_grid is not None for k in pp.kernels)
+
+
+def test_input_ring_on_a_non_leading_axis_raises():
+    """No plan puts an input ring on a non-leading axis; a hand-built one
+    is refused by both versions."""
+    plan = build_pipeline_plan(make_app("gaussian", size=13).pipeline, block_h=4)
+    (kg,) = plan.kernels
+    assert kg.rings and kg.rings[0].axis == 0
+    kg = dataclasses.replace(kg, rings=[dataclasses.replace(kg.rings[0], axis=1)] + kg.rings[1:])
+    with pytest.raises(EmitError, match="non-leading axis"):
         emit_kernel(kg)
-    # the plain version refuses the same plans: no path falls back to it
-    with pytest.raises(EmitError, match=variant):
-        compile_pipeline(make_app(name, **kw).pipeline, device="cpu", kernels="eager", **ckw)
+    with pytest.raises(EmitError, match="non-leading axis"):
+        LoweredGroup(kg)
 
 
 def test_over_budget_scratch_raises():
@@ -132,9 +199,10 @@ def test_kernel_choice_contract():
         compile_pipeline(app.pipeline, device="cpu", kernels="compiled")
 
 
-def test_wrapper_runs_plain_version_only_on_cpu_tensors():
-    """``CudaKernel`` takes the plain version for CPU tensors (and counts no
-    launch); any other non-CUDA device is refused."""
+def test_wrapper_refuses_cpu_tensors():
+    """``CudaKernel`` takes CUDA tensors only: CPU tensors (and any other
+    non-CUDA device) raise, with no launch counted; callers on the CPU ask
+    for the plain version by name."""
     app = make_app("unsharp", size=12)
     plan = build_pipeline_plan(app.pipeline, vmem_budget=H100_SMEM_PER_BLOCK)
     (kg,) = plan.kernels
@@ -144,10 +212,12 @@ def test_wrapper_runs_plain_version_only_on_cpu_tensors():
     k = CudaKernel(LoweredGroup(kg), fake_lib, "0")
     ins = sweep_inputs(app, 2, "u4")
     bufs = {"input": torch.from_numpy(ins["input"])}
-    got = k(bufs)
-    assert torch.equal(got, k.plain(bufs)) and k.launches == 0
-    with pytest.raises(ValueError, match="unsupported device"):
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        k(bufs)
+    assert k.launches == 0
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
         k({"input": bufs["input"].to("meta")})
+    assert k.launches == 0
 
 
 @pytest.mark.gpu
@@ -157,7 +227,13 @@ def test_cuda_kernels_match_plain_version_on_card():
     bit), with one launch per kernel group."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc; run on the GPU machine")
-    for name, kw, ckw in SLICE_PLANS[:5] + SLICE_PLANS[10:]:
+    cases = SLICE_PLANS[:5] + SLICE_PLANS[10:] + LANE_RED_PLANS
+    # every library at once, one nvcc each
+    build_many([
+        emit_library([LoweredGroup(kg) for kg in _plan(name, kw, ckw).kernels])
+        for name, kw, ckw in cases
+    ])
+    for name, kw, ckw in cases:
         app = make_app(name, **kw)
         pp = compile_pipeline(app.pipeline, **ckw)
         plain = compile_pipeline(app.pipeline, kernels="eager", **ckw)

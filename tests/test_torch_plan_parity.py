@@ -4,7 +4,7 @@
 (it imports nothing of ``repro``), so every plan it builds must match the
 JAX planner's digest for digest: block heights, grids, fused stages, view
 groups, rings, line buffers, bindings, scratch and HBM bytes.  Checked on
-the slice's full-size serving configurations and on every case of the
+the port's full-size serving configurations and on every case of the
 deterministic shape sweep (``conftest.generate_sweep_cases``); the copied
 golden tables hold on the port's own plans.
 """
@@ -25,13 +25,25 @@ from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
 
 pytestmark = pytest.mark.torch
 
-# the slice's serving configurations (chip_smoke.py's full sizes)
+# the port's serving configurations (chip_smoke.py's full sizes), each with
+# the generated-kernel variant its plan must take at the H100 budget:
+# "rows" (row grid only), "lane" (lane grid, nothing carried), "red" (grid
+# reduction with a masked K-tail) or "lane-carry" (lane grid with column
+# rings and lane line buffers)
 SLICE_CONFIGS = [
-    ("gaussian", {"size": 1082, "width": 1922}),
-    ("harris", {"schedule": "sch3", "size": 1024}),
-    ("unsharp", {"size": 1024}),
-    ("camera", {"size": 512}),
-    ("upsample", {"size": 1024}),
+    ("gaussian", {"size": 1082, "width": 1922}, "rows"),
+    ("harris", {"schedule": "sch3", "size": 1024}, "rows"),
+    ("unsharp", {"size": 1024}, "rows"),
+    ("camera", {"size": 512}, "rows"),
+    ("upsample", {"size": 1024}, "rows"),
+    ("resnet", {"img": 56, "cin": 64, "cout": 64}, "lane"),
+    ("mobilenet", {"img": 112, "cin": 32, "cout": 64}, "rows"),
+    ("matmul", {"m": 256, "n": 256, "k": 1000}, "red"),
+    ("harris", {"schedule": "sch3", "size": 2048}, "lane-carry"),
+]
+SLICE_IDS = [
+    "gaussian", "harris", "unsharp", "camera", "upsample",
+    "resnet", "mobilenet", "matmul", "harris2048",
 ]
 
 SWEEP = generate_sweep_cases()
@@ -67,9 +79,21 @@ def plan_digest(plan):
     return out
 
 
+def _variant(kg):
+    if kg.red_grid is not None:
+        assert kg.lane_grid is None and kg.red_grid.padded
+        return "red"
+    if kg.lane_grid is None:
+        return "rows"
+    carried = kg.rings or kg.line_buffered
+    assert all(r.lane for r in kg.rings)
+    assert all(sp.line_buffer.lane for sp in kg.stages if sp.line_buffer is not None)
+    return "lane-carry" if carried else "lane"
+
+
 @pytest.mark.parametrize("batch", [None, 8])
-@pytest.mark.parametrize("name,kw", SLICE_CONFIGS, ids=[c[0] for c in SLICE_CONFIGS])
-def test_slice_configs_plan_identically(name, kw, batch):
+@pytest.mark.parametrize("name,kw,variant", SLICE_CONFIGS, ids=SLICE_IDS)
+def test_slice_configs_plan_identically(name, kw, variant, batch):
     ckw = {"vmem_budget": H100_SMEM_PER_BLOCK}
     if batch:
         ckw.update(batch=batch, batch_capacity=batch)
@@ -77,9 +101,9 @@ def test_slice_configs_plan_identically(name, kw, batch):
     ref = jax_build_plan(jax_make_app(name, **kw).pipeline, **ckw)
     assert plan_digest(ours) == plan_digest(ref)
     assert verify_plan(ours) == [] and jax_verify_plan(ref) == []
-    # the slice runs only the ported variants of the generated kernel
+    # each configuration takes the generated-kernel variant it is served for
     for kg in ours.kernels:
-        assert kg.red_grid is None and kg.lane_grid is None
+        assert _variant(kg) == variant
         assert kg.scratch_bytes <= H100_SMEM_PER_BLOCK
 
 
