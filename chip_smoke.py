@@ -41,6 +41,26 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    warm-up round, every kernel's launch count is zeroed just before the
    timed round and read just after; CUDA events around each dispatch's
    kernels give their share of the wall time.
+6. hand-written kernels, small shapes: ``stencil3x3``, ``matmul``,
+   ``flash_attention`` and ``ssd_scan`` (``repro_torch.kernels``, CUDA C++
+   in ``kernels/csrc/``, built in phase 2) at the shapes of the JAX
+   package's kernel tests, each held against its plain version and its
+   oracle at the JAX tolerances (stencil also bit for bit against its
+   plain version; SSD also invariant to the chunk length).
+7. hand-written kernels at model widths: a 1080p gaussian, tinyllama-1.1b's
+   MLP up-projection (bf16 and f32) and prefill attention (bf16 and f32),
+   qwen3-14b's prefill attention, mamba2-2.7b's SSD prefill and the
+   matmul tile of phase 4.  Each configuration is driven once through its
+   ``repro_torch.kernels.ops`` entry point with every launch count zeroed
+   just before and read just after; then each kernel is held against its
+   plain version, its oracle and, for the gaussian and the matmul tile,
+   the generated kernel on the same input (bit for bit), and timed with
+   CUDA events (median of 10 calls, and per call over 50 replays of a CUDA
+   graph of one call behind an L2-evicting write, which leaves out the host
+   work of a call and reads the inputs from HBM) beside its plain version,
+   its bound and the one PyTorch call computing the same function where
+   there is one, timed both ways.  The SSD op launches two kernels, C Bᵀ
+   per chunk (``ssd_gram``) and the scan; each gets its own row.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -61,6 +81,8 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989.4e12   # dense, tensor cores
+L2_FLUSH_BYTES = 128 << 20   # 2.5x the H100's 50 MB L2
 
 # (app, app kwargs, compile kwargs, bit-exact against the reference)
 SMALL = [
@@ -143,6 +165,46 @@ def time_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device milliseconds per call of ``fn``, its inputs read from HBM: the
+    call is captured in a CUDA graph behind a write of a buffer 2.5x the
+    L2's size, which evicts what the replay before left in L2, and replayed
+    ``reps`` times between two CUDA events; the same replays of the write
+    alone, before and after, are averaged and subtracted.  The host work of
+    a call (argument checks, allocation, the ctypes launch), which a
+    one-call reading counts while the card waits, is left out."""
+    import torch
+
+    flush_buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up on the capture stream
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    flush, both = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(flush, stream=side, capture_error_mode="relaxed"):
+        flush_buf.zero_()
+    with torch.cuda.graph(both, stream=side, capture_error_mode="relaxed"):
+        flush_buf.zero_()
+        fn()
+
+    def replay_ms(graph) -> float:
+        graph.replay()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    before = replay_ms(flush)
+    total = replay_ms(both)
+    return total - (before + replay_ms(flush)) / 2
 
 
 def variants(kg) -> list:
@@ -332,6 +394,362 @@ def library_check(label: str, bufs, out):
     return None, None, None
 
 
+GAUSS_W = [[1, 2, 1], [2, 4, 2], [1, 2, 1]]
+
+
+def held(tag: str, got, plain, want, tol, exact: bool = False, row_tol=None):
+    """Hold a hand-written kernel's output against its plain version and
+    its oracle (bit for bit, or at ``rtol = atol = tol``, or at ``tol =
+    (rtol, atol)``); with ``row_tol``, also each output row's error over
+    that row's norm; log the max abs differences; raise on a miss.  Returns
+    the difference from the plain version."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != plain.dtype or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{tag}: bad output {tuple(got.shape)} {got.dtype}")
+    g = got.float()
+    e_plain = float((g - plain.float()).abs().max())
+    e_ref = float((g - want.float()).abs().max())
+    rtol, atol = tol if isinstance(tol, tuple) else (tol, tol)
+    if exact:
+        ok = torch.equal(got, plain) and torch.equal(got, want)
+    else:
+        ok = (torch.allclose(g, plain.float(), rtol=rtol, atol=atol)
+              and torch.allclose(g, want.float(), rtol=rtol, atol=atol))
+    rows = ""
+    if row_tol is not None:
+        # a deep causal row averages thousands of values, so its outputs are
+        # small and an absolute limit alone is loose there
+        r_plain, r_ref = (float(((g - w.float()).norm(dim=-1) / w.float().norm(dim=-1)).max())
+                          for w in (plain, want))
+        ok = ok and max(r_plain, r_ref) <= row_tol
+        rows = (f"; max per-row |cuda - plain| / |plain| = {r_plain!r}, "
+                f"/ |ref| = {r_ref!r} (limit {row_tol})")
+    log(f"{tag}: max|cuda - plain| = {e_plain!r}, max|cuda - ref| = {e_ref!r} "
+        f"({'exact' if exact else f'rtol={rtol} atol={atol}'}){rows} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the CUDA kernel disagrees")
+    return e_plain
+
+
+def kernel_work(name: str, args, out, chunk=None) -> tuple:
+    """Bytes a hand-written kernel must move (each input read once, the
+    output written once), the operations it does on these inputs (only the
+    scores a causal mask keeps; only the lower triangle of each SSD chunk,
+    whose C B^T the scan reads only there)
+    and the peak rate of the unit they could use: bf16 tensor cores for
+    bf16 products, else IEEE f32."""
+    import torch
+
+    nbytes = sum(t.numel() * t.element_size() for t in args) + out.numel() * out.element_size()
+    peak = PEAK_BF16_FLOPS if out.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    if name == "stencil3x3":
+        ops = 18 * out.numel()                      # 9 products and 9 sums per output
+        peak = PEAK_F32_FLOPS
+    elif name == "matmul":
+        (m, k), n = args[0].shape, args[1].shape[1]
+        ops = 2 * m * n * k
+    elif name == "flash_attention":               # every configuration here is causal
+        b, sq, d = args[0].shape
+        ops = 4 * d * b * sq * (sq + 1) // 2        # q.k and p.v per kept score
+    elif name == "ssd_gram":                      # C B^T of each chunk, lower triangle
+        s, n = args[0].shape
+        ops = 2 * (s // chunk) * (chunk * (chunk + 1) // 2) * n
+    else:                                         # ssd_scan, given ssd_gram's output
+        s, h, p = args[0].shape
+        n = args[3].shape[1]
+        tri, n_chunks = chunk * (chunk + 1) // 2, s // chunk
+        nbytes -= 4 * (args[5].numel() - n_chunks * tri)    # reads G's lower triangles only
+        # the intra-chunk sum, the state's read-out and its update
+        ops = 2 * n_chunks * tri * h * p + 4 * s * h * p * n
+    return nbytes, ops, peak
+
+
+def kernels_small() -> None:
+    """Phase 6: each hand-written kernel at the JAX package's test shapes,
+    against its plain version and its oracle at the JAX tolerances."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref as kref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.matmul import matmul, matmul_plain
+    from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.stencil import stencil3x3, stencil3x3_plain
+
+    rng = np.random.default_rng(SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rand(shape, dtype=f32):
+        return ops.to_tensor(rng.standard_normal(shape).astype(np.float32), dtype)
+
+    for m, n, k in [(32, 32, 32), (64, 128, 32), (128, 64, 256), (16, 16, 64)]:
+        for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
+            a, b = rand((m, k), dtype), rand((k, n), dtype)
+            kw = dict(block_m=16, block_n=16, block_k=16)
+            held(f"[kernels-small] matmul {(m, n, k)} {dtype}", matmul(a, b, **kw),
+                 matmul_plain(a, b, **kw), kref.matmul_ref(a, b), tol)
+    wts = ops.to_tensor(np.array(GAUSS_W, np.float32) / 16)
+    for h, w in [(16, 16), (32, 64), (64, 62)]:
+        x = rand((h + 2, w + 2))
+        got, plain = stencil3x3(x, wts, block_h=8), stencil3x3_plain(x, wts, block_h=8)
+        held(f"[kernels-small] stencil3x3 {(h, w)}", got, plain, kref.stencil3x3_ref(x, wts), 1e-5)
+        if not torch.equal(got, plain):
+            raise AssertionError(f"stencil3x3 {(h, w)}: not bit-equal to the plain version")
+    for b, s, d in [(2, 128, 64), (1, 256, 32), (4, 64, 128)]:
+        for causal in (True, False):
+            for dtype, tol in ((f32, 2e-3), (bf16, 3e-2)):
+                q, k, v = (rand((b, s, d), dtype) for _ in range(3))
+                kw = dict(causal=causal, block_q=32, block_kv=32)
+                held(f"[kernels-small] flash_attention {(b, s, d)} causal={causal} {dtype}",
+                     flash_attention(q, k, v, **kw), flash_attention_plain(q, k, v, **kw),
+                     kref.attention_ref(q, k, v, causal=causal), tol)
+    q, k, v = rand((2, 64, 32)), rand((2, 256, 32)), rand((2, 256, 32))
+    kw = dict(causal=False, block_q=32, block_kv=64)
+    held("[kernels-small] flash_attention q (2, 64, 32) kv (2, 256, 32)",
+         flash_attention(q, k, v, **kw), flash_attention_plain(q, k, v, **kw),
+         kref.attention_ref(q, k, v, causal=False), 2e-3)
+
+    def ssd_inputs(s, h, p, n):
+        x = rand((s, h, p))
+        dt = ops.to_tensor((np.abs(rng.standard_normal((s, h))) * 0.1 + 0.01).astype(np.float32))
+        a = ops.to_tensor((-np.abs(rng.standard_normal(h)) - 0.1).astype(np.float32))
+        return x, dt, a, rand((s, n)), rand((s, n))
+
+    for shape in [(64, 2, 8, 16), (128, 4, 16, 32), (32, 1, 4, 8)]:
+        ins = ssd_inputs(*shape)
+        held(f"[kernels-small] ssd_scan {shape} chunk 16", ssd_scan(*ins, chunk=16),
+             ssd_scan_plain(*ins, chunk=16), kref.ssd_ref(*ins), 1e-3)
+    ins = ssd_inputs(64, 2, 8, 16)
+    y8, y32 = ssd_scan(*ins, chunk=8), ssd_scan(*ins, chunk=32)
+    err = float((y8 - y32).abs().max())
+    ok = torch.allclose(y8, y32, rtol=1e-4, atol=1e-4)
+    log(f"[kernels-small] ssd_scan (64, 2, 8, 16) chunk 8 vs 32: max diff = {err!r} "
+        f"(rtol=atol=1e-4) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ssd_scan depends on its chunk length")
+    torch.cuda.synchronize()
+
+
+def kernels_full(full_apps, rows) -> None:
+    """Phase 7: each hand-written kernel at a model's width, driven through
+    ``repro_torch.kernels.ops`` with the launch counts zeroed just before
+    and read just after, then checked and timed; adds one row per kernel
+    and configuration to ``rows``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.backend import compile_pipeline
+    from repro_torch.core.ubplan import plan_ssd
+    from repro_torch.kernels import KERNELS, ops, ref as kref
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.matmul import matmul_plain
+    from repro_torch.kernels.ssd import (
+        ssd_chunk_scan, ssd_chunk_scan_plain, ssd_gram, ssd_gram_plain, ssd_scan_plain,
+    )
+    from repro_torch.kernels.stencil import stencil3x3_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def randint(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev).to(dtype)
+
+    def attention(heads, kv_heads, s, d, dtype):
+        # grouped-query attention folded for a kernel without GQA: query head
+        # h reads KV head h // (heads // kv_heads), repeated before the call
+        q = randn((heads, s, d), dtype)
+        k, v = (randn((kv_heads, s, d), dtype).repeat_interleave(heads // kv_heads, dim=0)
+                for _ in range(2))
+        return q, k, v
+
+    def mamba(s, h, p, n):
+        # the distributions of the JAX package's SSD tests
+        x = randn((s, h, p), f32)
+        dt = randn((s, h), f32).abs() * 0.1 + 0.01
+        a = -randn((h,), f32).abs() - 0.1
+        return x, dt, a, randn((s, n), f32), randn((s, n), f32)
+
+    entry = {
+        "stencil3x3": (ops.stencil3x3_op, stencil3x3_plain, kref.stencil3x3_ref, {}),
+        "matmul": (ops.matmul_op, matmul_plain, kref.matmul_ref, {}),
+        "flash_attention": (ops.attention_op, flash_attention_plain, kref.attention_ref,
+                            {"causal": True}),
+        "ssd_scan": (ops.ssd_op, ssd_scan_plain, kref.ssd_ref, {}),
+    }
+    # the CUDA kernels each op launches
+    path = {"ssd_scan": ("ssd_gram", "ssd_scan")}
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True)[0]
+
+    def conv(x, w):
+        return F.conv2d(x[None, None], w[None, None])[0, 0]
+
+    # bf16 attention: one bf16 ulp (2**-7 of the value at most) apart from
+    # the f32 plain version and oracle, each rounded once; the row check
+    # holds the small outputs of deep causal rows
+    flash_bf16 = dict(tol=(1.6e-2, 8e-3), row_tol=8e-3)
+    flash_f32 = dict(tol=2e-3, row_tol=1e-4)
+    # (label, kernel, inputs, {tol: None for bit for bit, row_tol}, (library
+    #  call name, call, (rtol, atol) it must meet or None), generated app and its inputs)
+    configs = [
+        ("gaussian-1080p", "stencil3x3",
+         lambda: (randint(0, 256, (1082, 1922), f32),
+                  torch.tensor(GAUSS_W, dtype=f32, device=dev) / 16),
+         dict(tol=None), ("F.conv2d", conv, (1e-5, 1e-3)), ("gaussian", ("input",))),
+        ("tinyllama-mlp-up", "matmul",
+         lambda: (randint(-8, 8, (2048, 2048), bf16), randint(-8, 8, (2048, 5632), bf16)),
+         dict(tol=None), ("torch.matmul", torch.matmul, None), None),
+        ("tinyllama-mlp-up", "matmul",
+         lambda: (randint(-8, 8, (2048, 2048), f32), randint(-8, 8, (2048, 5632), f32)),
+         dict(tol=None), ("torch.matmul", torch.matmul, None), None),
+        ("matmul-tile", "matmul",
+         lambda: (randint(0, 16, (256, 1000), f32), randint(0, 16, (1000, 256), f32)),
+         dict(tol=None), ("torch.matmul", torch.matmul, None), ("matmul", ("A", "B"))),
+        ("tinyllama-prefill", "flash_attention", lambda: attention(32, 4, 2048, 64, bf16),
+         flash_bf16, ("F.scaled_dot_product_attention", sdpa, None), None),
+        ("tinyllama-prefill", "flash_attention", lambda: attention(32, 4, 2048, 64, f32),
+         flash_f32, ("F.scaled_dot_product_attention", sdpa, None), None),
+        ("qwen3-14b-prefill", "flash_attention", lambda: attention(40, 8, 4096, 128, bf16),
+         flash_bf16, ("F.scaled_dot_product_attention", sdpa, None), None),
+        ("mamba2-2.7b-prefill", "ssd_scan", lambda: mamba(2048, 80, 64, 128), dict(tol=1e-3),
+         None, None),
+    ]
+
+    def measure(kname, label, dname, launches, out, call, plain_call, want, check,
+                library, work):
+        """Check ``out``, kernel ``kname``'s output on these inputs; time
+        ``call`` (one launch of it) and its plain version; add its row."""
+        tag = f"[kernels-full] {label} {kname} {dname}"
+        kernel = KERNELS[kname]
+        # the plain version, timed over its comparison call
+        a_ev = torch.cuda.Event(enable_timing=True)
+        b_ev = torch.cuda.Event(enable_timing=True)
+        a_ev.record()
+        plain = plain_call()
+        b_ev.record()
+        b_ev.synchronize()
+        plain_ms = a_ev.elapsed_time(b_ev)
+        err = held(tag, out, plain, want, check["tol"], exact=check["tol"] is None,
+                   row_tol=check.get("row_tol"))
+        del plain
+        ms = time_ms(call, 10)
+        device_ms = graph_ms(call)
+        library_ms = library_device_ms = None
+        if library is not None:
+            lib_name, lib_call, lib_tol, project = (library + (None,))[:4]
+            lib_out = lib_call()
+            lib_out = project(lib_out) if project else lib_out
+            lib_err = float((lib_out.float() - out.float()).abs().max())
+            lib_ok = lib_tol is None or torch.allclose(
+                out.float(), lib_out.float(), rtol=lib_tol[0], atol=lib_tol[1])
+            del lib_out
+            library_ms = time_ms(lib_call, 10)
+            library_device_ms = graph_ms(lib_call)
+            log(f"{tag}: {lib_name} {library_ms:.4f} ms ({library_device_ms:.4f} ms replayed), "
+                f"max|cuda - {lib_name}| = {lib_err!r}"
+                + (f" (rtol={lib_tol[0]} atol={lib_tol[1]}) {'ok' if lib_ok else 'FAIL'}"
+                   if lib_tol else " (reported)"))
+            if not lib_ok:
+                raise AssertionError(f"{tag}: disagrees with {lib_name}")
+        else:
+            log(f"{tag}: no single PyTorch call computes it; library_ms null")
+        nbytes, nops, peak = work
+        t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * nops / peak
+        row = rows[f"{kname}/{label}/{dname}"] = {
+            "name": f"{kname}/{label}/{dname}",
+            "route": "cuda",
+            "source": str(kernel.path.relative_to(ROOT)),
+            "replaces": kernel.replaces,
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            "device_ms": device_ms,
+            "library_device_ms": library_device_ms,
+        }
+        log(f"{tag}: {ms:.4f} ms/launch ({device_ms:.4f} ms replayed, L2 flushed), "
+            f"launches {launches}, plain {plain_ms:.2f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes} B, {nops} flop), "
+            f"library {library_ms if library_ms is None else round(library_ms, 4)} ms")
+        return row
+
+    for label, kname, make, check, library, generated in configs:
+        t0 = time.perf_counter()
+        args = make()
+        op, plain_fn, ref_fn, kw = entry[kname]
+        dname = "bf16" if args[0].dtype == bf16 else "f32"
+        # the main path: the ops entry point, every launch count zeroed just
+        # before and read just after
+        for k in KERNELS.values():
+            k.launches = 0
+        out = op(*args, **kw)
+        torch.cuda.synchronize()
+        launches = {name: KERNELS[name].launches for name in path.get(kname, (kname,))}
+        if not all(launches.values()):
+            raise AssertionError(f"[kernels-full] {label} {kname}: a kernel was never launched "
+                                 f"on the main path: {launches}")
+        if kname != "ssd_scan":
+            lib = library and (library[0], lambda: library[1](*args), library[2])
+            row = measure(kname, label, dname, launches[kname], out,
+                          lambda: op(*args, **kw), lambda: plain_fn(*args, **kw),
+                          ref_fn(*args, **kw), check, lib, kernel_work(kname, args, out))
+        else:
+            # two kernels, each timed alone: C B^T of every chunk, then the
+            # scan reading it; the whole call is timed too
+            s, h, p = args[0].shape
+            b, c = args[3], args[4]
+            chunk = min(plan_ssd(s, h, p, b.shape[1]).notes["chunk"], s)
+            g = ssd_gram(b, c, chunk)
+            g64 = torch.matmul(c.double().view(-1, chunk, c.shape[1]),
+                               b.double().view(-1, chunk, b.shape[1]).transpose(1, 2)).tril()
+            cc, bt = c.view(-1, chunk, c.shape[1]), b.view(-1, chunk, b.shape[1]).transpose(1, 2)
+            measure("ssd_gram", label, dname, launches["ssd_gram"], g,
+                    lambda: ssd_gram(b, c, chunk), lambda: ssd_gram_plain(b, c, chunk),
+                    g64, dict(tol=1e-4),
+                    ("torch.bmm (the whole square)", lambda: torch.bmm(cc, bt), None, torch.tril),
+                    kernel_work("ssd_gram", (b, c), g, chunk))
+            del g64
+            row = measure("ssd_scan", label, dname, launches["ssd_scan"], out,
+                          lambda: ssd_chunk_scan(*args, g, chunk=chunk),
+                          lambda: ssd_chunk_scan_plain(*args, g, chunk=chunk),
+                          ref_fn(*args), check, None,
+                          kernel_work("ssd_scan", (*args, g), out, chunk))
+            row["call_ms"] = time_ms(lambda: op(*args), 10)
+            row["call_device_ms"] = graph_ms(lambda: op(*args))
+            log(f"[kernels-full] {label} ssd_op (ssd_gram + ssd_scan): {row['call_ms']:.4f} ms "
+                f"({row['call_device_ms']:.4f} ms replayed, L2 flushed)")
+            del g
+        if generated is not None:
+            app_label, names = generated
+            (gk,) = compile_pipeline(full_apps[app_label].pipeline).kernels
+            bufs = dict(zip(names, args))
+            same = torch.equal(gk(bufs), out)
+            row["generated_ms"] = time_ms(lambda: gk(bufs), 10)
+            row["generated_device_ms"] = graph_ms(lambda: gk(bufs))
+            log(f"[kernels-full] {label} {kname} {dname}: generated vs hand-written, batch 1: "
+                f"generated {app_label} kernel {row['generated_ms']:.4f} ms "
+                f"({row['generated_device_ms']:.4f} ms replayed), {kname} {row['ms']:.4f} ms "
+                f"({row['device_ms']:.4f} ms replayed); bit for bit {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"{label}: differs from the generated {app_label} kernel")
+        row["shape"] = [list(t.shape) for t in args]
+        row["dtype"] = dname
+        log(f"[kernels-full] {label} {kname} {dname} {[tuple(t.shape) for t in args]}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        del args, out
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script", file=sys.stderr)
@@ -353,6 +771,7 @@ def main() -> int:
     from repro_torch.backend.eager import LoweredGroup
     from repro_torch.backend.plan import build_pipeline_plan
     from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
+    from repro_torch.kernels import KERNELS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -377,6 +796,8 @@ def main() -> int:
     for pipe, ckw in configs:
         plan = build_pipeline_plan(pipe, vmem_budget=H100_SMEM_PER_BLOCK, **ckw)
         sources.append(emit_library([LoweredGroup(kg) for kg in plan.kernels]))
+    # the hand-written kernels' sources join the same parallel build
+    sources += list(dict.fromkeys(k.source() for k in KERNELS.values()))
     t0 = time.perf_counter()
     build_secs = build_many(sources)
     log(f"[build] {len(build_secs)} nvcc builds in parallel, wall "
@@ -482,6 +903,7 @@ def main() -> int:
     log(f"[full] phase wall {time.perf_counter() - t_phase:.1f} s")
 
     # -- 5. serve ----------------------------------------------------------------
+    t_phase = time.perf_counter()
     for label, name, _kw, integer in FULL:
         app = full_apps[label]
         server = PipelineServer(app.pipeline, batch_slots=BATCH)
@@ -528,12 +950,23 @@ def main() -> int:
             f"{secs:.4f} s, {N_REQUESTS / secs:.1f} img/s; kernels {kernel_ms:.3f} ms "
             f"({100 * kernel_ms / (1e3 * secs):.1f}% of wall); launches {counts}; "
             "every tile equals the per-tile pipeline")
+    log(f"[serve] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 6. hand-written kernels, small shapes -----------------------------------
+    t0 = time.perf_counter()
+    kernels_small()
+    log(f"[kernels-small] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # -- 7. hand-written kernels at model widths ---------------------------------
+    t0 = time.perf_counter()
+    kernels_full(full_apps, rows)
+    log(f"[kernels-full] phase wall {time.perf_counter() - t0:.1f} s")
 
     # every variant of the generated kernel, with the configurations that
     # launched it at full size and its largest difference from the plain version
     by_variant = {}
     for row in rows.values():
-        for v in row["variants"]:
+        for v in row.get("variants", ()):
             apps, err = by_variant.get(v, ([], 0.0))
             by_variant[v] = (apps + [row["name"]], max(err, row["max_abs_err"]))
     for v, (apps, err) in sorted(by_variant.items()):

@@ -1,0 +1,18 @@
+"""The hand-written Hopper kernels of the port, the counterpart of
+``src/repro/kernels/``: ``stencil3x3``, ``matmul``, ``flash_attention`` and
+``ssd_scan``, each CUDA C++ for ``sm_90a`` in ``csrc/`` beside a plain
+PyTorch version, the torch oracles (``ref``) and the ``ops`` entry points.
+
+``KERNELS`` maps each CUDA kernel's name to its launcher, which holds the
+source path and the count of launches; ``ssd_scan`` is two kernels,
+``ssd_gram`` and ``ssd_scan``.
+"""
+
+from . import flash_attention, matmul, ssd, stencil
+
+KERNELS = {
+    k.name: k
+    for k in (stencil.KERNEL, matmul.KERNEL, flash_attention.KERNEL, ssd.GRAM, ssd.KERNEL)
+}
+
+__all__ = ["KERNELS"]

@@ -1,0 +1,104 @@
+"""Build and bind the hand-written CUDA kernels of ``kernels/csrc/``.
+
+Each source is one self-contained ``.cu`` file with a plain C interface:
+for each kernel in it an ``extern "C" int <name>_launch(...)`` that takes
+device pointers, the dims and a stream, launches that kernel on that stream
+and returns ``cudaGetLastError()``, and ``kernel_error_string``.  It is built at first use by
+``backend.build.load_library``, so it gets the same nvcc flags as the
+generated pipeline kernels (``-arch=sm_90a -O3 -fmad=false``, never fast
+math) and the same ``build/torch_kernels/<sha256>/`` cache, and is bound
+with ``ctypes``.  Nothing is built or loaded when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+from ..backend.build import load_library
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+
+DTYPES = (torch.float32, torch.bfloat16)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_dtypes(fn: str, *tensors: torch.Tensor) -> torch.dtype:
+    """The one dtype ``tensors`` share; ``TypeError`` unless it is float32
+    or bfloat16, the dtypes the JAX package's kernel tests sweep."""
+    dtype = tensors[0].dtype
+    if dtype not in DTYPES:
+        raise TypeError(f"{fn}: dtype {dtype} is not supported; use float32 or bfloat16")
+    for t in tensors[1:]:
+        if t.dtype != dtype:
+            raise TypeError(f"{fn}: operands must share one dtype, got {dtype} and {t.dtype}")
+    return dtype
+
+
+def require_cuda(fn: str, *tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device ``tensors`` lie on; ``ValueError`` otherwise (the
+    plain version is asked for by name, ``kernels="eager"``)."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{fn}: tensors on several devices {devs}")
+    dev = devs.pop()
+    if dev.type != "cuda":
+        raise ValueError(
+            f"{fn}: the CUDA kernel takes CUDA tensors, got {dev}; use "
+            "kernels='eager' for the plain version on the CPU"
+        )
+    return dev
+
+
+class CudaLauncher:
+    """The ``ctypes`` entry of one hand-written kernel, ``<name>_launch`` in
+    ``csrc/<file>.cu`` (``file`` defaults to ``name``), which launches that
+    one kernel, and its count of launches.  ``argtypes`` are the launcher's
+    arguments before the trailing stream; ``replaces`` names the Pallas
+    kernel it ports, by ``file:line``."""
+
+    def __init__(self, name: str, argtypes: Sequence[type], replaces: str, file: str = ""):
+        self.name = name
+        self.file = file or name
+        self.replaces = replaces
+        self.launches = 0
+        self._argtypes = list(argtypes)
+        self._fn = None
+        self._err = None
+
+    @property
+    def path(self) -> Path:
+        return CSRC / f"{self.file}.cu"
+
+    def source(self) -> str:
+        return self.path.read_text()
+
+    def _bind(self) -> None:
+        lib = load_library(self.source())
+        fn = getattr(lib, f"{self.name}_launch")
+        fn.argtypes = self._argtypes + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = lib.kernel_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        self._fn, self._err = fn, err
+
+    def __call__(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream; raises ``RuntimeError``
+        with CUDA's message when the launch is refused."""
+        if self._fn is None:
+            self._bind()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = self._fn(*args, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.name}: launch refused: {self._err(rc).decode()} (cudaError {rc})"
+            )
+        self.launches += 1
+
+
+__all__ = ["CSRC", "CudaLauncher", "DTYPES", "DTYPE_CODE", "check_dtypes", "require_cuda"]

@@ -1,0 +1,115 @@
+"""Blockwise (flash) attention with an online softmax: a hand-written CUDA
+kernel (``csrc/flash_attention.cu``) and its plain PyTorch version.
+
+Replaces the Pallas kernel ``src/repro/kernels/flash_attention.py:29``
+(``_flash_kernel``, launched at ``:95``).  The TPU kernel walks a
+(B, Sq/bq, Skv/bkv) grid with the KV axis innermost, keeping the running
+max and sum as (bq, 128)-lane VMEM tiles and skipping KV blocks wholly
+above the causal diagonal.  The CUDA kernel does not carry the BlockSpecs
+over: one block of 256 threads per (folded batch-head, 64 query rows)
+loops over 64-row KV tiles up to the diagonal, with the statistics one
+float per row and the masked scores ``-1e30`` as on the TPU.  ``block_q``
+and ``block_kv`` keep the JAX signature, defaults (``plan_attention``) and
+divisibility check; the kernel takes head dims up to 256 (its f32 tiles
+must fit one block's shared memory).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ..core.ubplan import plan_attention
+from ._cuda import DTYPE_CODE, CudaLauncher, check_dtypes, require_cuda
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 256
+
+KERNEL = CudaLauncher(
+    "flash_attention",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int],
+    "src/repro/kernels/flash_attention.py:29",
+)
+
+
+def _check(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+    block_q: Optional[int], block_kv: Optional[int],
+) -> Tuple[int, int]:
+    """The JAX kernel's argument checks; returns its blocks (bq, bkv)."""
+    check_dtypes("flash_attention", q, k, v)
+    if q.ndim != 3 or k.ndim != 3 or tuple(k.shape) != tuple(v.shape) \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(
+            "flash_attention: q must be (B, Sq, D) and k, v (B, Skv, D), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    _, sq, d = q.shape
+    skv = k.shape[1]
+    if causal and sq != skv:
+        raise ValueError("flash_attention: causal masking assumes self-attention layout (Sq == Skv)")
+    plan = plan_attention(sq, skv, d, dtype_bytes=q.element_size())
+    bq = block_q or min(plan.notes["bq"], sq)
+    bkv = block_kv or min(plan.notes["bkv"], skv)
+    if sq % bq or skv % bkv:
+        raise ValueError(f"flash_attention: seq ({sq}, {skv}) must divide blocks ({bq}, {bkv})")
+    return bq, bkv
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    block_q: Optional[int] = None, block_kv: Optional[int] = None,
+) -> torch.Tensor:
+    """Attention over (B, S, D) with batch × heads folded into B, scale
+    ``1/sqrt(D)``, by the CUDA kernel.  CUDA tensors only."""
+    _check(q, k, v, causal, block_q, block_kv)
+    dev = require_cuda("flash_attention", q, k, v)
+    b, sq, d = q.shape
+    skv = k.shape[1]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: the CUDA kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(qc)
+    KERNEL(dev, qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+           b, sq, skv, d, 1.0 / (d ** 0.5), int(causal), DTYPE_CODE[q.dtype])
+    return out
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    block_q: Optional[int] = None, block_kv: Optional[int] = None,
+) -> torch.Tensor:
+    """The plain PyTorch version: the Pallas body's blockwise online softmax
+    over (bq, bkv) blocks, KV blocks wholly above the diagonal skipped."""
+    bq, bkv = _check(q, k, v, causal, block_q, block_kv)
+    b, sq, d = q.shape
+    skv = k.shape[1]
+    scale = 1.0 / (d ** 0.5)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty((b, sq, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, bq):
+        qb = qf[:, q0 : q0 + bq]
+        m = torch.full((b, bq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, bq, 1), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, bq, d), dtype=torch.float32, device=q.device)
+        for k0 in range(0, skv, bkv):
+            if causal and k0 > q0 + bq - 1:
+                continue
+            s = torch.matmul(qb, kf[:, k0 : k0 + bkv].transpose(1, 2)) * scale
+            if causal:
+                rows = q0 + torch.arange(bq, device=q.device)[:, None]
+                cols = k0 + torch.arange(bkv, device=q.device)[None, :]
+                s = torch.where(cols <= rows, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(p, vf[:, k0 : k0 + bkv])
+            m = m_new
+        out[:, q0 : q0 + bq] = acc / l
+    return out.to(q.dtype)
+
+
+__all__ = ["KERNEL", "MAX_HEAD_DIM", "NEG_INF", "flash_attention", "flash_attention_plain"]

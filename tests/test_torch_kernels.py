@@ -1,0 +1,413 @@
+"""The port's hand-written kernels against the JAX package, on the CPU.
+
+The same seeded numpy inputs (f32, cast in each framework for bf16: both
+round to nearest even) go through the JAX package's Pallas kernels
+(interpret mode, as ``tests/test_kernels.py`` runs them) and through
+``repro_torch.kernels.ops`` with ``kernels="eager"`` (the plain PyTorch
+version of each CUDA kernel) on CPU tensors, on every case of
+``tests/test_kernels.py``, at its tolerances; the plain versions are also
+run at the JAX call's own blocks.  The torch oracles are held against the
+JAX oracles, and the contract is checked: CUDA wrappers refuse CPU
+tensors, arguments the JAX kernels refuse are refused, unsupported dtypes
+raise ``TypeError``.  The one test that builds and launches the CUDA
+kernels is marked ``gpu`` and skips here.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import KERNELS, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.matmul import matmul, matmul_plain
+from repro_torch.kernels.ssd import (
+    ssd_chunk_scan, ssd_chunk_scan_plain, ssd_gram, ssd_gram_plain, ssd_scan, ssd_scan_plain,
+)
+from repro_torch.kernels.stencil import stencil3x3, stencil3x3_plain
+
+pytestmark = pytest.mark.torch
+
+GAUSS = np.array([[1, 2, 1], [2, 4, 2], [1, 2, 1]], np.float32) / 16
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def jaxk():
+    """The JAX package's kernels and oracles, imported on first use: the
+    GPU machine has no JAX and runs only this file's card test."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.apps import make_app
+    from repro.frontend import execute_pipeline
+    from repro.kernels import ref as jref
+    from repro.kernels.flash_attention import flash_attention
+    from repro.kernels.matmul import matmul
+    from repro.kernels.ssd import ssd_scan
+    from repro.kernels.stencil import stencil3x3
+
+    def both(arr, dtype="f32"):
+        """The same f32 values as a JAX array and a CPU tensor of ``dtype``."""
+        jdtype = {"f32": jnp.float32, "bf16": jnp.bfloat16}[dtype]
+        return jnp.asarray(arr, jdtype), ops.to_tensor(arr, DTYPES[dtype], device="cpu")
+
+    return types.SimpleNamespace(
+        jnp=jnp, ref=jref, make_app=make_app, execute_pipeline=execute_pipeline,
+        flash=flash_attention, matmul=matmul, ssd=ssd_scan, stencil=stencil3x3, both=both,
+    )
+
+
+def close(got, want, tol):
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol
+    )
+
+
+def ssd_arrays(rng, s, h, p, n):
+    """The distributions of the JAX package's SSD tests."""
+    return (
+        rng.standard_normal((s, h, p)).astype(np.float32),
+        (np.abs(rng.standard_normal((s, h))) * 0.1 + 0.01).astype(np.float32),
+        (-np.abs(rng.standard_normal(h)) - 0.1).astype(np.float32),
+        rng.standard_normal((s, n)).astype(np.float32),
+        rng.standard_normal((s, n)).astype(np.float32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# parity with the JAX kernels, on the cases of tests/test_kernels.py
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,n,k", [(32, 32, 32), (64, 128, 32), (128, 64, 256), (16, 16, 64)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_matmul_matches_jax(m, n, k, dtype, jaxk):
+    rng = np.random.default_rng(0)
+    (ja, ta), (jb, tb) = jaxk.both(rng.standard_normal((m, k)), dtype), jaxk.both(rng.standard_normal((k, n)), dtype)
+    want = jaxk.matmul(ja, jb, block_m=16, block_n=16, block_k=16, interpret=True)
+    tol = 1e-4 if dtype == "f32" else 2e-2
+    got = ops.matmul_op(ta, tb, kernels="eager")
+    assert got.dtype == DTYPES[dtype] and got.shape == (m, n)
+    close(got, want, tol)
+    close(matmul_plain(ta, tb, block_m=16, block_n=16, block_k=16), want, tol)
+
+
+@pytest.mark.parametrize("h,w", [(16, 16), (32, 64), (64, 62)])
+def test_stencil_matches_jax(h, w, jaxk):
+    rng = np.random.default_rng(1)
+    jx, tx = jaxk.both(rng.standard_normal((h + 2, w + 2)))
+    jw, tw = jaxk.both(GAUSS)
+    want = jaxk.stencil(jx, jw, block_h=8, interpret=True)
+    close(ops.stencil3x3_op(tx, tw, kernels="eager"), want, 1e-5)
+    close(stencil3x3_plain(tx, tw, block_h=8), want, 1e-5)
+    # integer inputs, gaussian weights: every product and sum is exact
+    jx, tx = jaxk.both(rng.integers(0, 256, (h + 2, w + 2)))
+    want = np.asarray(jaxk.stencil(jx, jw, block_h=8, interpret=True))
+    assert np.array_equal(ops.stencil3x3_op(tx, tw, kernels="eager").numpy(), want)
+
+
+def test_stencil_matches_paper_gaussian_app(jaxk):
+    """The plain version computes the CGRA pipeline's gaussian bit for bit,
+    as the JAX stencil kernel does."""
+    app = jaxk.make_app("gaussian", size=18)
+    rng = np.random.default_rng(2)
+    img = rng.integers(0, 64, (18, 18)).astype(np.float32)
+    cgra = np.zeros((16, 16), np.float32)
+    for idx, v in jaxk.execute_pipeline(app.pipeline, {"input": img})["gaussian"].items():
+        cgra[idx] = v
+    (jx, tx), (jw, tw) = jaxk.both(img), jaxk.both(GAUSS)
+    got = ops.stencil3x3_op(tx, tw, kernels="eager").numpy()
+    assert np.array_equal(got, cgra)
+    assert np.array_equal(got, np.asarray(jaxk.stencil(jx, jw, block_h=8, interpret=True)))
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 128, 64), (1, 256, 32), (4, 64, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_matches_jax(b, s, d, causal, dtype, jaxk):
+    rng = np.random.default_rng(3)
+    (jq, tq), (jk, tk), (jv, tv) = (jaxk.both(rng.standard_normal((b, s, d)), dtype) for _ in range(3))
+    want = jaxk.flash(jq, jk, jv, causal=causal, block_q=32, block_kv=32, interpret=True)
+    tol = 2e-3 if dtype == "f32" else 3e-2
+    got = ops.attention_op(tq, tk, tv, causal=causal, kernels="eager")
+    assert got.dtype == DTYPES[dtype]
+    close(got, want, tol)
+    close(flash_attention_plain(tq, tk, tv, causal=causal, block_q=32, block_kv=32), want, tol)
+
+
+def test_flash_cross_attention_rectangular(jaxk):
+    rng = np.random.default_rng(4)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        jaxk.both(rng.standard_normal(shape)) for shape in ((2, 64, 32), (2, 256, 32), (2, 256, 32))
+    )
+    want = jaxk.flash(jq, jk, jv, causal=False, block_q=32, block_kv=64, interpret=True)
+    close(ops.attention_op(tq, tk, tv, causal=False, kernels="eager"), want, 2e-3)
+    close(flash_attention_plain(tq, tk, tv, causal=False, block_q=32, block_kv=64), want, 2e-3)
+
+
+@pytest.mark.parametrize("s,h,p,n", [(64, 2, 8, 16), (128, 4, 16, 32), (32, 1, 4, 8)])
+def test_ssd_matches_jax(s, h, p, n, jaxk):
+    rng = np.random.default_rng(5)
+    pairs = [jaxk.both(arr) for arr in ssd_arrays(rng, s, h, p, n)]
+    jins, tins = [j for j, _ in pairs], [t for _, t in pairs]
+    want = jaxk.ssd(*jins, chunk=16, interpret=True)
+    close(ssd_scan_plain(*tins, chunk=16), want, 1e-3)
+    close(ops.ssd_op(*tins, kernels="eager"), want, 1e-3)
+    close(ops.ssd_op(*tins, kernels="eager"), jaxk.ref.ssd_ref(*jins), 1e-3)
+
+
+def test_ssd_chunk_invariance(jaxk):
+    """The chunk length does not change the result, in either package."""
+    rng = np.random.default_rng(6)
+    pairs = [jaxk.both(arr) for arr in ssd_arrays(rng, 64, 2, 8, 16)]
+    jins, tins = [j for j, _ in pairs], [t for _, t in pairs]
+    y8 = ssd_scan_plain(*tins, chunk=8)
+    close(y8, ssd_scan_plain(*tins, chunk=32).numpy(), 1e-4)
+    close(y8, jaxk.ssd(*jins, chunk=32, interpret=True), 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the torch oracles against the JAX oracles
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_stencil_and_matmul_oracles_match_jax(dtype, jaxk):
+    rng = np.random.default_rng(7)
+    jx, tx = jaxk.both(rng.standard_normal((18, 30)), dtype)
+    jw, tw = jaxk.both(GAUSS)
+    want = jaxk.ref.stencil3x3_ref(jx, jw)
+    got = ref.stencil3x3_ref(tx, tw)
+    assert got.dtype == torch.float32 and np.dtype(want.dtype) == np.float32  # promoted by the f32 weights
+    close(got, want, 1e-6)
+    (ja, ta), (jb, tb) = jaxk.both(rng.standard_normal((24, 40)), dtype), jaxk.both(rng.standard_normal((40, 8)), dtype)
+    got, want = ref.matmul_ref(ta, tb), jaxk.ref.matmul_ref(ja, jb)
+    assert got.dtype == DTYPES[dtype]
+    close(got, want, 1e-5 if dtype == "f32" else 1e-2)
+
+
+@pytest.mark.parametrize("sq,skv,causal", [(64, 64, True), (32, 96, True), (48, 80, False)])
+def test_attention_oracle_matches_jax(sq, skv, causal, jaxk):
+    """Including the causal diagonal aligned to the end of a longer KV window."""
+    rng = np.random.default_rng(8)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        jaxk.both(rng.standard_normal(shape)) for shape in ((2, sq, 16), (2, skv, 16), (2, skv, 16))
+    )
+    close(ref.attention_ref(tq, tk, tv, causal=causal), jaxk.ref.attention_ref(jq, jk, jv, causal=causal), 1e-5)
+
+
+def test_ssd_oracle_matches_jax(jaxk):
+    rng = np.random.default_rng(9)
+    pairs = [jaxk.both(arr) for arr in ssd_arrays(rng, 48, 3, 4, 8)]
+    close(ref.ssd_ref(*[t for _, t in pairs]), jaxk.ref.ssd_ref(*[j for j, _ in pairs]), 1e-5)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 48])
+def test_ssd_split_into_gram_and_chunk_scan(chunk):
+    """The two plain versions the SSD op is made of: the chunks' C Bᵀ,
+    lower triangle, zeros above; the scan given it equals the whole op."""
+    rng = np.random.default_rng(14)
+    arrs = ssd_arrays(rng, 48, 3, 4, 8)
+    b, c = arrs[3].reshape(-1, chunk, 8), arrs[4].reshape(-1, chunk, 8)
+    want = np.tril(np.einsum("kln,kmn->klm", c.astype(np.float64), b.astype(np.float64)))
+    ins = [torch.from_numpy(a) for a in arrs]
+    g = ssd_gram_plain(ins[3], ins[4], chunk)
+    assert g.dtype == torch.float32 and g.shape == (48 // chunk, chunk, chunk)
+    np.testing.assert_allclose(g.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert np.array_equal(np.triu(g.numpy(), 1), np.zeros_like(want))
+    torch.testing.assert_close(ssd_chunk_scan_plain(*ins, g, chunk=chunk),
+                               ssd_scan_plain(*ins, chunk=chunk), rtol=0, atol=0)
+    for fn in (ssd_chunk_scan, ssd_chunk_scan_plain):
+        with pytest.raises(ValueError, match="g must be"):
+            fn(*ins, g[:, :-1], chunk=chunk)
+    for fn in (ssd_gram, ssd_gram_plain):
+        with pytest.raises(ValueError, match="chunk 5 dividing"):
+            fn(ins[3], ins[4], 5)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        ssd_chunk_scan(*ins, g, chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# the contract
+# ---------------------------------------------------------------------------
+
+
+def _cpu_calls(dtype=torch.float32):
+    """One small valid call of each CUDA wrapper and each op, on CPU tensors."""
+    rng = np.random.default_rng(10)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+
+    x, w = t(10, 12), torch.from_numpy(GAUSS)
+    a, b = t(16, 32), t(32, 16)
+    q, k, v = t(2, 32, 16), t(2, 32, 16), t(2, 32, 16)
+    s_in = (t(32, 2, 4), t(32, 2).abs() * 0.1 + 0.01, -t(2).abs() - 0.1, t(32, 8), t(32, 8))
+    return {
+        "stencil3x3": ((stencil3x3, (x, w)), (ops.stencil3x3_op, (x, w))),
+        "matmul": ((matmul, (a, b)), (ops.matmul_op, (a, b))),
+        "flash_attention": ((flash_attention, (q, k, v)), (ops.attention_op, (q, k, v))),
+        "ssd_gram": ((ssd_gram, (s_in[3], s_in[4], 16)), (ops.ssd_op, s_in)),
+        "ssd_scan": ((ssd_scan, s_in), (ops.ssd_op, s_in)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_cuda_wrappers_refuse_cpu_tensors(name):
+    """The CUDA path takes CUDA tensors only: the wrapper and its op raise
+    on CPU tensors, count no launch, and never run the plain version."""
+    (wrapper, args), (op, op_args) = _cpu_calls()[name]
+    before = KERNELS[name].launches
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        wrapper(*args)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        op(*op_args)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        op(*op_args, kernels="cuda")
+    with pytest.raises(ValueError, match="kernels must be one of"):
+        op(*op_args, kernels="pallas")
+    assert KERNELS[name].launches == before
+    assert KERNELS[name].path.is_file() and KERNELS[name].replaces.startswith("src/repro/kernels/")
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
+def test_unsupported_dtype_raises_type_error(name, dtype):
+    (wrapper, args), (op, op_args) = _cpu_calls(dtype)[name]
+    with pytest.raises(TypeError, match="not supported"):
+        wrapper(*args)
+    with pytest.raises(TypeError, match="not supported"):
+        op(*op_args, kernels="eager")
+
+
+def test_mixed_dtypes_raise_type_error():
+    a = torch.zeros(16, 16)
+    with pytest.raises(TypeError, match="share one dtype"):
+        matmul_plain(a, a.to(torch.bfloat16))
+
+
+def test_refused_arguments_match_jax(jaxk):
+    """A call the JAX kernel refuses is refused here too, by both versions."""
+    z = np.zeros
+    cases = [
+        (jaxk.matmul, (z((48, 32)), z((32, 16))), dict(block_m=32),
+         (matmul, matmul_plain), "must divide"),
+        (jaxk.flash, (z((1, 32, 8)), z((1, 64, 8)), z((1, 64, 8))), dict(causal=True),
+         (flash_attention, flash_attention_plain), "causal"),
+        (jaxk.flash, (z((1, 64, 8)),) * 3, dict(causal=False, block_q=48),
+         (flash_attention, flash_attention_plain), "must divide"),
+        (jaxk.ssd, (z((48, 2, 4)), z((48, 2)), z(2), z((48, 8)), z((48, 8))), dict(chunk=32),
+         (ssd_scan, ssd_scan_plain), "must divide"),
+    ]
+    for jax_fn, arrays, kw, port_fns, msg in cases:
+        jarrs = [jaxk.jnp.asarray(a, jaxk.jnp.float32) for a in arrays]
+        with pytest.raises(AssertionError):
+            jax_fn(*jarrs, interpret=True, **kw)
+        tarrs = [ops.to_tensor(a, torch.float32, device="cpu") for a in arrays]
+        for fn in port_fns:
+            with pytest.raises(ValueError, match=msg):
+                fn(*tarrs, **kw)
+
+
+def test_stencil_block_height_falls_back_as_jax(jaxk):
+    """A block height that does not divide H falls back to the largest
+    divisor, as the JAX kernel does, so the call is accepted."""
+    rng = np.random.default_rng(11)
+    jx, tx = jaxk.both(rng.integers(0, 256, (14, 20)))
+    jw, tw = jaxk.both(GAUSS)
+    want = np.asarray(jaxk.stencil(jx, jw, block_h=5, interpret=True))
+    assert np.array_equal(stencil3x3_plain(tx, tw, block_h=5).numpy(), want)
+
+
+def test_to_tensor_carries_bfloat16_bit_for_bit(jaxk):
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    vals = np.array([0.0, -0.0, 1.0, -2.5, 3.0e38, 1e-40, np.inf, -np.inf, 0.1], np.float32)
+    arr = vals.astype(ml_dtypes.bfloat16)
+    for src in (arr, jaxk.jnp.asarray(arr)):
+        t = ops.to_tensor(src, device="cpu")
+        assert t.dtype == torch.bfloat16
+        assert np.array_equal(t.view(torch.int16).numpy(), np.asarray(src).view(np.int16))
+    nan = ops.to_tensor(np.array([np.nan], np.float32).astype(ml_dtypes.bfloat16), device="cpu")
+    assert torch.isnan(nan).all()
+    # cast on the way: round to nearest even, as numpy and JAX do
+    x = np.random.default_rng(12).standard_normal(64).astype(np.float32)
+    t = ops.to_tensor(x, torch.bfloat16, device="cpu")
+    assert np.array_equal(t.view(torch.int16).numpy(), x.astype(ml_dtypes.bfloat16).view(np.int16))
+    assert ops.to_tensor(x, device="cpu").dtype == torch.float32
+
+
+@pytest.mark.parametrize("name,shapes,dtype,chunk,bound_ms,by", [
+    ("stencil3x3", [(1082, 1922), (3, 3)], torch.float32, None, 0.0050, "bytes"),
+    ("matmul", [(2048, 2048), (2048, 5632)], torch.bfloat16, None, 0.048, "operations"),
+    ("matmul", [(2048, 2048), (2048, 5632)], torch.float32, None, 0.705, "operations"),
+    ("matmul", [(256, 1000), (1000, 256)], torch.float32, None, 0.00196, "operations"),
+    ("flash_attention", [(32, 2048, 64)] * 3, torch.bfloat16, None, 0.0174, "operations"),
+    ("flash_attention", [(40, 4096, 128)] * 3, torch.bfloat16, None, 0.174, "operations"),
+    ("ssd_gram", [(2048, 128), (2048, 128)], torch.float32, 256, 0.00125, "bytes"),
+    ("ssd_scan", [(2048, 80, 64), (2048, 80), (80,), (2048, 128), (2048, 128), (8, 256, 256)],
+     torch.float32, 256, 0.1204, "operations"),
+])
+def test_chip_smoke_bounds(name, shapes, dtype, chunk, bound_ms, by):
+    """``chip_smoke.kernel_work`` gives each phase-7 configuration the bound
+    that PERF.md reports (shapes on the meta device: nothing is allocated)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    args = [torch.empty(sh, dtype=dtype if i == 0 or name != "ssd_scan" else torch.float32,
+                        device="meta") for i, sh in enumerate(shapes)]
+    out_shape = {"stencil3x3": (1080, 1920), "matmul": (shapes[0][0], shapes[1][1]),
+                 "ssd_gram": (8, 256, 256)}.get(name, shapes[0])
+    nbytes, ops_, peak = smoke.kernel_work(name, args, torch.empty(out_shape, dtype=dtype, device="meta"), chunk)
+    t_bytes, t_ops = 1e3 * nbytes / smoke.PEAK_BYTES_PER_S, 1e3 * ops_ / peak
+    assert ("bytes" if t_bytes >= t_ops else "operations") == by
+    assert max(t_bytes, t_ops) == pytest.approx(bound_ms, rel=0.02)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_version_on_card():
+    """Build and launch the five kernels on small shapes; hold each against
+    its plain version (stencil bit for bit), one launch per call (the SSD
+    op: one of each of its two kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; run on the GPU machine")
+    rng = np.random.default_rng(13)
+
+    def t(*shape, dtype=torch.float32):
+        return ops.to_tensor(rng.standard_normal(shape).astype(np.float32), dtype)
+
+    x, w = t(34, 50), ops.to_tensor(GAUSS)
+    ssd_in = tuple(ops.to_tensor(a) for a in ssd_arrays(rng, 128, 3, 40, 16))
+    cases = [
+        ("stencil3x3", stencil3x3, stencil3x3_plain, (x, w), {}, 0.0),
+        ("matmul", matmul, matmul_plain, (t(64, 48), t(48, 80)), {}, 1e-4),
+        ("matmul", matmul, matmul_plain,
+         (t(64, 48, dtype=torch.bfloat16), t(48, 80, dtype=torch.bfloat16)), {}, 2e-2),
+        ("flash_attention", flash_attention, flash_attention_plain,
+         (t(2, 128, 64), t(2, 128, 64), t(2, 128, 64)), {"causal": True}, 2e-3),
+        ("flash_attention", flash_attention, flash_attention_plain,
+         (t(2, 64, 128), t(2, 256, 128), t(2, 256, 128)), {"causal": False}, 2e-3),
+        ("ssd_gram", ssd_gram, ssd_gram_plain, (ssd_in[3], ssd_in[4], 32), {}, 1e-4),
+        ("ssd_scan", ssd_scan, ssd_scan_plain, ssd_in, {"chunk": 32}, 1e-3),
+    ]
+    for name, fn, plain, args, kw, tol in cases:
+        before = {k: launcher.launches for k, launcher in KERNELS.items()}
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        want = plain(*args, **kw)
+        launched = {"ssd_scan": {"ssd_gram", "ssd_scan"}}.get(name, {name})
+        assert got.is_cuda and all(
+            launcher.launches == before[k] + (k in launched) for k, launcher in KERNELS.items()
+        ), name
+        if tol == 0.0:
+            assert torch.equal(got, want), name
+        else:
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
