@@ -24,8 +24,13 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    the H100's shared memory per block; every kernel group's output is
    compared with its plain PyTorch version on the same CUDA inputs (max
    abs diff, 0 expected); the kernel is timed with CUDA events (median of
-   10), the plain version over its comparison call.  Each is also held
-   against a computation that shares no code with the port: gaussian
+   10, and per call over replays of a CUDA graph behind an L2-evicting
+   write, as in phase 7), the plain version over its comparison call.
+   Each group's launch (blocks, threads, the thread map of an
+   element-parallel group and its tile), its registers and spills as
+   ``ptxas -v`` reported them, and its library's nvcc seconds are
+   printed.  Each is also held against a computation that shares no code
+   with the port: gaussian
    against ``F.conv2d`` (atol 1e-3), upsample against
    ``expand().contiguous()`` (exact), resnet against ``F.conv2d`` and
    matmul against ``torch.matmul`` (all three timed as the library call),
@@ -674,7 +679,7 @@ def kernels_full(full_apps, rows) -> None:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
-            "device_ms": device_ms,
+            "dev_ms": device_ms,
             "library_device_ms": library_device_ms,
         }
         log(f"{tag}: {ms:.4f} ms/launch ({device_ms:.4f} ms replayed, L2 flushed), "
@@ -739,7 +744,7 @@ def kernels_full(full_apps, rows) -> None:
             log(f"[kernels-full] {label} {kname} {dname}: generated vs hand-written, batch 1: "
                 f"generated {app_label} kernel {row['generated_ms']:.4f} ms "
                 f"({row['generated_device_ms']:.4f} ms replayed), {kname} {row['ms']:.4f} ms "
-                f"({row['device_ms']:.4f} ms replayed); bit for bit {'ok' if same else 'FAIL'}")
+                f"({row['dev_ms']:.4f} ms replayed); bit for bit {'ok' if same else 'FAIL'}")
             if not same:
                 raise AssertionError(f"{label}: differs from the generated {app_label} kernel")
         row["shape"] = [list(t.shape) for t in args]
@@ -766,8 +771,10 @@ def main() -> int:
     from repro_torch.backend import (
         PipelineServer, compile_pipeline, reference_arrays,
     )
-    from repro_torch.backend.build import build_many
-    from repro_torch.backend.cuda_codegen import REPLACES, emit_library
+    from repro_torch.backend.build import build_many, digest, ptxas_usage
+    from repro_torch.backend.cuda_codegen import (
+        REPLACES, block_threads, element_map, emit_library, grid_x,
+    )
     from repro_torch.backend.eager import LoweredGroup
     from repro_torch.backend.plan import build_pipeline_plan
     from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
@@ -839,7 +846,10 @@ def main() -> int:
         compile_s = time.perf_counter() - t0
         ins = inputs_for(app, rng, batch=BATCH, integer=integer)
         bufs = {n: torch.from_numpy(a).cuda() for n, a in ins.items()}
-        for k in pp.kernels:
+        lib_src = emit_library([k.lg for k in pp.kernels])
+        nvcc_s = build_secs.get(digest(lib_src))
+        usage = ptxas_usage(lib_src)
+        for gi, k in enumerate(pp.kernels):
             out = k(bufs)
             torch.cuda.synchronize()
             # the plain version is timed over its comparison call
@@ -855,6 +865,11 @@ def main() -> int:
                 raise AssertionError(f"{label}/{k.name}: bad output {tuple(out.shape)}")
             err = float((out - plain).abs().max())
             ms = time_ms(lambda: k(bufs), 10)
+            dev_ms = graph_ms(lambda: k(bufs))
+            em = element_map(k.lg)
+            blocks = grid_x(k.lg) * k.kg.batch_steps
+            threads = block_threads(k.lg)
+            regs = usage.get(f"ub_kernel_{gi}", {})
             nbytes, ops = bytes_and_ops(k)
             t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
             t_ops = 1e3 * ops / PEAK_F32_FLOPS
@@ -887,17 +902,29 @@ def main() -> int:
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": library_ms,
+                "dev_ms": dev_ms,
+                "blocks": blocks,
+                "threads": threads,
+                "tile": em.tile if em is not None else None,
+                "regs_per_thread": regs.get("registers"),
+                "spill_bytes": regs.get("spill_stores"),
+                "nvcc_s": nvcc_s,
                 "plan_hbm_bound_ms": 1e3 * k.kg.hbm_bytes() / PEAK_BYTES_PER_S,
                 "variants": variants(k.kg),
                 "app": label,
             }
+            thread_map = (f"element-parallel, thread axis {em.thread_axis}, tile {em.tile} "
+                          f"along {em.tile_axis}" if em is not None else "element loop")
             log(f"[full] {label}/{k.name} grid={k.kg.grid} bh={k.kg.bh} bw={k.kg.bw} "
                 f"smem={k.kg.scratch_bytes} B [{', '.join(variants(k.kg))}]: "
                 f"max|cuda - plain| = {err!r} (tolerance 0); "
-                f"{ms:.4f} ms/launch, plain {plain_ms:.2f} ms, bound "
+                f"{ms:.4f} ms/launch ({dev_ms:.4f} ms replayed, L2 flushed), "
+                f"plain {plain_ms:.2f} ms, bound "
                 f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}), "
                 f"library {library_ms if library_ms is None else round(library_ms, 4)} ms, "
-                f"compile {compile_s:.2f} s")
+                f"compile {compile_s:.2f} s; {thread_map}: {blocks} blocks of {threads} "
+                f"threads, {regs.get('registers')} registers, "
+                f"{regs.get('spill_stores')} B spilled, nvcc {nvcc_s} s")
             if err != 0.0:
                 raise AssertionError(f"{label}/{k.name}: CUDA kernel differs from plain by {err}")
     log(f"[full] phase wall {time.perf_counter() - t_phase:.1f} s")

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Time thread-map variants of the element-parallel generated groups on one GPU.
+
+    python3 scripts/element_map_probe.py [--apps resnet,matmul,upsample]
+        [--batches 8,1] [--variants loop,128x8,128x4] [--out FILE]
+
+For each app at its ``chip_smoke.py`` size and each batch, every variant of
+the element-parallel emission (``cuda_codegen.element_map``) is emitted,
+built (one nvcc per variant, all started together), held bit for bit
+against the plain PyTorch version on the same CUDA inputs, and timed: one
+call between CUDA events (median of 10) and per call over replays of a
+CUDA graph behind an L2-evicting write (``chip_smoke.graph_ms``).  A
+variant is ``<threads>x<tile>`` (threads per block, the most elements one
+thread evaluates together), optionally followed by ``b<blocks>`` (the cap
+on blocks per slot), ``u<n>`` (the unroll of a rolled run of reduction
+terms) and ``r<n>`` (the shortest run rolled), or ``loop``: the element
+loop every carried or fused group uses, which these groups took before
+their own thread map.  Prints one line per variant (with its registers
+and spills from ``ptxas -v`` and its nvcc seconds) and, with ``--out``,
+writes them as JSON.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+APPS = {
+    "resnet": ({"img": 56, "cin": 64, "cout": 64}, True),
+    "matmul": ({"m": 256, "n": 256, "k": 1000}, True),
+    "upsample": ({"size": 1024}, False),
+}
+
+
+def emit(app, batch: int, variant: str):
+    """The variant's lowered groups and library source."""
+    from repro_torch.backend import cuda_codegen as cc
+    from repro_torch.backend.eager import LoweredGroup
+    from repro_torch.backend.plan import build_pipeline_plan
+    from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
+
+    kw = {"batch": batch, "batch_capacity": batch} if batch > 1 else {}
+    plan = build_pipeline_plan(app.pipeline, vmem_budget=H100_SMEM_PER_BLOCK, **kw)
+    lowered = [LoweredGroup(kg) for kg in plan.kernels]
+    knobs = ("THREADS_ELEMENT", "TILE_MAX", "MAX_BLOCKS_PER_SLOT", "ROLL_UNROLL", "ROLL_MIN",
+             "element_map")
+    saved = {k: getattr(cc, k) for k in knobs}
+    try:
+        if variant == "loop":
+            cc.element_map = lambda lg: None
+        else:
+            m = re.fullmatch(r"(\d+)x(\d+)(?:b(\d+))?(?:u(\d+))?(?:r(\d+))?", variant)
+            if m is None:
+                raise SystemExit(f"bad variant {variant!r}")
+            for k, v in zip(knobs, m.groups()):
+                if v:
+                    setattr(cc, k, int(v))
+        maps = [cc.element_map(lg) for lg in lowered]
+        return lowered, maps, cc.emit_library(lowered)
+    finally:
+        for k, v in saved.items():
+            setattr(cc, k, v)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--apps", default="resnet,matmul,upsample")
+    ap.add_argument("--batches", default="8,1")
+    ap.add_argument("--variants", default="loop,128x8")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("element_map_probe.py: no CUDA device is visible", file=sys.stderr)
+        return 2
+    from chip_smoke import card_line, graph_ms, inputs_for, time_ms
+    from repro_torch.apps import make_app
+    from repro_torch.backend.build import build_many, digest, load_library, ptxas_usage
+    from repro_torch.backend.cuda_codegen import CudaKernel
+    from repro_torch.backend.eager import EagerKernel
+
+    card = card_line()
+    print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    jobs = []
+    for name in args.apps.split(","):
+        kw, integer = APPS[name]
+        app = make_app(name, **kw)
+        for batch in map(int, args.batches.split(",")):
+            for variant in args.variants.split(","):
+                jobs.append((name, app, integer, batch, variant, *emit(app, batch, variant)))
+    t0 = time.perf_counter()
+    secs = build_many([job[-1] for job in jobs])
+    print(f"[build] {len(secs)} builds, wall {time.perf_counter() - t0:.1f} s", flush=True)
+    rows = []
+    rng = np.random.default_rng(20261017)
+    plain_cache = {}
+    for name, app, integer, batch, variant, lowered, maps, src in jobs:
+        (lg,), (em,) = lowered, maps
+        key = (name, batch)
+        if key not in plain_cache:
+            ins = inputs_for(app, rng, batch=batch if batch > 1 else None, integer=integer)
+            bufs = {n: torch.from_numpy(a).cuda() for n, a in ins.items()}
+            plain_cache[key] = (bufs, EagerKernel(lg)(bufs))
+        bufs, want = plain_cache[key]
+        k = CudaKernel(lg, load_library(src), "0")
+        got = k(bufs)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        usage = ptxas_usage(src).get("ub_kernel_0", {})
+        row = {
+            "app": name, "batch": batch, "variant": variant,
+            "thread_axis": em.thread_axis if em else None,
+            "tile": em.tile if em else None, "threads": em.threads if em else None,
+            "blocks": (em.blocks if em else None), "bit_equal": bool(same),
+            "ms": time_ms(lambda: k(bufs), 10), "graph_ms": graph_ms(lambda: k(bufs)),
+            "nvcc_s": secs.get(digest(src)), **usage, "card": card,
+        }
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        if not same:
+            print(f"[probe] {name} b{batch} {variant}: differs from the plain version",
+                  flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(rows, indent=1))
+    return 0 if all(r["bit_equal"] for r in rows) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

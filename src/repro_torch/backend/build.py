@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -29,7 +30,7 @@ HEADER = CSRC / "ub_kernel.cuh"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-arch=sm_90a", "-O3", "-std=c++17", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -101,11 +102,43 @@ def build_many(sources: Sequence[str]) -> Dict[str, float]:
             errors.append(f"nvcc failed for {so.parent}:\n{log}")
             continue
         os.replace(tmp, so)
+        (so.parent / "nvcc.log").write_text(log)
         times[d] = secs
         print(f"nvcc {d[:12]}: {secs:.1f} s", file=sys.stderr)
     if errors:
         raise EmitError("\n".join(errors))
     return times
+
+
+_ENTRY = re.compile(r"Compiling entry function '_Z(\d+)(\w+)'")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(source: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of ``source``'s library, what ``ptxas -v`` reported when
+    it was built: ``{"registers", "spill_stores", "spill_loads"}`` (bytes
+    for the spills).  Empty when the build's log is not there."""
+    log = library_path(source).parent / "nvcc.log"
+    if not log.exists():
+        return {}
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.read_text().splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            name = m.group(2)[: int(m.group(1))]
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = _SPILLS.search(line)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
+        m = _REGS.search(line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def load_library(source: str) -> ctypes.CDLL:
@@ -114,4 +147,7 @@ def load_library(source: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(source)))
 
 
-__all__ = ["BUILD_ROOT", "NVCC_FLAGS", "build_many", "digest", "library_path", "load_library"]
+__all__ = [
+    "BUILD_ROOT", "NVCC_FLAGS", "build_many", "digest", "library_path", "load_library",
+    "ptxas_usage",
+]

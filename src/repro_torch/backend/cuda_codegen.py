@@ -18,37 +18,50 @@ block-by-block transliteration:
   ============================  ==========================  ====================
   row rings / line buffers       batch slot                  row steps ``i0``
   column rings / lane buffers    (row step, slot)            lane steps ``j``
-  lane grid, nothing carried     (row step x lane step,      none
-                                 slot)
-  grid reduction                 (row step, slot)            chunks ``k``, per
-                                                             output element
-  anything else                  (row step, slot)            none
+  fused scratch, nothing         (row step x lane step,      none
+  carried                        slot)
+  element-parallel (below)       run of work items, slot     chunks ``k`` of a
+                                                             grid reduction
   ============================  ==========================  ====================
 
-  Under a grid reduction each thread keeps one output element's
-  accumulator in a register across the chunks (the element -> thread map is
-  the same every chunk), so the chunk loop sits inside the element loop.
 * **Shared memory holds exactly what Pallas kept in VMEM scratch**: the fused
   intermediates' panels and row or column line-buffer rings and the input
   rings (``KernelGroup.scratch_bytes``).  Delivered view blocks are read
   straight from global memory through the plan's own address arithmetic
   (resolved once in ``eager.LoweredGroup``), every load bounded by the
   buffer's extents and the view's valid rows and lanes, with 0 outside.
-* **One element per thread iteration.**  Threads stride over each panel's
-  elements; each evaluates the stage's lowered program (the reference
-  interpreter's f32 operations in the Pallas kernel's order, reductions
-  unrolled per chunk) as C.  ``__syncthreads()`` separates ring rotation,
-  landing, each fused stage and the output store, in the order of the
-  Pallas kernel body.
+* **Carried or fused groups: one element per thread iteration.**  Threads
+  stride over each panel's elements; each evaluates the stage's lowered
+  program (the reference interpreter's f32 operations in the Pallas
+  kernel's order, reductions unrolled per chunk) as C.
+  ``__syncthreads()`` separates ring rotation, landing, each fused stage
+  and the output store, in the order of the Pallas kernel body.
+* **Element-parallel groups get a thread map of their own**
+  (:func:`element_map`): a group with no rings, no fused scratch and no
+  carry (resnet's lane grid, matmul's grid reduction, upsample) shares
+  nothing between elements, and a Pallas grid step is not a CUDA block.
+  Its threads stride over work items of the whole slot, fastest along the
+  axis on which its heavy input reads consecutive floats (resnet's x,
+  matmul's columns), so a warp reads one run of memory.  Each thread
+  evaluates a tile of up to ``TILE_MAX`` output elements along the axis on
+  which that input does not vary (resnet's output channels, matmul's
+  rows): a load that does not depend on the tile axis is issued once for
+  the tile, and the tile's programs are interleaved statement by
+  statement, independent chains for the scheduler.  Under a grid reduction
+  the chunk loop runs inside the thread with the tile's accumulators in
+  registers: each output still has one thread and one chain, in the plan's
+  order.  A load that no element of the launch can take outside its
+  buffer or its view's valid rows and lanes is not bounded.
 
 What bounds it on the H100: a stencil group does a few operations per byte
 of f32 image, so it is bound by HBM bytes (``KernelGroup.hbm_bytes`` over
 3.35 TB/s); a convolution over channels or a matmul does hundreds of f32
 operations per element and is bound by operations (67 TFLOP/s without
-tensor cores).  This version is written to be right, not fast: a
-row-carried group runs on one SM per batch slot (a column-carried one on
-one block per row step and slot), view taps are re-read from global memory
-(through L1/L2) once per tap, and reductions use scalar f32 operations.
+tensor cores, half of it without fused multiply-adds).  A row-carried group
+still runs on one SM per batch slot (a column-carried one on one block per
+row step and slot), and the carried and fused groups re-read view taps from
+global memory (through L1/L2) once per tap; every group uses scalar f32
+operations.
 
 The library is compiled by ``build.py`` with ``-fmad=false`` and IEEE
 division, so the kernel and the plain PyTorch version (``eager.py``) run the
@@ -60,6 +73,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +90,16 @@ from .plan import KernelGroup, StagePlan
 # budget
 THREADS_CARRIED = 512
 THREADS_GRID = 256
+# an element-parallel group: threads per block, the most output elements
+# one thread evaluates together, and a cap on blocks per slot past which
+# threads stride over more work items
+THREADS_ELEMENT = 128
+TILE_MAX = 8
+MAX_BLOCKS_PER_SLOT = 4096
+# a run of at least ROLL_MIN reduction terms that differ only in constants
+# is emitted as a loop, unrolled ROLL_UNROLL times
+ROLL_MIN = 8
+ROLL_UNROLL = 4
 
 # the TPU kernel this emitter replaces, for reports
 REPLACES = "src/repro/backend/codegen.py:755"
@@ -138,13 +162,221 @@ def smem_layout(kg: KernelGroup) -> Tuple[List[int], List[int], int]:
     return s_off, r_off, 4 * off
 
 
+@dataclass(frozen=True)
+class RolledIndex(AxisIndex):
+    """An index inside a loop over ``r``: ``rstep * r`` more than the
+    :class:`AxisIndex` it extends."""
+
+    rstep: int = 0
+
+
+def _operands(op: Op) -> Tuple[int, ...]:
+    if op[0] == "bin":
+        return (op[2], op[3])
+    if op[0] == "sel":
+        return tuple(op[1:4])
+    if op[0] == "mask":
+        return (op[1],)
+    return ()
+
+
+def _chain(ops: Sequence[Op]) -> Optional[Tuple[int, List[int]]]:
+    """A reduction's accumulation chain: ``(head, ends)`` where
+    ``ops[:head]`` come first, ``ops[head - 1]`` is the initial value, and
+    each term ``ops[end_before + 1 .. end]`` reads only its own ops and the
+    head, and ends adding itself to the chain's previous value (which no
+    other op reads).  None for a program that is not such a chain of two
+    or more terms."""
+    ends = []
+    i = len(ops) - 1
+    while ops[i][0] == "bin" and ops[i][1] == "add" and ops[i][2] < ops[i][3] < i:
+        ends.append(i)
+        i = ops[i][2]
+    if len(ends) < 2:
+        return None
+    ends.reverse()
+    head, prev = i + 1, i
+    for e in ends:
+        for j in range(prev + 1, e + 1):
+            for x in _operands(ops[j]):
+                if x == prev:
+                    if j != e:
+                        return None
+                elif not (x < head or prev < x < j):
+                    return None
+        prev = e
+    return head, ends
+
+
+def element_parallel(lg: LoweredGroup) -> bool:
+    """A group whose blocks carry nothing and share nothing: no rings, no
+    fused scratch, no row or lane carry (a grid reduction's chunks are a
+    loop inside each output element, so it may have one)."""
+    return not (lg.row_carried or lg.lane_carried or lg.kg.rings or lg.entries)
+
+
+@dataclass(frozen=True)
+class ElementMap:
+    """How an element-parallel group's output elements map to threads.
+
+    ``axes`` are the work axes of one batch slot, fastest first, each a C
+    variable (``i0``, ``j`` or a panel coordinate ``p<q>``) and its extent:
+    the thread axis ``axes[0]``, then the other axes in the output's memory
+    order; the tile axis ``tile_axis`` appears divided by ``tile``.  Work
+    item ``w`` of a slot is decoded from these axes; its thread evaluates
+    the ``tile`` output elements ``tile_axis = (w's tile index) * tile +
+    t``, their programs interleaved statement by statement.  ``fixed``
+    variables have one value.  Threads stride over the ``work`` items,
+    ``blocks`` blocks of ``threads`` per slot."""
+
+    axes: Tuple[Tuple[str, int], ...]
+    tile_axis: Optional[str]
+    tile: int
+    fixed: Tuple[Tuple[str, int], ...]
+    work: int
+    threads: int
+    blocks: int
+
+    @property
+    def thread_axis(self) -> str:
+        return self.axes[0][0] if self.axes else "none"
+
+
+def _span(ax: AxisIndex, rng: Mapping[str, Tuple[int, int]]) -> Tuple[int, int]:
+    """Smallest and largest value of ``ax`` over the variables' ranges."""
+    lo = hi = ax.const
+    terms = [(ax.step, "i0"), (ax.lstep, "j"), (ax.kstep, "k"), (getattr(ax, "rstep", 0), "r")]
+    if ax.q is not None:
+        terms.append((ax.stride, f"p{ax.q}"))
+    for c, v in terms:
+        if c:
+            a, b = rng[v]
+            lo += min(c * a, c * b)
+            hi += max(c * a, c * b)
+    return lo, hi
+
+
+def _uses(ax: AxisIndex, var: str) -> bool:
+    if var == "i0":
+        return ax.step != 0
+    if var == "j":
+        return ax.lstep != 0
+    return ax.q is not None and ax.stride != 0 and var == f"p{ax.q}"
+
+
+def _unit(ax: AxisIndex, var: str) -> bool:
+    """Whether ``ax`` advances by one per step of ``var``, alone."""
+    coef = {"i0": ax.step, "j": ax.lstep}.get(var)
+    if coef is None:
+        coef = ax.stride if ax.q is not None and var == f"p{ax.q}" else 0
+    return abs(coef) == 1
+
+
+def _output_taps(lg: LoweredGroup) -> List[Tap]:
+    progs = [lg.programs[(lg.kg.output.name, 0, 0)]]
+    if lg.init_program is not None:
+        progs.append(lg.init_program)
+    return [op[1] for prog in progs for op in prog if op[0] == "tap"]
+
+
+def element_map(lg: LoweredGroup) -> Optional[ElementMap]:
+    """The thread map of an element-parallel group (None for any other).
+    Deterministic in the plan:
+
+    * the thread axis is the work axis along which the most loads (the
+      output store counted as one) advance by one in their buffer's
+      innermost dimension, ties to the output's innermost axis, so a warp
+      reads and writes consecutive floats;
+    * the tile axis is the panel axis (not the thread axis) along which the
+      most loads that vary with the thread axis stay the same, then the
+      most loads of any kind, then the longest; each such load is issued
+      once for ``tile`` output elements.  The tile is the largest divisor
+      of the axis's extent up to ``TILE_MAX``; with no load to share, or no
+      such divisor above 1, there is no tile axis."""
+    if not element_parallel(lg):
+        return None
+    kg = lg.kg
+    out = kg.output
+    shape = lg.panel_shape(out)
+    n = len(shape)
+    # the output's axes, outermost first
+    order: List[Tuple[str, int]] = [("i0", lg.steps)]
+    if lg.lane_blocked(out):
+        order += [(f"p{q}", shape[q]) for q in range(n - 1)]
+        order += [("j", lg.lane_steps), (f"p{n - 1}", shape[n - 1])]
+    else:
+        order += [(f"p{q}", shape[q]) for q in range(n)]
+    fixed = [(v, 0) for v, e in order if e == 1]
+    if not lg.lane_blocked(out):
+        fixed.append(("j", 0))
+    inner = [(v, e) for v, e in reversed(order) if e > 1]
+    taps = [t for t in _output_taps(lg) if t.kind == "view"]
+
+    def unit_loads(var: str) -> int:
+        return sum(1 for t in taps if t.axes and _unit(t.axes[-1], var))
+
+    # the output store advances by one along its innermost axis
+    store_axis = inner[0][0] if inner else None
+    best = None
+    for rank, (v, _e) in enumerate(inner):
+        score = (unit_loads(v) + (v == store_axis), -rank)
+        if best is None or score > best[0]:
+            best = (score, v)
+    thread = best[1] if best else None
+
+    def varies(t: Tap, var: str) -> bool:
+        return any(_uses(ax, var) for ax in t.axes) or any(
+            _uses(ax, var) for ax, _lim in t.bounds
+        )
+
+    heavy = [t for t in taps if thread is not None and varies(t, thread)]
+    tile_axis, tile = None, 1
+    best = None
+    for v, e in inner:
+        if v == thread or not v.startswith("p"):
+            continue
+        score = (
+            sum(1 for t in heavy if not varies(t, v)),
+            sum(1 for t in taps if not varies(t, v)),
+            e,
+        )
+        if score[1] and (best is None or score > best[0]):
+            best = (score, v, e)
+    if best is not None:
+        tile = max(d for d in range(1, min(TILE_MAX, best[2]) + 1) if best[2] % d == 0)
+        tile_axis = best[1] if tile > 1 else None
+    axes = []
+    for v, e in inner:
+        if v == tile_axis:
+            e //= tile
+        if e > 1 or v == thread:
+            axes.append((v, e))
+    axes.sort(key=lambda a: a[0] != thread)     # stable: the thread axis first
+    work = math.prod(e for _v, e in axes)
+    blocks = min(-(-work // THREADS_ELEMENT), MAX_BLOCKS_PER_SLOT)
+    return ElementMap(
+        tuple(axes), tile_axis, tile, tuple(fixed), work, THREADS_ELEMENT, blocks,
+    )
+
+
 def grid_x(lg: LoweredGroup) -> int:
     """Thread blocks per batch slot (the launch's ``gridDim.x``)."""
+    em = element_map(lg)
+    if em is not None:
+        return em.blocks
     if lg.row_carried:
         return 1
     if lg.lane_carried:
         return lg.steps
     return lg.steps * lg.lane_steps
+
+
+def block_threads(lg: LoweredGroup) -> int:
+    """Threads per block of the group's launch (``blockDim.x``)."""
+    em = element_map(lg)
+    if em is not None:
+        return em.threads
+    return THREADS_CARRIED if lg.row_carried or lg.lane_carried else THREADS_GRID
 
 
 class _GroupEmitter:
@@ -153,7 +385,12 @@ class _GroupEmitter:
         self.kg = lg.kg
         self.tag = tag
         kg = self.kg
-        self.nt = THREADS_CARRIED if lg.row_carried or lg.lane_carried else THREADS_GRID
+        self.em = element_map(lg)
+        self.nt = block_threads(lg)
+        if self.em is not None:
+            self.rng = self.ep_ranges()
+            req = kg.required_extents()
+            self.need = [req[b] for b in lg.buffer_order]
         self.ranks = []
         for b in lg.buffer_order:
             self.ranks.append(next(g.ndim for g in kg.groups if g.buffer == b))
@@ -171,11 +408,14 @@ class _GroupEmitter:
     # -- loads --------------------------------------------------------------
 
     @staticmethod
-    def index(ax: AxisIndex) -> str:
-        terms = [(ax.step, "i0"), (ax.lstep, "j"), (ax.kstep, "k")]
+    def index(ax: AxisIndex, sub: Optional[Mapping[str, str]] = None) -> str:
+        """``ax`` as a C int expression; ``sub`` renames variables."""
+        terms = [(ax.step, "i0"), (ax.lstep, "j"), (ax.kstep, "k"),
+                 (getattr(ax, "rstep", 0), "r")]
         if ax.q is not None:
             terms.append((ax.stride, f"p{ax.q}"))
-        return _affine(ax.const, [t for t in terms if t[0]])
+        sub = sub or {}
+        return _affine(ax.const, [(c, sub.get(v, v)) for c, v in terms if c])
 
     def bounds(self, bounds: Bounds) -> List[str]:
         return [f"{self.index(ax)} < {limit}" for ax, limit in bounds]
@@ -277,6 +517,281 @@ class _GroupEmitter:
         shape = _resized(dims, axis, n)
         return self.loop(shape, [f"{self.at(name, dims, shape, {axis: offset})} = {val};"])
 
+    # -- element-parallel groups --------------------------------------------
+
+    def ep_ranges(self) -> Dict[str, Tuple[int, int]]:
+        """Each variable's range over the whole launch."""
+        lg = self.lg
+        rng = {
+            "i0": (0, lg.steps - 1), "j": (0, lg.lane_steps - 1), "k": (0, lg.red_steps - 1),
+        }
+        for q, e in enumerate(lg.panel_shape(self.kg.output)):
+            rng[f"p{q}"] = (0, e - 1)
+        for v, val in self.em.fixed:
+            rng[v] = (val, val)
+        return rng
+
+    def ep_load(self, t: Tap, sub: Mapping[str, str]) -> str:
+        """A view load, bounded only where some element of the launch can
+        fall outside the buffer's required extents or the view's valid
+        rows and lanes (the buffer is at least that large, so a load that
+        never does reads what the bounded load reads)."""
+        b = self.lg.slot_of[self.kg.groups[t.src].buffer]
+        idx = [self.index(ax, sub) for ax in t.axes]
+        dims = [f"D{b}_{j}" for j in range(len(idx))]
+        ok = []
+        for a, ax, d, n in zip(idx, t.axes, dims, self.need[b]):
+            lo, hi = _span(ax, self.rng)
+            if lo < 0 or hi >= n:
+                ok.append(f"(unsigned)({a}) < (unsigned){d}")
+        ok += self.ep_bounds(t.bounds, sub)
+        lin = _horner(idx, dims)
+        return f"ub_load(g{b}, {' && '.join(ok)}, {lin})" if ok else f"g{b}[{lin}]"
+
+    def ep_bounds(self, bounds: Bounds, sub: Mapping[str, str]) -> List[str]:
+        """The bounds some element of the launch can fail."""
+        return [
+            f"{self.index(ax, sub)} < {limit}"
+            for ax, limit in bounds if _span(ax, self.rng)[1] >= limit
+        ]
+
+    def ep_deps(self, ops: Sequence[Op]) -> List[bool]:
+        """Whether each op depends on the tile axis (and is evaluated once
+        per element of the tile, not once for the tile)."""
+        em = self.em
+        ta = em.tile_axis if em.tile > 1 else None
+
+        def varies(axes) -> bool:
+            return ta is not None and any(_uses(ax, ta) for ax in axes)
+
+        dep: List[bool] = []
+        for op in ops:
+            kind = op[0]
+            if kind == "iter":
+                d = varies([op[1]])
+            elif kind == "tap":
+                d = varies(op[1].axes) or varies([ax for ax, _l in op[1].bounds])
+            elif kind == "mask":
+                d = dep[op[1]] or varies([ax for ax, _l in op[2]])
+            elif kind in ("bin", "sel"):
+                d = any(dep[x] for x in _operands(op))
+            else:
+                d = kind == "acc" and ta is not None
+            dep.append(d)
+        return dep
+
+    def ep_op(self, op: Op, i: int, dep: Sequence[bool], ref: Callable[[int, int], str],
+              acc: Sequence[str] = ()) -> List[str]:
+        """Op ``i`` for each element of the tile it depends on; ``ref(j,
+        t)`` names op ``j``'s value for element ``t``."""
+        em = self.em
+        ta = em.tile_axis
+        kind = op[0]
+        lines = []
+        for t in range(em.tile) if dep[i] else (0,):
+            sub = {ta: f"{ta}_{t}"} if dep[i] and em.tile > 1 else {}
+            if kind == "const":
+                rhs = _flit(op[1])
+            elif kind == "iter":
+                rhs = f"(float)({self.index(op[1], sub)})"
+            elif kind == "tap":
+                rhs = self.ep_load(op[1], sub)
+            elif kind == "bin":
+                a, b = ref(op[2], t), ref(op[3], t)
+                if op[1] in _BIN_INFIX:
+                    rhs = f"{a} {_BIN_INFIX[op[1]]} {b}"
+                else:
+                    rhs = f"{_BIN_FN[op[1]]}({a}, {b})"
+            elif kind == "sel":
+                rhs = f"ub_sel({ref(op[1], t)}, {ref(op[2], t)}, {ref(op[3], t)})"
+            elif kind == "mask":
+                ok = self.ep_bounds(op[2], sub)
+                rhs = f"({' && '.join(ok)}) ? {ref(op[1], t)} : 0.f" if ok else ref(op[1], t)
+            else:
+                rhs = acc[t]
+            lines.append(f"const float {ref(i, t)} = {rhs};")
+        return lines
+
+    def ep_program(
+        self, ops: Sequence[Op], acc: Sequence[str] = ()
+    ) -> Tuple[List[str], List[str]]:
+        """``ops`` for the thread's ``tile`` elements, interleaved statement
+        by statement: an op that does not depend on the tile axis is
+        evaluated once for all of them.  A reduction's accumulation chain
+        keeps each element's sum in ``ch<t>``, and each run of at least
+        ``ROLL_MIN`` terms that differ only in constants advancing by the
+        same step is one loop over ``r``.  Returns the lines and each
+        element's value."""
+        em = self.em
+        dep = self.ep_deps(ops)
+        tiles = range(em.tile)
+
+        def name(j: int, t: int) -> str:
+            return f"v{j}_{t}" if dep[j] else f"v{j}"
+
+        chain = _chain(ops)
+        if chain is None:
+            lines = []
+            for i, op in enumerate(ops):
+                lines += self.ep_op(op, i, dep, name, acc)
+            return lines, [name(len(ops) - 1, t) for t in tiles]
+        head, ends = chain
+        lines = []
+        for i in range(head):
+            lines += self.ep_op(ops[i], i, dep, name, acc)
+        lines.append(f"float {', '.join(f'ch{t} = {name(head - 1, t)}' for t in tiles)};")
+        starts = [head] + [e + 1 for e in ends[:-1]]
+        sigs = [self.ep_signature(ops, a, e, head) for a, e in zip(starts, ends)]
+        s = 0
+        while s < len(ends):
+            # the longest run of terms from s whose constants advance by one step
+            n, step = 1, None
+            while s + n < len(ends) and sigs[s + n][0] == sigs[s][0]:
+                d = tuple(y - x for x, y in zip(sigs[s][1], sigs[s + n][1]))
+                if step is None:
+                    step = d
+                if d != tuple(n * x for x in step):
+                    break
+                n += 1
+            a, e = starts[s], ends[s]
+            if n >= ROLL_MIN:
+                lines += [f"#pragma unroll {ROLL_UNROLL}", f"for (int r = 0; r < {n}; ++r) {{"]
+                lines += _indent(self.ep_term(ops, a, e, dep, name, step, n)) + ["}"]
+                s += n
+            else:
+                lines += ["{"] + _indent(self.ep_term(ops, a, e, dep, name)) + ["}"]
+                s += 1
+        return lines, [f"ch{t}" for t in tiles]
+
+    def ep_signature(self, ops: Sequence[Op], a: int, e: int, head: int):
+        """What must agree for terms ``ops[a..e]`` to share a loop body, and
+        their constants: every op's kind and operands (relative to the
+        term, the chain's previous value or the head), every index's
+        variables and every bound's limit, and which loads and bounds the
+        launch has to check."""
+        sig: List[object] = []
+        consts: List[int] = []
+        checks: List[bool] = []
+
+        def axes(axs):
+            for ax in axs:
+                sig.append((ax.q, ax.stride, ax.step, ax.lstep, ax.kstep))
+                consts.append(ax.const)
+
+        def ref(x: int):
+            return ("acc",) if x == a - 1 else ("h", x) if x < head else ("l", x - a)
+
+        for j in range(a, e + 1):
+            op = ops[j]
+            kind = op[0]
+            if kind == "const":
+                sig.append(("const", _flit(op[1])))
+            elif kind == "iter":
+                sig.append("iter")
+                axes([op[1]])
+            elif kind == "tap":
+                t = op[1]
+                sig.append(("tap", t.kind, t.src, len(t.axes), tuple(lim for _a, lim in t.bounds)))
+                axes(t.axes)
+                axes([ax for ax, _l in t.bounds])
+                b = self.lg.slot_of[self.kg.groups[t.src].buffer]
+                for ax, n in zip(t.axes, self.need[b]):
+                    lo, hi = _span(ax, self.rng)
+                    checks.append(lo < 0 or hi >= n)
+                checks += [_span(ax, self.rng)[1] >= lim for ax, lim in t.bounds]
+            elif kind == "mask":
+                sig.append(("mask", ref(op[1]), tuple(lim for _a, lim in op[2])))
+                axes([ax for ax, _l in op[2]])
+                checks += [_span(ax, self.rng)[1] >= lim for ax, lim in op[2]]
+            elif kind in ("bin", "sel"):
+                sig.append((kind, op[1] if kind == "bin" else None,
+                            tuple(ref(x) for x in _operands(op))))
+            else:
+                sig.append(("acc",))
+        sig.append(tuple(checks))
+        return tuple(sig), tuple(consts)
+
+    def ep_term(self, ops, a, e, dep, name, step=None, n=1) -> List[str]:
+        """Term ``ops[a..e]``, then its addition to the chain.  With
+        ``step``, the body of a loop over ``r`` in ``[0, n)``: every index
+        constant of the term advances by its step per iteration."""
+        it = iter(step or ())
+
+        def roll(axs):
+            return tuple(RolledIndex(**vars(ax), rstep=next(it)) for ax in axs)
+
+        def bounds(bnd):
+            return tuple(zip(roll([ax for ax, _l in bnd]), (lim for _a, lim in bnd)))
+
+        body = []
+        self.rng["r"] = (0, n - 1)
+        for i in range(a, e + 1):
+            op = ops[i]
+            if step is not None and op[0] == "iter":
+                op = ("iter", roll([op[1]])[0])
+            elif step is not None and op[0] == "tap":
+                t = op[1]
+                op = ("tap", Tap(t.kind, t.src, roll(t.axes), bounds(t.bounds)))
+            elif step is not None and op[0] == "mask":
+                op = ("mask", op[1], bounds(op[2]))
+            body += self.ep_op(op, i, dep, lambda j, t: f"ch{t}" if j == a - 1 else name(j, t))
+        del self.rng["r"]
+        return body + [f"ch{t} = {name(e, t)};" for t in range(self.em.tile)]
+
+    def ep_store(self, vals: Sequence[str]) -> List[str]:
+        """Each element's value into its place in the output, where the
+        element lies inside the output's extents."""
+        lg, kg, em = self.lg, self.kg, self.em
+        out_sp = kg.output
+        ext = out_sp.nstage.pure_extents
+        n = len(ext)
+        lines = []
+        for t, v in enumerate(vals):
+            sub = {em.tile_axis: f"{em.tile_axis}_{t}"} if em.tile > 1 else {}
+            ps = [sub.get(f"p{q}", f"p{q}") for q in range(n)]
+            bounds = []
+            if lg.streamed(out_sp):
+                ps[0] = f"i0 * {kg.bh} + {ps[0]}"
+                bounds.append((AxisIndex(0, 0, 1, kg.bh), kg.e0))
+            if lg.lane_blocked(out_sp):
+                ps[-1] = f"j * {kg.bw} + {ps[-1]}"
+                bounds.append((AxisIndex(n - 1, 0, 1, lstep=kg.bw), kg.e1))
+            ok = self.ep_bounds(tuple(bounds), sub)
+            st = f"out[{_horner(ps, ext)}] = {v};"
+            lines.append(f"if ({' && '.join(ok)}) {st}" if ok else st)
+        return lines
+
+    def ep_body(self) -> List[str]:
+        """One work item: decode it, evaluate its elements, store them."""
+        lg, kg, em = self.lg, self.kg, self.em
+        out: List[str] = []
+        if em.axes:
+            out.append("int rem = w;")
+        for i, (v, e) in enumerate(em.axes):
+            var = f"{v}t" if v == em.tile_axis else v
+            if i == len(em.axes) - 1:
+                out.append(f"const int {var} = rem;")
+            else:
+                out.append(f"const int {var} = rem % {e}; rem /= {e};")
+        for v, val in em.fixed:
+            out.append(f"const int {v} = {val};")
+        if em.tile > 1:
+            ta = em.tile_axis
+            base = f"{ta}t * {em.tile} + " if any(v == ta for v, _e in em.axes) else ""
+            out += [f"const int {ta}_{t} = {base}{t};" for t in range(em.tile)]
+        rg = kg.red_grid
+        if rg is None:
+            body, vals = self.ep_program(lg.programs[(kg.output.name, 0, 0)])
+            return out + body + self.ep_store(vals)
+        accs = [f"acc{t}" for t in range(em.tile)]
+        init, iv = self.ep_program(lg.init_program)
+        chunk, cv = self.ep_program(lg.programs[(kg.output.name, 0, 0)], accs)
+        out.append(f"float {', '.join(accs)};")
+        out += ["{"] + _indent(init + [f"{a} = {v};" for a, v in zip(accs, iv)]) + ["}"]
+        out.append(f"for (int k = 0; k < {rg.steps}; ++k) {{")
+        out += _indent(chunk + [f"{a} = {v};" for a, v in zip(accs, cv)]) + ["}"]
+        return out + self.ep_store(accs)
+
     # -- kernel -------------------------------------------------------------
 
     def step(self) -> List[str]:
@@ -375,6 +890,15 @@ class _GroupEmitter:
             f"line buffers={list(kg.line_buffered)}, "
             f"red_grid={kg.red_grid is not None}, "
             f"padded={kg.padded_grid is not None}, smem={self.smem} B",
+        ]
+        if self.em is not None:
+            em = self.em
+            lines.append(
+                f"// element-parallel: thread axis {em.thread_axis}, tile {em.tile} along "
+                f"{em.tile_axis}, work axes {list(em.axes)}, {em.work} work items in "
+                f"{em.blocks} blocks of {em.threads} per slot"
+            )
+        lines += [
             f"struct UbParams{t} {{",
             f"  const float* in[{nb}];",
             "  float* out;",
@@ -399,7 +923,14 @@ class _GroupEmitter:
             lines.append(f"  float* const s{si} = ub_smem + {off};  // {self.s_shapes[si]}")
         for r, off in enumerate(self.r_off):
             lines.append(f"  float* const r{r} = ub_smem + {off};  // {self.r_shapes[r]}")
-        if lg.row_carried:
+        em = self.em
+        if em is not None:
+            lines.append(
+                f"  for (int w = blockIdx.x * {em.threads} + threadIdx.x; w < {em.work}; "
+                f"w += gridDim.x * {em.threads}) {{"
+            )
+            body = self.ep_body()
+        elif lg.row_carried:
             lines.append(f"  for (int i0 = 0; i0 < {lg.steps}; ++i0) {{")
         elif lg.lane_carried:
             lines.append("  const int i0 = blockIdx.x;")
@@ -411,7 +942,9 @@ class _GroupEmitter:
         else:
             lines.append("  const int i0 = blockIdx.x;")
             lines.append("  {")
-        lines += ["    " + ln for ln in self.step()]
+        if em is None:
+            body = self.step()
+        lines += ["    " + ln for ln in body]
         lines += ["  }", "}", ""]
         lines += [
             f'extern "C" int ub_launch_{t}(const void* const* in, void* out, '
@@ -463,6 +996,28 @@ def emit_library(lowered: Sequence[LoweredGroup]) -> str:
     )
 
 
+def output_shape(kg: KernelGroup) -> Tuple[int, ...]:
+    """The launch's output: the group's output extents, after the batch
+    slots when batched."""
+    ext = tuple(kg.output.nstage.pure_extents)
+    return ((kg.batch_steps,) + ext) if kg.batch_grid is not None else ext
+
+
+def launch_dims(lg: LoweredGroup, ts: Sequence[torch.Tensor]) -> List[int]:
+    """The launcher's ``dims``: each buffer's per-tile extents (after the
+    batch dim when batched), padded with 1 to the group's largest rank."""
+    kg = lg.kg
+    lead = 1 if kg.batch_grid is not None else 0
+    rank = max((g.ndim for g in kg.groups), default=1)
+    dims: List[int] = []
+    for t in ts:
+        ext = list(t.shape[lead:])
+        if math.prod(ext) >= 2 ** 31:
+            raise ValueError(f"kernel {kg.name!r}: tile of {ext} exceeds int32 indexing")
+        dims += ext + [1] * (rank - len(ext))
+    return dims
+
+
 class CudaKernel:
     """The wrapper of one generated CUDA kernel.
 
@@ -488,9 +1043,6 @@ class CudaKernel:
         self._err = lib.ub_error_string
         self._err.argtypes = [ctypes.c_int]
         self._err.restype = ctypes.c_char_p
-        self._rank = max(
-            (g.ndim for g in lg.kg.groups), default=1
-        )
 
     @property
     def name(self) -> str:
@@ -519,17 +1071,8 @@ class CudaKernel:
                     f"float32 tensor, got {t.dtype} contiguous={t.is_contiguous()}"
                 )
         kg.validate_buffers(buffers)
-        lead = 1 if kg.batch_grid is not None else 0
-        dims: List[int] = []
-        for t in ts:
-            ext = list(t.shape[lead:])
-            if math.prod(ext) >= 2 ** 31:
-                raise ValueError(f"kernel {kg.name!r}: tile of {ext} exceeds int32 indexing")
-            dims += ext + [1] * (self._rank - len(ext))
-        out_shape = tuple(kg.output.nstage.pure_extents)
-        if lead:
-            out_shape = (kg.batch_steps,) + out_shape
-        out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+        dims = launch_dims(lg, ts)
+        out = torch.empty(output_shape(kg), dtype=torch.float32, device=dev)
         ptrs = (ctypes.c_void_p * max(len(ts), 1))(*[t.data_ptr() for t in ts])
         cdims = (ctypes.c_longlong * max(len(dims), 1))(*dims)
         with torch.cuda.device(dev):
@@ -546,8 +1089,14 @@ class CudaKernel:
 
 __all__ = [
     "CudaKernel",
+    "ElementMap",
     "REPLACES",
+    "block_threads",
+    "element_map",
     "emit_kernel",
     "emit_library",
+    "grid_x",
+    "launch_dims",
+    "output_shape",
     "smem_layout",
 ]

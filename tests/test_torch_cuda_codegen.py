@@ -13,6 +13,7 @@ and skips here.
 
 import dataclasses
 import math
+import re
 import types
 
 import numpy as np
@@ -23,7 +24,9 @@ from conftest import sweep_inputs
 from repro_torch.apps import make_app
 from repro_torch.backend import EmitError, compile_pipeline
 from repro_torch.backend.build import build_many
-from repro_torch.backend.cuda_codegen import CudaKernel, _flit, emit_kernel, emit_library, smem_layout
+from repro_torch.backend.cuda_codegen import (
+    CudaKernel, _flit, element_map, emit_kernel, emit_library, smem_layout,
+)
 from repro_torch.backend.eager import LoweredGroup
 from repro_torch.backend.plan import build_pipeline_plan
 from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
@@ -83,8 +86,15 @@ def test_source_is_deterministic_for_slice_plans(name, kw, ckw):
         # the launch carries exactly the plan's scratch as dynamic smem
         assert f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});" in src
         carried = bool(kg.rings or kg.line_buffered)
-        grid_x = 1 if carried else kg.steps0
-        assert f"<<<dim3({grid_x}, {kg.batch_steps})," in src
+        em = element_map(LoweredGroup(kg))
+        if em is not None:
+            # an element-parallel group: threads stride over its work items
+            assert not carried
+            assert f"<<<dim3({em.blocks}, {kg.batch_steps}), {em.threads}," in src
+            assert f"w < {em.work}; w += gridDim.x * {em.threads})" in src
+        else:
+            grid_x = 1 if carried else kg.steps0
+            assert f"<<<dim3({grid_x}, {kg.batch_steps})," in src
         # carried groups sweep their row steps in order inside one block
         body = emit_kernel(kg, str(i))
         assert (f"for (int i0 = 0; i0 < {kg.steps0}; ++i0)" in body) == carried
@@ -98,12 +108,13 @@ def test_source_is_deterministic_for_slice_plans(name, kw, ckw):
 ], ids=["lane-grid", "red-grid", "lane-carry"])
 def test_ported_variants_emit(name, kw, ckw, variant):
     """The grid-reduction, lane-grid and column-carry plans emit
-    deterministic sources in their launch geometry: a lane grid that
-    carries nothing gets a block per (row step x lane step, slot); a
-    column-carried group a block per (row step, slot) looping over its lane
-    steps; a grid reduction a block per (row step, slot) looping over its
-    chunks inside each output element.  Dynamic shared memory is the plan's
-    scratch, column rings included."""
+    deterministic sources in their launch geometry: the threads of a lane
+    grid that carries nothing stride over (element, lane step, row step)
+    work items, fastest along the lanes; a column-carried group gets a
+    block per (row step, slot) looping over its lane steps; the threads of
+    a grid reduction stride over (column, row tile, row step) work items,
+    each looping over the chunks for its tile of rows.  Dynamic shared
+    memory is the plan's scratch, column rings included."""
     plan = build_pipeline_plan(make_app(name, **kw).pipeline, **ckw)
     kg = next(k for k in plan.kernels if k.lane_grid is not None or k.red_grid is not None)
     src = emit_kernel(kg)
@@ -115,17 +126,21 @@ def test_ported_variants_emit(name, kw, ckw, variant):
     assert smem == kg.scratch_bytes
     assert f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});" in src
     steps, lanes = kg.steps0, kg.lane_steps
+    em = element_map(LoweredGroup(kg))
     if variant == "lane":
         assert not (kg.rings or kg.line_buffered) and lanes > 1
-        assert f"<<<dim3({steps * lanes}, 1), 256," in src
-        assert f"const int i0 = blockIdx.x / {lanes};" in src
-        assert f"const int j = blockIdx.x % {lanes};" in src
+        assert em.thread_axis == "p1" and em.tile == 1
+        assert em.work == steps * lanes * kg.bh * kg.bw
+        assert f"<<<dim3({em.blocks}, 1), {em.threads}," in src
+        assert f"const int p1 = rem % {kg.bw}; rem /= {kg.bw};" in src
+        assert f"const int j = rem % {lanes}; rem /= {lanes};" in src
         assert "for (int j" not in src and "for (int k" not in src
     elif variant == "red":
         rg = kg.red_grid
         assert rg is not None and rg.steps > 1
-        assert f"<<<dim3({steps}, 1), 256," in src
-        assert "const int i0 = blockIdx.x;" in src
+        assert em.thread_axis == "p1" and em.tile_axis == "p0" and em.tile == kg.bh
+        assert f"<<<dim3({em.blocks}, 1), {em.threads}," in src
+        assert "const int i0 = rem;" in src
         assert f"for (int k = 0; k < {rg.steps}; ++k) {{" in src
         assert "for (int j" not in src and "for (int i0" not in src
     else:
@@ -141,6 +156,57 @@ def test_ported_variants_emit(name, kw, ckw, variant):
     # the plain version runs the same plans
     pp = compile_pipeline(make_app(name, **kw).pipeline, device="cpu", kernels="eager", **ckw)
     assert any(k.kg.lane_grid is not None or k.kg.red_grid is not None for k in pp.kernels)
+
+
+# (app, app kwargs, thread axis, tile axis, tile, least blocks at batch 1
+#  and at batch 8): chip_smoke.py's full-size resnet and matmul groups
+FULL_ELEMENT_PARALLEL = [
+    ("resnet", {"img": 56, "cin": 64, "cout": 64}, "j", "p0", 8, (132, 8 * 132)),
+    ("matmul", {"m": 256, "n": 256, "k": 1000}, "p1", "p0", 8, (64, 512)),
+]
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize(
+    "name,kw,thread,tile_axis,tile,least", FULL_ELEMENT_PARALLEL,
+    ids=[c[0] for c in FULL_ELEMENT_PARALLEL],
+)
+def test_element_parallel_launch_at_full_size(name, kw, thread, tile_axis, tile, least, batch):
+    """resnet's lane grid and matmul's grid reduction at the sizes
+    ``chip_smoke.py`` serves: threads run along the axis on which the
+    heavy input reads consecutive floats (resnet's x, matmul's columns),
+    each thread evaluates a tile of output elements along the axis on which
+    that input does not vary (output channels, rows), and the launch fills
+    the card at batch 1 and at batch 8.  Every output element of a slot is
+    one work item's, and the source is deterministic."""
+    ckw = {"batch": batch, "batch_capacity": batch} if batch > 1 else {}
+    (kg,) = _plan(name, kw, ckw).kernels
+    assert not (kg.rings or kg.line_buffered) and (kg.red_grid is None) == (name == "resnet")
+    lg = LoweredGroup(kg)
+    em = element_map(lg)
+    assert (em.thread_axis, em.tile_axis, em.tile) == (thread, tile_axis, tile)
+    assert em.blocks * kg.batch_steps >= least[batch > 1]
+    assert em.work * em.tile == (
+        math.prod(lg.panel_shape(kg.output)) * lg.steps * lg.lane_steps
+    )
+    src = emit_kernel(kg)
+    assert src == emit_kernel(_plan(name, kw, ckw).kernels[0])
+    assert f"<<<dim3({em.blocks}, {kg.batch_steps}), {em.threads}, 0," in src
+    # the tile's programs are interleaved: a load of the input read along
+    # the thread axis (ifmap, B) is issued once for the whole tile, the
+    # other input's (weights, A) once per element
+    heavy = 0 if name == "resnet" else 1
+    loads = [src.count(f"g{b}[") + src.count(f"ub_load(g{b},") for b in (0, 1)]
+    assert loads[1 - heavy] == tile * loads[heavy]
+    assert f"const int {tile_axis}_{tile - 1} = " in src
+    # the reduction's runs of terms are loops: resnet's 64 input channels
+    # for each of the 9 taps; matmul's 1000 = 7 x 128 + 104 in chunks of
+    # 128, the last 24 terms of a chunk bounded by the K-tail
+    runs = [int(n) for n in re.findall(r"for \(int r = 0; r < (\d+); \+\+r\)", src)]
+    assert runs == ([64] * 9 if name == "resnet" else [104, 24])
+    if name == "resnet":
+        # every load of the launch lies inside its buffer: none is bounded
+        assert "ub_load" not in src
 
 
 def test_input_ring_on_a_non_leading_axis_raises():
@@ -242,3 +308,45 @@ def test_cuda_kernels_match_plain_version_on_card():
         for k in pp.kernels:
             assert got[k.name].is_cuda and k.launches == 1
             assert torch.equal(got[k.name], want[k.name]), (name, k.name)
+
+
+def test_ptxas_usage_reads_the_build_log(tmp_path, monkeypatch):
+    """Registers and spills per kernel, as ``ptxas -v`` printed them into
+    the library's build log; nothing when the library was never built."""
+    from repro_torch.backend import build
+
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    src = "// a library"
+    assert build.ptxas_usage(src) == {}
+    log = build.library_path(src).parent / "nvcc.log"
+    log.parent.mkdir(parents=True)
+    log.write_text(
+        "ptxas info    : Compiling entry function '_Z11ub_kernel_09UbParams0' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z11ub_kernel_09UbParams0\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 70 registers, used 0 barriers, 392 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z12ub_kernel_1010UbParams10' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 392 bytes cmem[0]\n"
+    )
+    assert build.ptxas_usage(src) == {
+        "ub_kernel_0": {"registers": 70, "spill_stores": 8, "spill_loads": 16},
+        "ub_kernel_10": {"registers": 40, "spill_stores": 0, "spill_loads": 0},
+    }
+
+
+@pytest.mark.parametrize("name,kw,ckw,runs", [
+    # the 3x3 x 64 reduction: nine runs of 64 channels
+    ("resnet", {"img": 8, "cin": 64, "cout": 8}, {}, [64] * 9),
+    # a stencil's balanced adder tree is not a chain: nothing is rolled
+    ("gaussian", {"size": 33, "width": 255}, {"block_w": 128, "line_buffer": False}, []),
+    # no reduction
+    ("upsample", {"size": 16}, {}, []),
+], ids=["resnet", "gaussian", "upsample"])
+def test_reduction_runs_become_loops(name, kw, ckw, runs):
+    """Only an accumulation chain's runs of terms that differ in constants
+    alone are rolled; any other program is emitted straight."""
+    (kg,) = _plan(name, kw, ckw).kernels
+    src = emit_kernel(kg)
+    assert [int(n) for n in re.findall(r"for \(int r = 0; r < (\d+); \+\+r\)", src)] == runs
+    assert src.count("#pragma unroll") == len(runs)

@@ -1,0 +1,227 @@
+"""The emitted CUDA kernels, run on the CPU.
+
+``cuda_codegen.emit_library`` writes CUDA C++ that only ``nvcc`` and a card
+can build and run.  This harness compiles the same source with ``g++``
+against a shim kept in this file: ``threadIdx`` and ``blockIdx`` are
+thread-local, each CUDA thread of a block is a host thread, ``__syncthreads``
+is a ``std::barrier``, and the launcher's ``<<<grid, block, smem, stream>>>``
+becomes a host loop over the blocks (one block after another, so the
+kernel's shared memory is one host array).  The launcher is called through
+ctypes exactly as ``CudaKernel`` calls it, with host pointers, and every
+group's output is held bit for bit against ``EagerKernel`` on seeded random
+f32 inputs.  ``-ffp-contract=off`` keeps g++ from fusing multiply-adds, as
+``-fmad=false`` keeps nvcc.
+
+It checks what the kernel computes for every element and every thread map,
+not what the card does with it: the compiler, the memory model and the
+timing are the card's tests' and ``chip_smoke.py``'s.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.apps import make_app
+from repro_torch.backend.build import CSRC
+from repro_torch.backend.cuda_codegen import (
+    element_map, emit_library, launch_dims, output_shape,
+)
+from repro_torch.backend.eager import EagerKernel, LoweredGroup
+from repro_torch.backend.plan import build_pipeline_plan
+from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
+
+pytestmark = pytest.mark.torch
+
+# (id, app, app kwargs, plan kwargs, element-parallel)
+CASES = [
+    # a lane grid with a padded lane tail
+    ("resnet-lane", "resnet", {"img": 8, "cin": 4, "cout": 4}, {"block_w": 3}, True),
+    # the full-size plan's shape: one-lane blocks, a tile of 8 output
+    # channels, each tap's run of 8 input channels a loop
+    ("resnet-bw1", "resnet", {"img": 6, "cin": 8, "cout": 16}, {"block_w": 1}, True),
+    # one output channel per row step: the weights are the load shared, by
+    # a tile of 5 rows
+    ("resnet-ytile", "resnet", {"img": 5, "cin": 8, "cout": 11}, {"block_w": 1}, True),
+    # 11 channels and 11 rows: no tile divides them, one element per thread
+    ("resnet-untiled", "resnet", {"img": 11, "cin": 8, "cout": 11},
+     {"block_w": 1, "block_h": 11}, True),
+    # a grid reduction over a resident operand, a masked K-tail, padded rows
+    ("matmul-resident", "matmul", {"m": 8, "n": 13, "k": 149},
+     {"red_grid_threshold": 64, "block_h": 6}, True),
+    # a grid reduction over chunk-streamed operands
+    ("matmul-streamed", "matmul", {"m": 19, "n": 13, "k": 70},
+     {"red_grid_threshold": 64, "red_resident": False}, True),
+    ("upsample", "upsample", {"size": 16}, {}, True),
+    # batch slots, the last padded (3 requests in 4 slots)
+    ("resnet-batched", "resnet", {"img": 8, "cin": 4, "cout": 4},
+     {"block_w": 3, "batch": 3, "batch_capacity": 4}, True),
+    # a carried group: column rings and a lane line buffer, on the old loop
+    ("gaussian-carried", "gaussian", {"size": 26}, {"block_w": 9, "line_buffer": True}, False),
+]
+
+SHIM = r"""
+#pragma once
+// Host stand-in for the CUDA runtime: just enough of it for the emitted
+// kernels and ub_kernel.cuh.
+#include <barrier>
+#include <cmath>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+struct dim3 {
+  unsigned x, y, z;
+  constexpr dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+inline std::barrier<>* ub_block_barrier = nullptr;
+// the block's dynamic shared memory: blocks run one after another
+float ub_smem[232448 / 4];
+
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(n)
+#define __shared__
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+
+inline void __syncthreads() { ub_block_barrier->arrive_and_wait(); }
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline const char* cudaGetErrorString(cudaError_t) { return "host shim"; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
+
+// every block of the grid, one after another; each CUDA thread of a block
+// is a host thread, and the block ends (every thread past its last
+// statement) before the next begins
+template <class K, class P>
+void ub_host_launch(K kernel, dim3 grid, dim3 block, const P& params) {
+  gridDim = grid;
+  blockDim = block;
+  std::barrier<> bar(block.x);
+  ub_block_barrier = &bar;
+  std::vector<std::thread> pool;
+  for (unsigned t = 0; t < block.x; ++t)
+    pool.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      for (unsigned y = 0; y < grid.y; ++y)
+        for (unsigned x = 0; x < grid.x; ++x) {
+          blockIdx = dim3(x, y);
+          kernel(params);
+          bar.arrive_and_wait();
+        }
+    });
+  for (auto& th : pool) th.join();
+}
+"""
+
+_LAUNCH = re.compile(r"(\w+)<<<(dim3\([^)]*\)), (\d+), [^>]*>>>\((\w+)\);")
+
+
+def host_source(cuda_source: str) -> str:
+    """The emitted source with each ``<<<...>>>`` launch made a host launch."""
+    out, n = _LAUNCH.subn(r"ub_host_launch(\1, \2, dim3(\3), \4);", cuda_source)
+    assert n == cuda_source.count("<<<"), "a launch the shim does not know"
+    return out
+
+
+def _plan(name, kw, ckw):
+    ckw = {"vmem_budget": H100_SMEM_PER_BLOCK, **ckw}
+    return build_pipeline_plan(make_app(name, **kw).pipeline, **ckw)
+
+
+@pytest.fixture(scope="module")
+def gxx():
+    found = shutil.which("g++")
+    if found is None:
+        pytest.skip("g++ is not on PATH: the emitted kernels cannot be built on the host")
+    return found
+
+
+@pytest.fixture(scope="module")
+def libraries(gxx, tmp_path_factory):
+    """Every case's library, one g++ each, all started together."""
+    root = tmp_path_factory.mktemp("emit_host")
+    (root / "cuda_runtime.h").write_text(SHIM)
+    jobs = {}
+    for cid, name, kw, ckw, _ep in CASES:
+        lowered = [LoweredGroup(kg) for kg in _plan(name, kw, ckw).kernels]
+        src = root / f"{cid}.cpp"
+        src.write_text(host_source(emit_library(lowered)))
+        so = root / f"lib{cid}.so"
+        cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+               "-pthread", "-w", "-I", str(root), "-I", str(CSRC), "-o", str(so), str(src)]
+        jobs[cid] = (lowered, so, cmd)
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        runs = dict(zip(jobs, pool.map(
+            lambda cmd: subprocess.run(cmd, capture_output=True, text=True),
+            [job[2] for job in jobs.values()],
+        )))
+    out = {}
+    for cid, (lowered, so, _cmd) in jobs.items():
+        run = runs[cid]
+        assert run.returncode == 0, f"g++ failed for {cid}:\n{run.stderr[-4000:]}"
+        out[cid] = (lowered, ctypes.CDLL(str(so)))
+    return out
+
+
+def host_launch(lib, tag: str, lg: LoweredGroup, bufs) -> torch.Tensor:
+    """Call ``ub_launch_<tag>`` as ``CudaKernel`` does, on host tensors."""
+    ts = [bufs[b] for b in lg.buffer_order]
+    out = torch.full(output_shape(lg.kg), float("nan"), dtype=torch.float32)
+    fn = getattr(lib, f"ub_launch_{tag}")
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    dims = launch_dims(lg, ts)
+    ptrs = (ctypes.c_void_p * max(len(ts), 1))(*[t.data_ptr() for t in ts])
+    cdims = (ctypes.c_longlong * max(len(dims), 1))(*dims)
+    assert fn(ptrs, out.data_ptr(), cdims, None) == 0
+    return out
+
+
+def random_inputs(app, seed: int, batch=None, capacity=None):
+    """Random normal f32 inputs; with ``capacity``, ``batch`` requests in
+    that many slots, the rest zero as the runner pads them."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in app.input_extents.items():
+        shape = ((capacity,) if capacity else ()) + tuple(shape)
+        arr = rng.standard_normal(shape).astype(np.float32)
+        if capacity:
+            arr[batch:] = 0.0
+        out[name] = torch.from_numpy(arr)
+    return out
+
+
+@pytest.mark.parametrize("cid,name,kw,ckw,ep", CASES, ids=[c[0] for c in CASES])
+def test_emitted_kernel_equals_plain_version_bit_for_bit(libraries, cid, name, kw, ckw, ep):
+    lowered, lib = libraries[cid]
+    app = make_app(name, **kw)
+    bufs = random_inputs(app, 0, ckw.get("batch"), ckw.get("batch_capacity"))
+    for i, lg in enumerate(lowered):
+        assert (element_map(lg) is not None) == ep
+        got = host_launch(lib, str(i), lg, bufs)
+        want = EagerKernel(lg)(bufs)
+        assert got.shape == want.shape
+        diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        assert diff == 0, (
+            f"{cid}/{lg.kg.name}: {diff} elements differ, max abs "
+            f"{float((got - want).abs().max())}"
+        )
+        bufs[lg.kg.name] = got
