@@ -51,7 +51,15 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    in ``kernels/csrc/``, built in phase 2) at the shapes of the JAX
    package's kernel tests, each held against its plain version and its
    oracle at the JAX tolerances (stencil also bit for bit against its
-   plain version; SSD also invariant to the chunk length).
+   plain version; SSD also invariant to the chunk length).  Each matmul
+   and attention call must launch the expected kernel and no other (read
+   from the launch counts): bf16 ``matmul`` and
+   ``flash_attention`` take the tensor cores (``matmul_wgmma``,
+   ``flash_attention_wgmma``), also where the shapes cut their tiles
+   (Sq 96; Skv 192), while bf16 with K or N not a multiple of 8, or a
+   head dim above 128 (136, 256), and every f32 call take the SIMT
+   kernels.  The tensor-core matmul's operand layout is checked first: the
+   identity times a 64×64 B of distinct residues must give B bit for bit.
 7. hand-written kernels at model widths: a 1080p gaussian, tinyllama-1.1b's
    MLP up-projection (bf16 and f32) and prefill attention (bf16 and f32),
    qwen3-14b's prefill attention, mamba2-2.7b's SSD prefill and the
@@ -64,8 +72,16 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    graph of one call behind an L2-evicting write, which leaves out the host
    work of a call and reads the inputs from HBM) beside its plain version,
    its bound and the one PyTorch call computing the same function where
-   there is one, timed both ways.  The SSD op launches two kernels, C Bᵀ
-   per chunk (``ssd_gram``) and the scan; each gets its own row.
+   there is one, timed both ways.  Each configuration names the kernels its
+   call must launch, and no other may launch: the bf16 MLP up-projection
+   ``matmul_wgmma``, both bf16 prefills ``flash_attention_wgmma``, the f32
+   calls the SIMT kernels.  A tensor-core row also launches the SIMT kernel
+   on the same call (directly, into a buffer of its own, after the launch
+   counts were read), holds its output against the same plain version and
+   oracle at the same tolerance, and times it.
+   The SSD op launches two kernels, C Bᵀ per chunk (``ssd_gram``) and the
+   scan; each gets its own row.  Every row carries its library's registers
+   and spills as ``ptxas -v`` reported them.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -446,6 +462,7 @@ def kernel_work(name: str, args, out, chunk=None) -> tuple:
     bf16 products, else IEEE f32."""
     import torch
 
+    name = name.removesuffix("_wgmma")         # the tensor-core kernels do the op's work
     nbytes = sum(t.numel() * t.element_size() for t in args) + out.numel() * out.element_size()
     peak = PEAK_BF16_FLOPS if out.dtype == torch.bfloat16 else PEAK_F32_FLOPS
     if name == "stencil3x3":
@@ -476,7 +493,7 @@ def kernels_small() -> None:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ops, ref as kref
+    from repro_torch.kernels import KERNELS, ops, ref as kref
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.matmul import matmul, matmul_plain
     from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
@@ -488,12 +505,40 @@ def kernels_small() -> None:
     def rand(shape, dtype=f32):
         return ops.to_tensor(rng.standard_normal(shape).astype(np.float32), dtype)
 
-    for m, n, k in [(32, 32, 32), (64, 128, 32), (128, 64, 256), (16, 16, 64)]:
-        for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
-            a, b = rand((m, k), dtype), rand((k, n), dtype)
-            kw = dict(block_m=16, block_n=16, block_k=16)
-            held(f"[kernels-small] matmul {(m, n, k)} {dtype}", matmul(a, b, **kw),
-                 matmul_plain(a, b, **kw), kref.matmul_ref(a, b), tol)
+    def launched(tag, want, call):
+        """``call()``, which must launch the kernel ``want`` and no other."""
+        before = {name: k.launches for name, k in KERNELS.items()}
+        out = call()
+        rose = [name for name, k in KERNELS.items() if k.launches != before[name]]
+        if rose != [want]:
+            raise AssertionError(f"{tag}: launched {rose}, must launch {want}")
+        return out
+
+    # the tensor-core matmul's operand layout: I @ B must be B, every entry
+    # of B a distinct residue, so a misplaced element shows where it went
+    i = np.arange(64)
+    b = ops.to_tensor(((7 * i[:, None] + 13 * i[None, :]) % 251 - 125).astype(np.float32), bf16)
+    eye = ops.to_tensor(np.eye(64, dtype=np.float32), bf16)
+    tag = "[kernels-small] matmul I @ B (64, 64, 64) bf16 (matmul_wgmma)"
+    got = launched(tag, "matmul_wgmma", lambda: matmul(eye, b))
+    bad = (got != b).nonzero()
+    log(f"{tag}: {len(bad)} of "
+        f"4096 entries differ (exact) {'FAIL ' + str(bad[:4].tolist()) if len(bad) else 'ok'}")
+    if len(bad):
+        raise AssertionError("matmul: the identity does not give B back")
+
+    blocks = dict(block_m=16, block_n=16, block_k=16)
+    # bf16 goes to the tensor cores unless TMA cannot read a row: K or N
+    # not a multiple of 8 keeps it on the SIMT kernel
+    mm_cases = [((m, n, k), blocks, dtype, tol, "matmul_wgmma" if dtype == bf16 else "matmul")
+                for m, n, k in [(32, 32, 32), (64, 128, 32), (128, 64, 256), (16, 16, 64)]
+                for dtype, tol in ((f32, 1e-4), (bf16, 2e-2))]
+    mm_cases += [((64, 84, 48), {}, bf16, 2e-2, "matmul"), ((64, 80, 44), {}, bf16, 2e-2, "matmul")]
+    for (m, n, k), kw, dtype, tol, want in mm_cases:
+        a, b = rand((m, k), dtype), rand((k, n), dtype)
+        tag = f"[kernels-small] matmul {(m, n, k)} {dtype} ({want})"
+        held(tag, launched(tag, want, lambda: matmul(a, b, **kw)), matmul_plain(a, b, **kw),
+             kref.matmul_ref(a, b), tol)
     wts = ops.to_tensor(np.array(GAUSS_W, np.float32) / 16)
     for h, w in [(16, 16), (32, 64), (64, 62)]:
         x = rand((h + 2, w + 2))
@@ -501,14 +546,25 @@ def kernels_small() -> None:
         held(f"[kernels-small] stencil3x3 {(h, w)}", got, plain, kref.stencil3x3_ref(x, wts), 1e-5)
         if not torch.equal(got, plain):
             raise AssertionError(f"stencil3x3 {(h, w)}: not bit-equal to the plain version")
-    for b, s, d in [(2, 128, 64), (1, 256, 32), (4, 64, 128)]:
-        for causal in (True, False):
-            for dtype, tol in ((f32, 2e-3), (bf16, 3e-2)):
-                q, k, v = (rand((b, s, d), dtype) for _ in range(3))
-                kw = dict(causal=causal, block_q=32, block_kv=32)
-                held(f"[kernels-small] flash_attention {(b, s, d)} causal={causal} {dtype}",
-                     flash_attention(q, k, v, **kw), flash_attention_plain(q, k, v, **kw),
-                     kref.attention_ref(q, k, v, causal=causal), tol)
+    # (batch, Sq, Skv, D): the JAX package's shapes, query and KV extents
+    # that cut the tensor cores' 128-row tiles, and bf16 head dims above the
+    # tensor-core kernel's 128, which stay on the SIMT kernel
+    fa_cases = [((b, s, s, d), causal, dtype, tol,
+                 "flash_attention_wgmma" if dtype == bf16 else "flash_attention")
+                for b, s, d in [(2, 128, 64), (1, 256, 32), (4, 64, 128)]
+                for causal in (True, False) for dtype, tol in ((f32, 2e-3), (bf16, 3e-2))]
+    fa_cases += [((2, 96, 96, 64), True, bf16, 3e-2, "flash_attention_wgmma"),
+                 ((2, 64, 192, 32), False, bf16, 3e-2, "flash_attention_wgmma"),
+                 ((2, 64, 64, 136), True, bf16, 3e-2, "flash_attention"),
+                 ((2, 64, 128, 136), False, bf16, 3e-2, "flash_attention"),
+                 ((1, 128, 128, 256), True, bf16, 3e-2, "flash_attention")]
+    for (b, sq, skv, d), causal, dtype, tol, want in fa_cases:
+        q, k, v = rand((b, sq, d), dtype), rand((b, skv, d), dtype), rand((b, skv, d), dtype)
+        kw = dict(causal=causal, block_q=32, block_kv=32)
+        tag = (f"[kernels-small] flash_attention q {(b, sq, d)} kv {(b, skv, d)} "
+               f"causal={causal} {dtype} ({want})")
+        held(tag, launched(tag, want, lambda: flash_attention(q, k, v, **kw)),
+             flash_attention_plain(q, k, v, **kw), kref.attention_ref(q, k, v, causal=causal), tol)
     q, k, v = rand((2, 64, 32)), rand((2, 256, 32)), rand((2, 256, 32))
     kw = dict(causal=False, block_q=32, block_kv=64)
     held("[kernels-small] flash_attention q (2, 64, 32) kv (2, 256, 32)",
@@ -545,6 +601,7 @@ def kernels_full(full_apps, rows) -> None:
     import torch.nn.functional as F
 
     from repro_torch.backend import compile_pipeline
+    from repro_torch.backend.build import ptxas_usage
     from repro_torch.core.ubplan import plan_ssd
     from repro_torch.kernels import KERNELS, ops, ref as kref
     from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -587,8 +644,24 @@ def kernels_full(full_apps, rows) -> None:
                             {"causal": True}),
         "ssd_scan": (ops.ssd_op, ssd_scan_plain, kref.ssd_ref, {}),
     }
-    # the CUDA kernels each op launches
+    entry["matmul_wgmma"] = entry["matmul"]
+    entry["flash_attention_wgmma"] = entry["flash_attention"]
+    # the CUDA kernels each configuration's call must launch, and only they
     path = {"ssd_scan": ("ssd_gram", "ssd_scan")}
+
+    def simt_call(kname, args, scratch):
+        """The SIMT kernel of a tensor-core kernel's op on the same inputs,
+        launched directly into ``scratch``: the comparison the tensor cores
+        are for."""
+        if kname == "matmul_wgmma":
+            a, b = args
+            return lambda: KERNELS["matmul"](dev, a.data_ptr(), b.data_ptr(), scratch.data_ptr(),
+                                             a.shape[0], b.shape[1], a.shape[1], 1)
+        q, k, v = args
+        heads, s, d = q.shape
+        return lambda: KERNELS["flash_attention"](
+            dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), scratch.data_ptr(),
+            heads, s, k.shape[1], d, 1.0 / d ** 0.5, 1, 1)
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True)[0]
@@ -608,7 +681,7 @@ def kernels_full(full_apps, rows) -> None:
          lambda: (randint(0, 256, (1082, 1922), f32),
                   torch.tensor(GAUSS_W, dtype=f32, device=dev) / 16),
          dict(tol=None), ("F.conv2d", conv, (1e-5, 1e-3)), ("gaussian", ("input",))),
-        ("tinyllama-mlp-up", "matmul",
+        ("tinyllama-mlp-up", "matmul_wgmma",
          lambda: (randint(-8, 8, (2048, 2048), bf16), randint(-8, 8, (2048, 5632), bf16)),
          dict(tol=None), ("torch.matmul", torch.matmul, None), None),
         ("tinyllama-mlp-up", "matmul",
@@ -617,20 +690,25 @@ def kernels_full(full_apps, rows) -> None:
         ("matmul-tile", "matmul",
          lambda: (randint(0, 16, (256, 1000), f32), randint(0, 16, (1000, 256), f32)),
          dict(tol=None), ("torch.matmul", torch.matmul, None), ("matmul", ("A", "B"))),
-        ("tinyllama-prefill", "flash_attention", lambda: attention(32, 4, 2048, 64, bf16),
+        ("tinyllama-prefill", "flash_attention_wgmma", lambda: attention(32, 4, 2048, 64, bf16),
          flash_bf16, ("F.scaled_dot_product_attention", sdpa, None), None),
         ("tinyllama-prefill", "flash_attention", lambda: attention(32, 4, 2048, 64, f32),
          flash_f32, ("F.scaled_dot_product_attention", sdpa, None), None),
-        ("qwen3-14b-prefill", "flash_attention", lambda: attention(40, 8, 4096, 128, bf16),
+        ("qwen3-14b-prefill", "flash_attention_wgmma",
+         lambda: attention(40, 8, 4096, 128, bf16),
          flash_bf16, ("F.scaled_dot_product_attention", sdpa, None), None),
         ("mamba2-2.7b-prefill", "ssd_scan", lambda: mamba(2048, 80, 64, 128), dict(tol=1e-3),
          None, None),
     ]
 
     def measure(kname, label, dname, launches, out, call, plain_call, want, check,
-                library, work):
+                library, work, simt=None):
         """Check ``out``, kernel ``kname``'s output on these inputs; time
-        ``call`` (one launch of it) and its plain version; add its row."""
+        ``call`` (one launch of it) and its plain version; add its row, with
+        the registers and spills of every kernel in its library.  ``simt``,
+        for a tensor-core kernel: the SIMT kernel of its op launched on the
+        same inputs into a buffer of its own, checked as ``out`` is and
+        timed beside it."""
         tag = f"[kernels-full] {label} {kname} {dname}"
         kernel = KERNELS[kname]
         # the plain version, timed over its comparison call
@@ -643,6 +721,13 @@ def kernels_full(full_apps, rows) -> None:
         plain_ms = a_ev.elapsed_time(b_ev)
         err = held(tag, out, plain, want, check["tol"], exact=check["tol"] is None,
                    row_tol=check.get("row_tol"))
+        if simt is not None:
+            simt_run, scratch = simt
+            simt_run()
+            torch.cuda.synchronize()
+            simt_err = held(f"{tag} the SIMT kernel on the same call", scratch, plain, want,
+                            check["tol"], exact=check["tol"] is None,
+                            row_tol=check.get("row_tol"))
         del plain
         ms = time_ms(call, 10)
         device_ms = graph_ms(call)
@@ -667,6 +752,7 @@ def kernels_full(full_apps, rows) -> None:
             log(f"{tag}: no single PyTorch call computes it; library_ms null")
         nbytes, nops, peak = work
         t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * nops / peak
+        usage = ptxas_usage(kernel.source())
         row = rows[f"{kname}/{label}/{dname}"] = {
             "name": f"{kname}/{label}/{dname}",
             "route": "cuda",
@@ -681,11 +767,20 @@ def kernels_full(full_apps, rows) -> None:
             "library_ms": library_ms,
             "dev_ms": device_ms,
             "library_device_ms": library_device_ms,
+            "ptxas": usage,
         }
+        if simt is not None:
+            row["simt_max_abs_err"] = simt_err
+            row["simt_ms"] = time_ms(simt_run, 3)
+            row["simt_device_ms"] = graph_ms(simt_run, 5)
+            log(f"{tag}: the SIMT kernel on the same call {row['simt_ms']:.4f} ms "
+                f"({row['simt_device_ms']:.4f} ms replayed), "
+                f"{row['simt_device_ms'] / device_ms:.1f}x the tensor-core kernel's replayed time")
         log(f"{tag}: {ms:.4f} ms/launch ({device_ms:.4f} ms replayed, L2 flushed), "
             f"launches {launches}, plain {plain_ms:.2f} ms, bound {max(t_bytes, t_ops):.4f} ms "
             f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes} B, {nops} flop), "
-            f"library {library_ms if library_ms is None else round(library_ms, 4)} ms")
+            f"library {library_ms if library_ms is None else round(library_ms, 4)} ms; "
+            f"ptxas {usage}")
         return row
 
     for label, kname, make, check, library, generated in configs:
@@ -700,14 +795,21 @@ def kernels_full(full_apps, rows) -> None:
         out = op(*args, **kw)
         torch.cuda.synchronize()
         launches = {name: KERNELS[name].launches for name in path.get(kname, (kname,))}
-        if not all(launches.values()):
-            raise AssertionError(f"[kernels-full] {label} {kname}: a kernel was never launched "
-                                 f"on the main path: {launches}")
+        others = {name: k.launches for name, k in KERNELS.items()
+                  if k.launches and name not in launches}
+        if not all(launches.values()) or others:
+            raise AssertionError(f"[kernels-full] {label}: the main path must launch "
+                                 f"{list(launches)} and nothing else; it launched {launches}, "
+                                 f"and besides {others}")
         if kname != "ssd_scan":
             lib = library and (library[0], lambda: library[1](*args), library[2])
+            simt = None
+            if kname.endswith("_wgmma"):
+                scratch = torch.empty_like(out)
+                simt = (simt_call(kname, args, scratch), scratch)
             row = measure(kname, label, dname, launches[kname], out,
                           lambda: op(*args, **kw), lambda: plain_fn(*args, **kw),
-                          ref_fn(*args, **kw), check, lib, kernel_work(kname, args, out))
+                          ref_fn(*args, **kw), check, lib, kernel_work(kname, args, out), simt)
         else:
             # two kernels, each timed alone: C B^T of every chunk, then the
             # scan reading it; the whole call is timed too

@@ -28,8 +28,9 @@ from .errors import EmitError
 CSRC = Path(__file__).resolve().parent / "csrc"
 HEADER = CSRC / "ub_kernel.cuh"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+# sm_90a code from compute_90a PTX only: wgmma exists for no other target
 NVCC_FLAGS = (
-    "-arch=sm_90a", "-O3", "-std=c++17", "-fmad=false",
+    "-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -110,7 +111,23 @@ def build_many(sources: Sequence[str]) -> Dict[str, float]:
     return times
 
 
-_ENTRY = re.compile(r"Compiling entry function '_Z(\d+)(\w+)'")
+_ENTRY = re.compile(r"Compiling entry function '(_Z\w+)'")
+
+
+def _demangle(names: Sequence[str]) -> List[str]:
+    """Kernel names as ``c++filt -p`` (binutils, beside the host compiler
+    nvcc needs) prints them, the anonymous namespace left out:
+    ``ub_kernel_0``, ``matmul_kernel<float>``, ``flash_wgmma_kernel<128>``."""
+    if not names:
+        return []
+    tool = shutil.which("c++filt")
+    if tool is None:
+        raise EmitError("c++filt not found: ptxas_usage names kernels with it")
+    run = subprocess.run([tool, "-p"], input="\n".join(names), capture_output=True, text=True,
+                         check=True)
+    return [n.replace("(anonymous namespace)::", "") for n in run.stdout.splitlines()]
+
+
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
 
@@ -122,12 +139,13 @@ def ptxas_usage(source: str) -> Dict[str, Dict[str, int]]:
     log = library_path(source).parent / "nvcc.log"
     if not log.exists():
         return {}
+    text = log.read_text()
+    names = iter(_demangle(_ENTRY.findall(text)))
     out: Dict[str, Dict[str, int]] = {}
     name = None
-    for line in log.read_text().splitlines():
-        m = _ENTRY.search(line)
-        if m:
-            name = m.group(2)[: int(m.group(1))]
+    for line in text.splitlines():
+        if _ENTRY.search(line):
+            name = next(names)
             out[name] = {}
             continue
         if name is None:

@@ -5,14 +5,20 @@ PyTorch version, the torch oracles (``ref``) and the ``ops`` entry points.
 
 ``KERNELS`` maps each CUDA kernel's name to its launcher, which holds the
 source path and the count of launches; ``ssd_scan`` is two kernels,
-``ssd_gram`` and ``ssd_scan``.
+``ssd_gram`` and ``ssd_scan``, and ``matmul`` and ``flash_attention`` each
+route bf16 calls that TMA can read to a tensor-core kernel
+(``matmul_wgmma``, ``flash_attention_wgmma``) and every other call to a
+SIMT kernel (``matmul``, ``flash_attention``).
 """
 
 from . import flash_attention, matmul, ssd, stencil
 
 KERNELS = {
     k.name: k
-    for k in (stencil.KERNEL, matmul.KERNEL, flash_attention.KERNEL, ssd.GRAM, ssd.KERNEL)
+    for k in (
+        stencil.KERNEL, matmul.KERNEL, matmul.WGMMA, flash_attention.KERNEL,
+        flash_attention.WGMMA, ssd.GRAM, ssd.KERNEL,
+    )
 }
 
 __all__ = ["KERNELS"]

@@ -1,18 +1,24 @@
 """Build and bind the hand-written CUDA kernels of ``kernels/csrc/``.
 
-Each source is one self-contained ``.cu`` file with a plain C interface:
-for each kernel in it an ``extern "C" int <name>_launch(...)`` that takes
-device pointers, the dims and a stream, launches that kernel on that stream
-and returns ``cudaGetLastError()``, and ``kernel_error_string``.  It is built at first use by
-``backend.build.load_library``, so it gets the same nvcc flags as the
-generated pipeline kernels (``-arch=sm_90a -O3 -fmad=false``, never fast
-math) and the same ``build/torch_kernels/<sha256>/`` cache, and is bound
-with ``ctypes``.  Nothing is built or loaded when a module is imported.
+Each source is one ``.cu`` file with a plain C interface: for each kernel
+in it an ``extern "C" int <name>_launch(...)`` that takes device pointers,
+the dims and a stream, launches that kernel on that stream and returns
+``cudaGetLastError()``, and ``kernel_error_string``.  A source may include
+headers of ``csrc/`` (``#include "sm90.cuh"``, the Hopper building blocks
+of the tensor-core kernels): ``CudaLauncher.source()`` splices each one's
+text in place of its ``#include`` line, so the build, which compiles the
+source text alone, finds it, and the build's digest covers it.  The text is
+built at first use by ``backend.build.load_library``, so it gets the same
+nvcc flags as the generated pipeline kernels (``sm_90a``, ``-O3
+-fmad=false``, never fast math) and the same
+``build/torch_kernels/<sha256>/`` cache, and is bound with ``ctypes``.
+Nothing is built or loaded when a module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 from pathlib import Path
 from typing import Sequence
 
@@ -24,6 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 
 DTYPES = (torch.float32, torch.bfloat16)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_INCLUDE = re.compile(r'^#include "(\w+\.cuh)"$', re.MULTILINE)
 
 
 def check_dtypes(fn: str, *tensors: torch.Tensor) -> torch.dtype:
@@ -36,6 +43,14 @@ def check_dtypes(fn: str, *tensors: torch.Tensor) -> torch.dtype:
         if t.dtype != dtype:
             raise TypeError(f"{fn}: operands must share one dtype, got {dtype} and {t.dtype}")
     return dtype
+
+
+def tma_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s data contiguous from a 16-byte boundary, as TMA reads a
+    base: ``t.contiguous()`` itself, or a fresh copy of it (a fresh
+    allocation is always aligned)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def require_cuda(fn: str, *tensors: torch.Tensor) -> torch.device:
@@ -74,7 +89,9 @@ class CudaLauncher:
         return CSRC / f"{self.file}.cu"
 
     def source(self) -> str:
-        return self.path.read_text()
+        """The source as it is built: the ``.cu`` text with each
+        ``#include "<header>.cuh"`` replaced by that header of ``csrc/``."""
+        return _INCLUDE.sub(lambda m: (CSRC / m.group(1)).read_text(), self.path.read_text())
 
     def _bind(self) -> None:
         lib = load_library(self.source())
@@ -101,4 +118,6 @@ class CudaLauncher:
         self.launches += 1
 
 
-__all__ = ["CSRC", "CudaLauncher", "DTYPES", "DTYPE_CODE", "check_dtypes", "require_cuda"]
+__all__ = [
+    "CSRC", "CudaLauncher", "DTYPES", "DTYPE_CODE", "check_dtypes", "require_cuda", "tma_aligned",
+]

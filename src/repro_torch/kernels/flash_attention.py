@@ -5,13 +5,25 @@ Replaces the Pallas kernel ``src/repro/kernels/flash_attention.py:29``
 (``_flash_kernel``, launched at ``:95``).  The TPU kernel walks a
 (B, Sq/bq, Skv/bkv) grid with the KV axis innermost, keeping the running
 max and sum as (bq, 128)-lane VMEM tiles and skipping KV blocks wholly
-above the causal diagonal.  The CUDA kernel does not carry the BlockSpecs
-over: one block of 256 threads per (folded batch-head, 64 query rows)
-loops over 64-row KV tiles up to the diagonal, with the statistics one
-float per row and the masked scores ``-1e30`` as on the TPU.  ``block_q``
+above the causal diagonal.  The CUDA kernels do not carry the BlockSpecs
+over: a block per (folded batch-head, query tile) loops over KV tiles up to
+the diagonal, with the statistics one float per row and the masked scores
+``-1e30`` as on the TPU.  ``route`` picks one by dtype and shape alone:
+
+- ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 inputs with a head
+  dim that is a multiple of 8 (so that TMA can read their rows; an input
+  whose data does not start on a 16-byte boundary is copied to one that
+  does) and at most 128.  128 query rows a block, K and V
+  tiles of 128 rows by TMA, Q Kᵀ and P V on the tensor cores (``wgmma``),
+  P rounded to bf16 for its product.
+- ``"simt"`` (``csrc/flash_attention.cu``): every other call, f32 among
+  them.  64 query rows a block of 256 threads, 64-row KV tiles in shared
+  memory as f32; head dims up to 256 (its tiles must fit one block's
+  shared memory).
+
+Neither is a fallback for the other: a refused launch raises.  ``block_q``
 and ``block_kv`` keep the JAX signature, defaults (``plan_attention``) and
-divisibility check; the kernel takes head dims up to 256 (its f32 tiles
-must fit one block's shared memory).
+divisibility check.
 """
 
 from __future__ import annotations
@@ -22,14 +34,20 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.ubplan import plan_attention
-from ._cuda import DTYPE_CODE, CudaLauncher, check_dtypes, require_cuda
+from ._cuda import DTYPE_CODE, CudaLauncher, check_dtypes, require_cuda, tma_aligned
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
+WGMMA_MAX_HEAD_DIM = 128
 
 KERNEL = CudaLauncher(
     "flash_attention",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int],
+    "src/repro/kernels/flash_attention.py:29",
+)
+WGMMA = CudaLauncher(
+    "flash_attention_wgmma",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int],
     "src/repro/kernels/flash_attention.py:29",
 )
 
@@ -58,22 +76,44 @@ def _check(
     return bq, bkv
 
 
+def _route(q: torch.Tensor) -> str:
+    """The route of checked inputs."""
+    d = q.shape[2]
+    tma = d % 8 == 0 and d <= WGMMA_MAX_HEAD_DIM
+    return "wgmma" if q.dtype == torch.bfloat16 and tma else "simt"
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel ``flash_attention(q, k, v)`` launches: ``"wgmma"`` for
+    bf16 inputs with a head dim that is a multiple of 8 (TMA's rule for
+    row strides) and at most 128, else ``"simt"``.  CUDA tensors only, as
+    ``flash_attention``."""
+    _check(q, k, v, False, None, None)
+    require_cuda("flash_attention", q, k, v)
+    return _route(q)
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     block_q: Optional[int] = None, block_kv: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention over (B, S, D) with batch × heads folded into B, scale
-    ``1/sqrt(D)``, by the CUDA kernel.  CUDA tensors only."""
+    ``1/sqrt(D)``, by the CUDA kernel ``route`` names.  CUDA tensors only."""
     _check(q, k, v, causal, block_q, block_kv)
     dev = require_cuda("flash_attention", q, k, v)
     b, sq, d = q.shape
     skv = k.shape[1]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: the CUDA kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(qc)
-    KERNEL(dev, qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-           b, sq, skv, d, 1.0 / (d ** 0.5), int(causal), DTYPE_CODE[q.dtype])
+    out = torch.empty((b, sq, d), dtype=q.dtype, device=dev)
+    if _route(q) == "wgmma":
+        qc, kc, vc = (tma_aligned(t) for t in (q, k, v))
+        ptrs = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr())
+        WGMMA(dev, *ptrs, b, sq, skv, d, 1.0 / (d ** 0.5), int(causal))
+    else:
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        ptrs = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr())
+        KERNEL(dev, *ptrs, b, sq, skv, d, 1.0 / (d ** 0.5), int(causal), DTYPE_CODE[q.dtype])
     return out
 
 
@@ -112,4 +152,7 @@ def flash_attention_plain(
     return out.to(q.dtype)
 
 
-__all__ = ["KERNEL", "MAX_HEAD_DIM", "NEG_INF", "flash_attention", "flash_attention_plain"]
+__all__ = [
+    "KERNEL", "MAX_HEAD_DIM", "NEG_INF", "WGMMA", "WGMMA_MAX_HEAD_DIM", "flash_attention",
+    "flash_attention_plain", "route",
+]

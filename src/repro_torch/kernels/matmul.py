@@ -1,15 +1,28 @@
-"""Tiled matmul with an f32 accumulator: a hand-written CUDA kernel
-(``csrc/matmul.cu``) and its plain PyTorch version.
+"""Tiled matmul with an f32 accumulator: two hand-written CUDA kernels and
+their plain PyTorch version.
 
 Replaces the Pallas kernel ``src/repro/kernels/matmul.py:22``
 (``_matmul_kernel``, launched at ``:60``), the generated matmul kernel's
 hand-written baseline.  The TPU kernel walks a (M/bm, N/bn, K/bk) grid with
 K innermost, carrying a (bm, bn) f32 accumulator block in VMEM across the
-K steps.  The CUDA kernel does not carry the BlockSpecs over: a block of
-256 threads owns a 64×64 output tile and loops over K itself through
-16-deep shared-memory slices, each thread holding 4×4 accumulators in
-registers.  ``block_m/n/k`` keep the JAX signature, defaults
-(``plan_matmul``) and divisibility check.
+K steps.  The CUDA kernels do not carry the BlockSpecs over; ``route``
+picks one by dtype and shape alone:
+
+- ``"wgmma"`` (``csrc/matmul_wgmma.cu``): bf16 operands whose K and N are
+  multiples of 8, so that TMA can read their rows (an operand whose data
+  does not start on a 16-byte boundary is copied to one that does).  A
+  block owns a 128×256 output tile; a producer warp
+  feeds a 4-stage shared-memory ring by TMA and two warpgroups multiply on
+  the tensor cores (``wgmma``), accumulating in f32.
+- ``"simt"`` (``csrc/matmul.cu``): every other call, f32 among them (the
+  JAX kernel's f32 products are IEEE f32, which the tensor cores' TF32
+  would not meet).  A block of 256 threads owns a 64×64 output tile and
+  loops over K through 16-deep shared-memory slices, each thread holding
+  4×4 accumulators in registers.
+
+Neither is a fallback for the other: a refused launch raises.
+``block_m/n/k`` keep the JAX signature, defaults (``plan_matmul``) and
+divisibility check.
 """
 
 from __future__ import annotations
@@ -20,10 +33,13 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.ubplan import plan_matmul
-from ._cuda import DTYPE_CODE, CudaLauncher, check_dtypes, require_cuda
+from ._cuda import DTYPE_CODE, CudaLauncher, check_dtypes, require_cuda, tma_aligned
 
 KERNEL = CudaLauncher(
     "matmul", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4, "src/repro/kernels/matmul.py:22"
+)
+WGMMA = CudaLauncher(
+    "matmul_wgmma", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3, "src/repro/kernels/matmul.py:22"
 )
 
 
@@ -46,19 +62,38 @@ def _check(
     return bm, bn, bk
 
 
+def _route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The route of checked operands."""
+    tma = a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0
+    return "wgmma" if a.dtype == torch.bfloat16 and tma else "simt"
+
+
+def route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel ``matmul(a, b)`` launches: ``"wgmma"`` for bf16 operands
+    whose K and N are multiples of 8 (TMA's rule for row strides), else
+    ``"simt"``.  CUDA tensors only, as ``matmul``."""
+    _check(a, b, None, None, None)
+    require_cuda("matmul", a, b)
+    return _route(a, b)
+
+
 def matmul(
     a: torch.Tensor, b: torch.Tensor, *,
     block_m: Optional[int] = None, block_n: Optional[int] = None, block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """a: (M, K) @ b: (K, N) -> (M, N) in a's dtype, f32 accumulation, by
-    the CUDA kernel.  CUDA tensors only."""
+    the CUDA kernel ``route`` names.  CUDA tensors only."""
     _check(a, b, block_m, block_n, block_k)
     dev = require_cuda("matmul", a, b)
-    ac, bc = a.contiguous(), b.contiguous()
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=dev)
-    KERNEL(dev, ac.data_ptr(), bc.data_ptr(), out.data_ptr(), m, n, k, DTYPE_CODE[a.dtype])
+    if _route(a, b) == "wgmma":
+        ac, bc = tma_aligned(a), tma_aligned(b)
+        WGMMA(dev, ac.data_ptr(), bc.data_ptr(), out.data_ptr(), m, n, k)
+    else:
+        ac, bc = a.contiguous(), b.contiguous()
+        KERNEL(dev, ac.data_ptr(), bc.data_ptr(), out.data_ptr(), m, n, k, DTYPE_CODE[a.dtype])
     return out
 
 
@@ -76,4 +111,4 @@ def matmul_plain(
     return acc.to(a.dtype)
 
 
-__all__ = ["KERNEL", "matmul", "matmul_plain"]
+__all__ = ["KERNEL", "WGMMA", "matmul", "matmul_plain", "route"]

@@ -335,6 +335,33 @@ def test_ptxas_usage_reads_the_build_log(tmp_path, monkeypatch):
     }
 
 
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN43_GLOBAL__N__8e2dd006_10_kernels_cu_3b2fb43b19matmul_wgmma_kernelE14CUtensorMap_stS0_P13__nv_bfloat16iii",
+     "matmul_wgmma_kernel"),
+    ("_ZN43_GLOBAL__N__8e2dd006_10_kernels_cu_3b2fb43b18flash_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiifi",
+     "flash_wgmma_kernel<128>"),
+    ("_ZN43_GLOBAL__N__8e2dd006_10_kernels_cu_3b2fb43b12flash_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PS2_iiifi",
+     "flash_kernel<__nv_bfloat16, 64>"),
+    ("_ZN43_GLOBAL__N__8e2dd006_10_kernels_cu_3b2fb43b13matmul_kernelIfEEvPKT_S3_PS1_iii", "matmul_kernel<float>"),
+    ("_Z12ub_kernel_1010UbParams10", "ub_kernel_10"),
+], ids=["plain", "int-template", "type-and-int", "builtin", "generated"])
+def test_ptxas_usage_names_hand_written_kernels(mangled, name, tmp_path, monkeypatch):
+    """The hand-written kernels sit in an anonymous namespace and are
+    templates: each is read under its own name and template arguments."""
+    from repro_torch.backend import build
+
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    src = "// a hand-written library"
+    log = build.library_path(src).parent / "nvcc.log"
+    log.parent.mkdir(parents=True)
+    log.write_text(
+        f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 154 registers, used 1 barriers, 384 bytes cmem[0]\n"
+    )
+    assert build.ptxas_usage(src) == {name: {"registers": 154, "spill_stores": 0, "spill_loads": 0}}
+
+
 @pytest.mark.parametrize("name,kw,ckw,runs", [
     # the 3x3 x 64 reduction: nine runs of 64 channels
     ("resnet", {"img": 8, "cin": 64, "cout": 8}, {}, [64] * 9),

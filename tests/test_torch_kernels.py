@@ -9,17 +9,25 @@ version of each CUDA kernel) on CPU tensors, on every case of
 run at the JAX call's own blocks.  The torch oracles are held against the
 JAX oracles, and the contract is checked: CUDA wrappers refuse CPU
 tensors, arguments the JAX kernels refuse are refused, unsupported dtypes
-raise ``TypeError``.  The one test that builds and launches the CUDA
-kernels is marked ``gpu`` and skips here.
+raise ``TypeError``, and the route of ``matmul`` and ``flash_attention``
+(tensor cores or SIMT) follows its documented rule.  The Hopper header
+``csrc/sm90.cuh`` is spliced into the sources it is named in, and its
+descriptor function is compiled with g++ and held against the bit fields.
+The one test that builds and launches the CUDA kernels is marked ``gpu``
+and skips here.
 """
 
+import ctypes
+import shutil
+import subprocess
 import types
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import KERNELS, ops, ref
+from repro_torch.backend import build
+from repro_torch.kernels import KERNELS, _cuda, flash_attention as fa_mod, matmul as mm_mod, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.matmul import matmul, matmul_plain
 from repro_torch.kernels.ssd import (
@@ -246,7 +254,9 @@ def _cpu_calls(dtype=torch.float32):
     return {
         "stencil3x3": ((stencil3x3, (x, w)), (ops.stencil3x3_op, (x, w))),
         "matmul": ((matmul, (a, b)), (ops.matmul_op, (a, b))),
+        "matmul_wgmma": ((matmul, (a, b)), (ops.matmul_op, (a, b))),
         "flash_attention": ((flash_attention, (q, k, v)), (ops.attention_op, (q, k, v))),
+        "flash_attention_wgmma": ((flash_attention, (q, k, v)), (ops.attention_op, (q, k, v))),
         "ssd_gram": ((ssd_gram, (s_in[3], s_in[4], 16)), (ops.ssd_op, s_in)),
         "ssd_scan": ((ssd_scan, s_in), (ops.ssd_op, s_in)),
     }
@@ -336,6 +346,157 @@ def test_to_tensor_carries_bfloat16_bit_for_bit(jaxk):
     assert ops.to_tensor(x, device="cpu").dtype == torch.float32
 
 
+def _bf16(*shape, offset=0):
+    """A contiguous bf16 CPU tensor whose data starts ``offset`` elements
+    past a fresh allocation (so 2 * offset bytes off its alignment)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=torch.bfloat16)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("a,b,want", [
+    (_bf16(64, 48), _bf16(48, 80), "wgmma"),
+    (_bf16(130, 72), _bf16(72, 136), "wgmma"),
+    (_bf16(64, 48).float(), _bf16(48, 80).float(), "simt"),
+    (_bf16(64, 44), _bf16(44, 80), "simt"),                # K not a multiple of 8
+    (_bf16(64, 48), _bf16(48, 84), "simt"),                # N not a multiple of 8
+    (_bf16(64, 48, offset=1), _bf16(48, 80), "wgmma"),     # A 2 bytes off 16: copied
+    (_bf16(64, 48), _bf16(48, 80, offset=4), "wgmma"),     # B 8 bytes off 16: copied
+    (_bf16(64, 48), _bf16(80, 48).t(), "wgmma"),           # made contiguous first
+], ids=["bf16", "bf16-ragged", "f32", "k44", "n84", "a-unaligned", "b-unaligned", "b-strided"])
+def test_matmul_route(a, b, want, monkeypatch):
+    """The tensor cores take bf16 operands whose rows TMA can read (K and N
+    multiples of 8), wherever their data sits; every other call goes to the
+    SIMT kernel.  The device check is lifted: the rule is the same on the
+    card."""
+    monkeypatch.setattr(mm_mod, "require_cuda", lambda *a: torch.device("cpu"))
+    assert mm_mod.route(a, b) == want
+
+
+@pytest.mark.parametrize("shape,dtype,offset,want", [
+    ((2, 128, 64), torch.bfloat16, 0, "wgmma"),
+    ((2, 64, 128), torch.bfloat16, 0, "wgmma"),
+    ((1, 256, 32), torch.bfloat16, 0, "wgmma"),
+    ((2, 128, 64), torch.float32, 0, "simt"),
+    ((2, 64, 136), torch.bfloat16, 0, "simt"),              # D above 128
+    ((2, 64, 60), torch.bfloat16, 0, "simt"),               # D not a multiple of 8
+    ((2, 64, 256), torch.bfloat16, 0, "simt"),
+    ((2, 64, 64), torch.bfloat16, 3, "wgmma"),              # 6 bytes off 16: copied
+], ids=["d64", "d128", "d32", "f32", "d136", "d60", "d256", "unaligned"])
+def test_flash_attention_route(shape, dtype, offset, want, monkeypatch):
+    monkeypatch.setattr(fa_mod, "require_cuda", lambda *a: torch.device("cpu"))
+    q = _bf16(*shape, offset=offset).to(dtype)  # a no-op for bf16: the offset stays
+    k, v = _bf16(*shape).to(dtype), _bf16(*shape).to(dtype)
+    assert fa_mod.route(q, k, v) == want
+    assert fa_mod.route(k, q, v) == want and fa_mod.route(k, v, q) == want
+
+
+def test_tma_aligned_copies_only_unaligned_data():
+    """An operand whose data starts off a 16-byte boundary is copied to a
+    fresh, aligned allocation with the same values; any other is left as
+    ``contiguous()`` gives it."""
+    x = _bf16(4, 24)
+    assert _cuda.tma_aligned(x) is x
+    for offset in (1, 3, 4):
+        y = _bf16(4, 24, offset=offset)
+        y.copy_(torch.arange(96, dtype=torch.bfloat16).view(4, 24))
+        z = _cuda.tma_aligned(y)
+        assert y.data_ptr() % 16 and z.data_ptr() % 16 == 0 and z.is_contiguous()
+        assert torch.equal(z, y)
+    t = _bf16(24, 4).t()
+    assert _cuda.tma_aligned(t).is_contiguous() and torch.equal(_cuda.tma_aligned(t), t)
+
+
+@pytest.mark.parametrize("op", ["matmul", "flash_attention"])
+def test_wgmma_route_launches_on_aligned_data(op, monkeypatch):
+    """The tensor-core wrappers hand their launcher 16-byte-aligned
+    pointers, even for inputs that start off a boundary.  The device check
+    is lifted and the launcher recorded, so the wiring shows on the CPU."""
+    mod = {"matmul": mm_mod, "flash_attention": fa_mod}[op]
+    seen = []
+    monkeypatch.setattr(mod, "require_cuda", lambda *a: torch.device("cpu"))
+    monkeypatch.setattr(mod, "WGMMA", lambda dev, *args: seen.append(args))
+    if op == "matmul":
+        mm_mod.matmul(_bf16(64, 48, offset=1), _bf16(48, 80, offset=4))
+        ptrs = seen[0][:3]
+    else:
+        fa_mod.flash_attention(_bf16(2, 64, 64, offset=3), _bf16(2, 64, 64), _bf16(2, 64, 64, offset=5))
+        ptrs = seen[0][:4]
+    assert len(seen) == 1 and all(p % 16 == 0 for p in ptrs)
+
+
+def test_routes_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        mm_mod.route(_bf16(64, 48), _bf16(48, 80))
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        fa_mod.route(*(_bf16(2, 64, 64) for _ in range(3)))
+    with pytest.raises(TypeError, match="not supported"):
+        mm_mod.route(torch.zeros(8, 8, dtype=torch.float16), torch.zeros(8, 8, dtype=torch.float16))
+
+
+def test_kernels_lists_the_tensor_core_launchers():
+    """Each op's two kernels port the same Pallas kernel and count apart."""
+    assert KERNELS["matmul_wgmma"] is mm_mod.WGMMA and KERNELS["matmul"] is mm_mod.KERNEL
+    assert KERNELS["flash_attention_wgmma"] is fa_mod.WGMMA
+    assert KERNELS["flash_attention"] is fa_mod.KERNEL
+    for op in ("matmul", "flash_attention"):
+        simt, tc = KERNELS[op], KERNELS[f"{op}_wgmma"]
+        assert tc.replaces == simt.replaces == f"src/repro/kernels/{op}.py:" + {
+            "matmul": "22", "flash_attention": "29"}[op]
+        assert tc.path.name == f"{op}_wgmma.cu" and tc.path.is_file()
+        assert tc is not simt and tc.path != simt.path
+
+
+def test_source_inlines_the_hopper_header(tmp_path, monkeypatch):
+    """``source()`` puts ``sm90.cuh`` in place of its ``#include`` line, so
+    the build (which compiles the text alone) has it and the build's digest
+    changes with it; sources that name no header are read as they are."""
+    header = (_cuda.CSRC / "sm90.cuh").read_text()
+    for name in ("matmul_wgmma", "flash_attention_wgmma"):
+        src = KERNELS[name].source()
+        assert '#include "sm90.cuh"' not in src.splitlines() and header in src
+    assert KERNELS["matmul"].source() == KERNELS["matmul"].path.read_text()
+    for f in ("matmul_wgmma.cu", "sm90.cuh"):
+        shutil.copy(_cuda.CSRC / f, tmp_path / f)
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    before = build.digest(KERNELS["matmul_wgmma"].source())
+    (tmp_path / "sm90.cuh").write_text(header + "\n// changed\n")
+    assert build.digest(KERNELS["matmul_wgmma"].source()) != before
+
+
+def test_wgmma_descriptor_bit_fields(tmp_path):
+    """``sm90::smem_desc`` compiled by g++: start address, LBO and SBO in
+    16-byte units at bits 0, 16 and 32 (14 bits each), base offset 0 and
+    the 128-byte swizzle (1) at bits 62-63."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not on PATH: the header cannot be compiled on the host")
+    (tmp_path / "desc.cpp").write_text(
+        "#define __host__\n#define __device__\n"
+        '#include "sm90.cuh"\n'
+        'extern "C" unsigned long long desc(unsigned a, unsigned l, unsigned s) {\n'
+        "  static_assert(sm90::smem_desc(1024, 16, 1024) == ((1ull << 62) | (64ull << 32) | (1 << 16) | 64));\n"
+        "  return sm90::smem_desc(a, l, s);\n}\n")
+    so = tmp_path / "libdesc.so"
+    run = subprocess.run([gxx, "-std=c++17", "-shared", "-fPIC", "-I", str(_cuda.CSRC),
+                          "-o", str(so), str(tmp_path / "desc.cpp")], capture_output=True, text=True)
+    assert run.returncode == 0, run.stderr
+    fn = ctypes.CDLL(str(so)).desc
+    fn.argtypes = [ctypes.c_uint] * 3
+    fn.restype = ctypes.c_ulonglong
+
+    def fields(addr, lbo, sbo):
+        return ((addr >> 4) & 0x3FFF) | (((lbo >> 4) & 0x3FFF) << 16) \
+            | (((sbo >> 4) & 0x3FFF) << 32) | (1 << 62)
+
+    # the kernels' own: A and Q rows (K-major), B and V atoms (MN-major)
+    cases = [(0x400, 16, 1024), (0x8420, 16, 1024), (0x20800, 8192, 1024),
+             (0x3C000 + 96, 16384, 1024), (0x3FFF0, 0x3FFF0, 0x3FFF0), (0x7, 0xF, 0x1F)]
+    for addr, lbo, sbo in cases:
+        got = fn(addr, lbo, sbo)
+        assert got == fields(addr, lbo, sbo), (hex(got), hex(fields(addr, lbo, sbo)))
+        assert (got >> 49) & 0x7 == 0 and got >> 62 == 1
+
+
 @pytest.mark.parametrize("name,shapes,dtype,chunk,bound_ms,by", [
     ("stencil3x3", [(1082, 1922), (3, 3)], torch.float32, None, 0.0050, "bytes"),
     ("matmul", [(2048, 2048), (2048, 5632)], torch.bfloat16, None, 0.048, "operations"),
@@ -374,9 +535,10 @@ def test_chip_smoke_bounds(name, shapes, dtype, chunk, bound_ms, by):
 
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_version_on_card():
-    """Build and launch the five kernels on small shapes; hold each against
-    its plain version (stencil bit for bit), one launch per call (the SSD
-    op: one of each of its two kernels)."""
+    """Build and launch the seven kernels on small shapes; hold each against
+    its plain version (stencil and integer matmuls bit for bit), one launch
+    per call of the kernel its route names (the SSD op: one of each of its
+    two kernels)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc; run on the GPU machine")
     rng = np.random.default_rng(13)
@@ -384,17 +546,47 @@ def test_cuda_kernels_match_plain_version_on_card():
     def t(*shape, dtype=torch.float32):
         return ops.to_tensor(rng.standard_normal(shape).astype(np.float32), dtype)
 
+    bf16 = torch.bfloat16
+
+    def ints(*shape):
+        return ops.to_tensor(rng.integers(-8, 8, shape).astype(np.float32), bf16)
+
+    def off16(x):
+        """``x``'s values in a view whose data starts 2 bytes off 16."""
+        y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+        return y.copy_(x)
+
     x, w = t(34, 50), ops.to_tensor(GAUSS)
     ssd_in = tuple(ops.to_tensor(a) for a in ssd_arrays(rng, 128, 3, 40, 16))
     cases = [
         ("stencil3x3", stencil3x3, stencil3x3_plain, (x, w), {}, 0.0),
         ("matmul", matmul, matmul_plain, (t(64, 48), t(48, 80)), {}, 1e-4),
-        ("matmul", matmul, matmul_plain,
-         (t(64, 48, dtype=torch.bfloat16), t(48, 80, dtype=torch.bfloat16)), {}, 2e-2),
+        ("matmul_wgmma", matmul, matmul_plain,
+         (t(64, 48, dtype=bf16), t(48, 80, dtype=bf16)), {}, 2e-2),
+        # integers: every sum exact, so the tensor cores must agree bit for
+        # bit, ragged M and N edges and a K tail included
+        ("matmul_wgmma", matmul, matmul_plain, (ints(64, 48), ints(48, 80)), {}, 0.0),
+        ("matmul_wgmma", matmul, matmul_plain, (ints(130, 72), ints(72, 136)), {}, 0.0),
+        # N not a multiple of 8: TMA cannot read B, the SIMT kernel does
+        ("matmul", matmul, matmul_plain, (ints(64, 48), ints(48, 84)), {}, 0.0),
+        # data off a 16-byte boundary is copied, not sent to the SIMT kernel
+        ("matmul_wgmma", matmul, matmul_plain, (off16(ints(64, 48)), off16(ints(48, 80))), {}, 0.0),
         ("flash_attention", flash_attention, flash_attention_plain,
          (t(2, 128, 64), t(2, 128, 64), t(2, 128, 64)), {"causal": True}, 2e-3),
         ("flash_attention", flash_attention, flash_attention_plain,
          (t(2, 64, 128), t(2, 256, 128), t(2, 256, 128)), {"causal": False}, 2e-3),
+        ("flash_attention_wgmma", flash_attention, flash_attention_plain,
+         tuple(t(2, 128, 64, dtype=bf16) for _ in range(3)), {"causal": True}, 3e-2),
+        ("flash_attention_wgmma", flash_attention, flash_attention_plain,
+         (t(2, 64, 128, dtype=bf16), t(2, 256, 128, dtype=bf16), t(2, 256, 128, dtype=bf16)),
+         {"causal": False}, 3e-2),
+        ("flash_attention_wgmma", flash_attention, flash_attention_plain,
+         tuple(t(1, 256, 32, dtype=bf16) for _ in range(3)), {"causal": True}, 3e-2),
+        ("flash_attention_wgmma", flash_attention, flash_attention_plain,
+         tuple(off16(t(2, 128, 64, dtype=bf16)) for _ in range(3)), {"causal": True}, 3e-2),
+        # a head dim above 128: bf16 on the SIMT kernel
+        ("flash_attention", flash_attention, flash_attention_plain,
+         tuple(t(2, 64, 136, dtype=bf16) for _ in range(3)), {"causal": True}, 3e-2),
         ("ssd_gram", ssd_gram, ssd_gram_plain, (ssd_in[3], ssd_in[4], 32), {}, 1e-4),
         ("ssd_scan", ssd_scan, ssd_scan_plain, ssd_in, {"chunk": 32}, 1e-3),
     ]
@@ -406,7 +598,7 @@ def test_cuda_kernels_match_plain_version_on_card():
         launched = {"ssd_scan": {"ssd_gram", "ssd_scan"}}.get(name, {name})
         assert got.is_cuda and all(
             launcher.launches == before[k] + (k in launched) for k, launcher in KERNELS.items()
-        ), name
+        ), (name, [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)])
         if tol == 0.0:
             assert torch.equal(got, want), name
         else:
