@@ -27,13 +27,15 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    10, and per call over replays of a CUDA graph behind an L2-evicting
    write, as in phase 7), the plain version over its comparison call.
    Each group's launch (blocks, threads, the thread map of an
-   element-parallel group and its tile), its registers and spills as
+   element-parallel group and its tile, the bands of row steps a
+   row-carried group's sweep is cut into), its registers and spills as
    ``ptxas -v`` reported them, and its library's nvcc seconds are
    printed.  Each is also held against a computation that shares no code
    with the port: gaussian
    against ``F.conv2d`` (atol 1e-3), upsample against
    ``expand().contiguous()`` (exact), resnet against ``F.conv2d`` and
-   matmul against ``torch.matmul`` (all three timed as the library call),
+   matmul against ``torch.matmul`` (all three timed as the library call,
+   one call and replayed as the kernel is),
    mobilenet against a depthwise and a pointwise ``F.conv2d`` (two calls,
    so no library time), and harris (1024 and 2048), unsharp and camera's
    two groups, on one slot, against the app's math written as whole-image
@@ -58,8 +60,9 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    ``flash_attention_wgmma``), also where the shapes cut their tiles
    (Sq 96; Skv 192), while bf16 with K or N not a multiple of 8, or a
    head dim above 128 (136, 256), and every f32 call take the SIMT
-   kernels.  The tensor-core matmul's operand layout is checked first: the
-   identity times a 64×64 B of distinct residues must give B bit for bit.
+   kernels (a SIMT matmul that splits K also ``matmul_reduce``).  The
+   tensor-core matmul's operand layout is checked first: the identity
+   times a 64×64 B of distinct residues must give B bit for bit.
 7. hand-written kernels at model widths: a 1080p gaussian, tinyllama-1.1b's
    MLP up-projection (bf16 and f32) and prefill attention (bf16 and f32),
    qwen3-14b's prefill attention, mamba2-2.7b's SSD prefill and the
@@ -80,8 +83,14 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    counts were read), holds its output against the same plain version and
    oracle at the same tolerance, and times it.
    The SSD op launches two kernels, C Bᵀ per chunk (``ssd_gram``) and the
-   scan; each gets its own row.  Every row carries its library's registers
-   and spills as ``ptxas -v`` reported them.
+   scan; each gets its own row.  An f32 matmul prints the SIMT kernel's
+   tile and K split (``matmul.simt_plan``); where K is split (the matmul
+   tile) the call launches ``matmul`` and ``matmul_reduce``, each timed
+   alone on its own row, and the whole call too.  The f32 matmuls are bit
+   for bit on their integer inputs and are also held at the JAX package's
+   f32 tolerance (1e-4) on normal inputs of the same shapes.  Every row
+   carries its library's registers and spills as ``ptxas -v`` reported
+   them.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -457,7 +466,8 @@ def kernel_work(name: str, args, out, chunk=None) -> tuple:
     """Bytes a hand-written kernel must move (each input read once, the
     output written once), the operations it does on these inputs (only the
     scores a causal mask keeps; only the lower triangle of each SSD chunk,
-    whose C B^T the scan reads only there)
+    whose C B^T the scan reads only there; the additions of a split-K
+    matmul's reduction)
     and the peak rate of the unit they could use: bf16 tensor cores for
     bf16 products, else IEEE f32."""
     import torch
@@ -465,7 +475,10 @@ def kernel_work(name: str, args, out, chunk=None) -> tuple:
     name = name.removesuffix("_wgmma")         # the tensor-core kernels do the op's work
     nbytes = sum(t.numel() * t.element_size() for t in args) + out.numel() * out.element_size()
     peak = PEAK_BF16_FLOPS if out.dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    if name == "stencil3x3":
+    if name == "matmul_reduce":                  # the f32 splits (S, M, N) added in order
+        ops = (args[0].shape[0] - 1) * out.numel()
+        peak = PEAK_F32_FLOPS
+    elif name == "stencil3x3":
         ops = 18 * out.numel()                      # 9 products and 9 sums per output
         peak = PEAK_F32_FLOPS
     elif name == "matmul":
@@ -495,7 +508,7 @@ def kernels_small() -> None:
 
     from repro_torch.kernels import KERNELS, ops, ref as kref
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-    from repro_torch.kernels.matmul import matmul, matmul_plain
+    from repro_torch.kernels.matmul import matmul, matmul_plain, simt_plan
     from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
     from repro_torch.kernels.stencil import stencil3x3, stencil3x3_plain
 
@@ -506,12 +519,14 @@ def kernels_small() -> None:
         return ops.to_tensor(rng.standard_normal(shape).astype(np.float32), dtype)
 
     def launched(tag, want, call):
-        """``call()``, which must launch the kernel ``want`` and no other."""
+        """``call()``, which must launch the kernel ``want`` and no other
+        (a SIMT matmul that splits K: it and ``matmul_reduce``)."""
         before = {name: k.launches for name, k in KERNELS.items()}
         out = call()
         rose = [name for name, k in KERNELS.items() if k.launches != before[name]]
-        if rose != [want]:
-            raise AssertionError(f"{tag}: launched {rose}, must launch {want}")
+        wants = [want] if isinstance(want, str) else list(want)
+        if rose != wants:
+            raise AssertionError(f"{tag}: launched {rose}, must launch {wants}")
         return out
 
     # the tensor-core matmul's operand layout: I @ B must be B, every entry
@@ -535,6 +550,8 @@ def kernels_small() -> None:
                 for dtype, tol in ((f32, 1e-4), (bf16, 2e-2))]
     mm_cases += [((64, 84, 48), {}, bf16, 2e-2, "matmul"), ((64, 80, 44), {}, bf16, 2e-2, "matmul")]
     for (m, n, k), kw, dtype, tol, want in mm_cases:
+        if want == "matmul" and simt_plan(m, n, k)[2] > 1:
+            want = ("matmul", "matmul_reduce")
         a, b = rand((m, k), dtype), rand((k, n), dtype)
         tag = f"[kernels-small] matmul {(m, n, k)} {dtype} ({want})"
         held(tag, launched(tag, want, lambda: matmul(a, b, **kw)), matmul_plain(a, b, **kw),
@@ -605,7 +622,8 @@ def kernels_full(full_apps, rows) -> None:
     from repro_torch.core.ubplan import plan_ssd
     from repro_torch.kernels import KERNELS, ops, ref as kref
     from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.kernels.matmul import matmul_plain
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels.matmul import matmul_plain, matmul_reduce_plain, simt_plan
     from repro_torch.kernels.ssd import (
         ssd_chunk_scan, ssd_chunk_scan_plain, ssd_gram, ssd_gram_plain, ssd_scan_plain,
     )
@@ -655,8 +673,7 @@ def kernels_full(full_apps, rows) -> None:
         are for."""
         if kname == "matmul_wgmma":
             a, b = args
-            return lambda: KERNELS["matmul"](dev, a.data_ptr(), b.data_ptr(), scratch.data_ptr(),
-                                             a.shape[0], b.shape[1], a.shape[1], 1)
+            return lambda: mm.launch_simt(a, b, scratch)
         q, k, v = args
         heads, s, d = q.shape
         return lambda: KERNELS["flash_attention"](
@@ -788,20 +805,53 @@ def kernels_full(full_apps, rows) -> None:
         args = make()
         op, plain_fn, ref_fn, kw = entry[kname]
         dname = "bf16" if args[0].dtype == bf16 else "f32"
+        names = path.get(kname, (kname,))
+        if kname == "matmul":
+            # the SIMT kernel's tile and K split, from the shape alone
+            (m, kd), n = args[0].shape, args[1].shape[1]
+            tile, k_split, splits = simt_plan(m, n, kd)
+            if splits > 1:
+                names = ("matmul", "matmul_reduce")
         # the main path: the ops entry point, every launch count zeroed just
         # before and read just after
         for k in KERNELS.values():
             k.launches = 0
         out = op(*args, **kw)
         torch.cuda.synchronize()
-        launches = {name: KERNELS[name].launches for name in path.get(kname, (kname,))}
+        launches = {name: KERNELS[name].launches for name in names}
         others = {name: k.launches for name, k in KERNELS.items()
                   if k.launches and name not in launches}
         if not all(launches.values()) or others:
             raise AssertionError(f"[kernels-full] {label}: the main path must launch "
                                  f"{list(launches)} and nothing else; it launched {launches}, "
                                  f"and besides {others}")
-        if kname != "ssd_scan":
+        if kname == "matmul":
+            log(f"[kernels-full] {label} matmul {dname}: SIMT plan {tile}x{tile} output tiles, "
+                f"K {kd} in {splits} split(s) of {k_split}, "
+                f"{-(-m // tile) * -(-n // tile) * splits} blocks; launches per call {launches}")
+        if kname == "matmul" and splits > 1:
+            # two kernels, each timed alone: the split partial sums into an
+            # f32 workspace, then their reduction; the whole call is timed too
+            ws = torch.empty((splits, m, n), dtype=f32, device=dev)
+            part = lambda: mm.KERNEL(dev, args[0].data_ptr(), args[1].data_ptr(),  # noqa: E731
+                                     ws.data_ptr(), m, n, kd, 0, tile, k_split, splits)
+            part()
+            row = measure("matmul", label, dname, launches["matmul"], out, part,
+                          lambda: plain_fn(*args, **kw), ref_fn(*args, **kw), check,
+                          (library[0], lambda: library[1](*args), library[2]),
+                          kernel_work("matmul", args, out))
+            row["call_ms"] = time_ms(lambda: op(*args), 10)
+            row["call_device_ms"] = graph_ms(lambda: op(*args))
+            red = measure("matmul_reduce", label, dname, launches["matmul_reduce"], out,
+                          lambda: mm.REDUCE(dev, ws.data_ptr(), out.data_ptr(), m * n, splits, 0),
+                          lambda: matmul_reduce_plain(ws, out.dtype), ws.sum(0), dict(tol=None),
+                          ("torch.sum over the splits", lambda: ws.sum(0), None),
+                          kernel_work("matmul_reduce", (ws,), out))
+            red["shape"], red["dtype"] = [list(ws.shape)], dname
+            log(f"[kernels-full] {label} matmul op (matmul + matmul_reduce): "
+                f"{row['call_ms']:.4f} ms ({row['call_device_ms']:.4f} ms replayed, L2 flushed)")
+            del ws
+        elif kname != "ssd_scan":
             lib = library and (library[0], lambda: library[1](*args), library[2])
             simt = None
             if kname.endswith("_wgmma"):
@@ -849,6 +899,16 @@ def kernels_full(full_apps, rows) -> None:
                 f"({row['dev_ms']:.4f} ms replayed); bit for bit {'ok' if same else 'FAIL'}")
             if not same:
                 raise AssertionError(f"{label}: differs from the generated {app_label} kernel")
+        if kname == "matmul":
+            row["simt_plan"] = {"tile": tile, "k_split": k_split, "splits": splits}
+            # random inputs of the same shapes: the fused multiply-adds round
+            # otherwise than the plain version's products, so the JAX
+            # package's f32 tolerance, not bit for bit
+            ra, rb = randn(args[0].shape, f32), randn(args[1].shape, f32)
+            row["normal_max_abs_err"] = held(
+                f"[kernels-full] {label} matmul {dname}, normal inputs", op(ra, rb),
+                matmul_plain(ra, rb), kref.matmul_ref(ra, rb), 1e-4)
+            del ra, rb
         row["shape"] = [list(t.shape) for t in args]
         row["dtype"] = dname
         log(f"[kernels-full] {label} {kname} {dname} {[tuple(t.shape) for t in args]}: "
@@ -875,7 +935,7 @@ def main() -> int:
     )
     from repro_torch.backend.build import build_many, digest, ptxas_usage
     from repro_torch.backend.cuda_codegen import (
-        REPLACES, block_threads, element_map, emit_library, grid_x,
+        REPLACES, block_threads, element_map, emit_library, grid_x, row_bands,
     )
     from repro_torch.backend.eager import LoweredGroup
     from repro_torch.backend.plan import build_pipeline_plan
@@ -969,6 +1029,7 @@ def main() -> int:
             ms = time_ms(lambda: k(bufs), 10)
             dev_ms = graph_ms(lambda: k(bufs))
             em = element_map(k.lg)
+            bands = row_bands(k.lg) if k.lg.row_carried else None
             blocks = grid_x(k.lg) * k.kg.batch_steps
             threads = block_threads(k.lg)
             regs = usage.get(f"ub_kernel_{gi}", {})
@@ -978,7 +1039,10 @@ def main() -> int:
             # the one PyTorch call computing the same function, where there is
             # one: it is also a check that shares no code with the port
             library, lib_ok, msg = library_check(label, bufs, out)
-            library_ms = time_ms(library, 10) if library is not None else None
+            library_ms = library_device_ms = None
+            if library is not None:
+                library_ms = time_ms(library, 10)
+                library_device_ms = graph_ms(library)
             if lib_ok is None:
                 # the last slot, whole image, held against the app's math
                 # written as whole-image torch expressions
@@ -1005,8 +1069,11 @@ def main() -> int:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": library_ms,
                 "dev_ms": dev_ms,
+                "library_device_ms": library_device_ms,
                 "blocks": blocks,
                 "threads": threads,
+                "bands": len(bands) if bands else None,
+                "band_steps": bands[0][1] if bands else None,
                 "tile": em.tile if em is not None else None,
                 "regs_per_thread": regs.get("registers"),
                 "spill_bytes": regs.get("spill_stores"),
@@ -1015,16 +1082,23 @@ def main() -> int:
                 "variants": variants(k.kg),
                 "app": label,
             }
-            thread_map = (f"element-parallel, thread axis {em.thread_axis}, tile {em.tile} "
-                          f"along {em.tile_axis}" if em is not None else "element loop")
+            if em is not None:
+                thread_map = (f"element-parallel, thread axis {em.thread_axis}, tile {em.tile} "
+                              f"along {em.tile_axis}")
+            elif bands:
+                thread_map = (f"element loop, row sweep in {len(bands)} bands of "
+                              f"{bands[0][1]} row steps ({k.lg.steps} in all) a slot")
+            else:
+                thread_map = "element loop"
             log(f"[full] {label}/{k.name} grid={k.kg.grid} bh={k.kg.bh} bw={k.kg.bw} "
                 f"smem={k.kg.scratch_bytes} B [{', '.join(variants(k.kg))}]: "
                 f"max|cuda - plain| = {err!r} (tolerance 0); "
                 f"{ms:.4f} ms/launch ({dev_ms:.4f} ms replayed, L2 flushed), "
                 f"plain {plain_ms:.2f} ms, bound "
                 f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}), "
-                f"library {library_ms if library_ms is None else round(library_ms, 4)} ms, "
-                f"compile {compile_s:.2f} s; {thread_map}: {blocks} blocks of {threads} "
+                f"library {library_ms if library_ms is None else round(library_ms, 4)} ms "
+                f"({library_device_ms if library_device_ms is None else round(library_device_ms, 4)}"
+                f" ms replayed), compile {compile_s:.2f} s; {thread_map}: {blocks} blocks of {threads} "
                 f"threads, {regs.get('registers')} registers, "
                 f"{regs.get('spill_stores')} B spilled, nvcc {nvcc_s} s")
             if err != 0.0:

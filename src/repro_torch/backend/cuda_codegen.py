@@ -16,13 +16,25 @@ block-by-block transliteration:
   ============================  ==========================  ====================
   group                          one thread block per        loop inside
   ============================  ==========================  ====================
-  row rings / line buffers       batch slot                  row steps ``i0``
+  row rings / line buffers       (band of row steps, slot)   the band's row
+                                                             steps ``i0``
   column rings / lane buffers    (row step, slot)            lane steps ``j``
   fused scratch, nothing         (row step x lane step,      none
   carried                        slot)
   element-parallel (below)       run of work items, slot     chunks ``k`` of a
                                                              grid reduction
   ============================  ==========================  ====================
+
+* **A row sweep is cut into bands** (:func:`row_bands`).  A row ring or
+  line buffer carries only its halo from one row step to the next, so each
+  band of consecutive row steps is swept by its own block, which warms up
+  at the band's first step ``band_begin``: an input ring lands the last
+  ``halo`` rows of the steady view's block at the step before (what
+  rotation would have carried, loaded and bounded as that step loaded
+  them), and a line buffer computes its halo rows with the warm-up panel
+  that step 0 uses.  Band 0 warms up from the pinned prefix view, as the
+  Pallas kernel does.  The same operations on the same loaded values give
+  every element the value the sweep in one block gives it, bit for bit.
 
 * **Shared memory holds exactly what Pallas kept in VMEM scratch**: the fused
   intermediates' panels and row or column line-buffer rings and the input
@@ -58,10 +70,13 @@ of f32 image, so it is bound by HBM bytes (``KernelGroup.hbm_bytes`` over
 3.35 TB/s); a convolution over channels or a matmul does hundreds of f32
 operations per element and is bound by operations (67 TFLOP/s without
 tensor cores, half of it without fused multiply-adds).  A row-carried group
-still runs on one SM per batch slot (a column-carried one on one block per
-row step and slot), and the carried and fused groups re-read view taps from
-global memory (through L1/L2) once per tap; every group uses scalar f32
-operations.
+runs as many bands per slot as fill the 132 SMs with blocks (up to four of
+512 threads an SM, as its shared memory allows), each band at least eight
+times its halo in rows, so the rows warmed up again stay under an eighth;
+inside a block each row step still lands, syncs and computes in turn, with
+no copy in flight.  A column-carried group runs one block per row step and
+slot.  The carried and fused groups re-read view taps from global memory
+(through L1/L2) once per tap; every group uses scalar f32 operations.
 
 The library is compiled by ``build.py`` with ``-fmad=false`` and IEEE
 division, so the kernel and the plain PyTorch version (``eager.py``) run the
@@ -72,6 +87,7 @@ K-tail term is added as ``+ 0.0f``, as Pallas adds its zero.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -90,6 +106,19 @@ from .plan import KernelGroup, StagePlan
 # budget
 THREADS_CARRIED = 512
 THREADS_GRID = 256
+# a row-carried group cuts its row sweep into bands of consecutive row
+# steps, one block per (band, slot): enough bands that bands x slots fill
+# the H100's SM_COUNT SMs with as many blocks as fit on one (at most
+# BLOCKS_PER_SM of THREADS_CARRIED threads, fewer where the group's shared
+# memory takes SMEM_PER_SM first), but every band at least
+# BAND_HALO_RATIO times as many rows as the halo it loads or recomputes
+# again at its start.  BAND_STEPS, when set, forces the band length in
+# row steps (the tests shorten the bands with it).
+SM_COUNT = 132
+SMEM_PER_SM = 228 * 1024
+BLOCKS_PER_SM = 2048 // THREADS_CARRIED
+BAND_HALO_RATIO = 8
+BAND_STEPS: Optional[int] = None
 # an element-parallel group: threads per block, the most output elements
 # one thread evaluates together, and a cap on blocks per slot past which
 # threads stride over more work items
@@ -359,13 +388,53 @@ def element_map(lg: LoweredGroup) -> Optional[ElementMap]:
     )
 
 
+def _row_halos(kg: KernelGroup) -> Tuple[int, int]:
+    """The widest halo a row step carries to the next through an input
+    ring, and through a row line buffer (0 where there is none)."""
+    rings = max((r.halo for r in kg.rings if not r.lane), default=0)
+    lbs = max(
+        (sp.line_buffer.halo for sp in kg.stages
+         if sp.line_buffer is not None and not sp.line_buffer.lane),
+        default=0,
+    )
+    return rings, lbs
+
+
+def row_bands(lg: LoweredGroup) -> List[Tuple[int, int]]:
+    """The bands ``[begin, end)`` of row steps into which a row-carried
+    group's sweep is cut, one block each per batch slot, in order; they
+    cover ``[0, steps)`` once.  Every band but the last has ``L`` steps:
+    ``BAND_STEPS`` if set, else the shortest length that makes enough bands
+    to fill the card (see ``BAND_*`` above) and is at least
+    ``BAND_HALO_RATIO`` times the halo in rows.  A band never starts at
+    the last row step when that step holds fewer valid rows than a line
+    buffer's halo: the warm-up panel there would read rows past the valid
+    extent as padding, where rotation carries the rows it computed (the
+    last two bands merge instead)."""
+    kg = lg.kg
+    steps = lg.steps
+    ring_halo, lb_halo = _row_halos(kg)
+    if BAND_STEPS is not None:
+        length = BAND_STEPS
+    else:
+        per_sm = min(BLOCKS_PER_SM, SMEM_PER_SM // (kg.scratch_bytes + 1024))
+        want = -(-SM_COUNT * max(per_sm, 1) // kg.batch_steps)
+        halo_steps = -(-BAND_HALO_RATIO * max(ring_halo, lb_halo) // kg.bh)
+        length = max(-(-steps // want), halo_steps, 1)
+    length = min(length, steps)
+    n = -(-steps // length)
+    if n > 1 and (n - 1) * length * kg.bh + lb_halo > kg.e0:
+        n -= 1
+    return [(b * length, steps if b == n - 1 else (b + 1) * length) for b in range(n)]
+
+
 def grid_x(lg: LoweredGroup) -> int:
     """Thread blocks per batch slot (the launch's ``gridDim.x``)."""
     em = element_map(lg)
     if em is not None:
         return em.blocks
     if lg.row_carried:
-        return 1
+        return len(row_bands(lg))
     if lg.lane_carried:
         return lg.steps
     return lg.steps * lg.lane_steps
@@ -511,9 +580,23 @@ class _GroupEmitter:
             [f"{self.at(name, dims, shape)} = {self.at(name, dims, shape, {axis: n})};"],
         )
 
-    def land(self, name: str, dims: Sequence[int], axis: int, offset: int, gi: int, n: int) -> List[str]:
-        """Land view group ``gi``'s block at ``offset`` on ``axis``."""
-        val = self.tap(block_tap(self.kg, gi))
+    def land(
+        self, name: str, dims: Sequence[int], axis: int, offset: int, gi: int, n: int,
+        back: int = 0,
+    ) -> List[str]:
+        """Land view group ``gi``'s block at ``offset`` on ``axis``; with
+        ``back``, rows from ``bh - back`` on of its block at the step
+        before: what a ring of halo ``back`` would have carried into this
+        step, loaded (and bounded by the view's valid rows) as that step
+        loaded them."""
+        tap = block_tap(self.kg, gi)
+        if back:
+            def at(ax: AxisIndex) -> AxisIndex:
+                rows = ax.stride * (self.kg.bh - back) if ax.q == axis else 0
+                return dataclasses.replace(ax, const=ax.const - ax.step + rows)
+            tap = Tap(tap.kind, tap.src, tuple(at(ax) for ax in tap.axes),
+                      tuple((at(ax), lim) for ax, lim in tap.bounds))
+        val = self.tap(tap)
         shape = _resized(dims, axis, n)
         return self.loop(shape, [f"{self.at(name, dims, shape, {axis: offset})} = {val};"])
 
@@ -805,12 +888,16 @@ class _GroupEmitter:
             # land the steady block
             for r, ring in enumerate(kg.rings):
                 dims, h, ax = self.r_shapes[r], ring.halo, ring.axis
-                n, var = (bw, "j") if ring.lane else (bh, "i0")
-                out.append(f"if ({var} > 0) {{")
-                out += _indent(self.rotate(f"r{r}", dims, ax, h, n))
-                out.append("} else {")
-                out += _indent(self.land(f"r{r}", dims, ax, 0, ring.prefix, h))
-                out.append("}")
+                rotate = _indent(self.rotate(f"r{r}", dims, ax, h, bw if ring.lane else bh))
+                prefix = _indent(self.land(f"r{r}", dims, ax, 0, ring.prefix, h))
+                if ring.lane:
+                    out += ["if (j > 0) {"] + rotate + ["} else {"] + prefix + ["}"]
+                else:
+                    # a band's first step after step 0 lands the steady rows
+                    # the step before would have rotated in
+                    back = _indent(self.land(f"r{r}", dims, ax, 0, ring.steady, h, back=h))
+                    out += (["if (i0 > band_begin) {"] + rotate + ["} else if (i0 == 0) {"]
+                            + prefix + ["} else {"] + back + ["}"])
             out.append(sync)
             for r, ring in enumerate(kg.rings):
                 n = bw if ring.lane else bh
@@ -830,11 +917,14 @@ class _GroupEmitter:
                 else:
                     warm, steady = (lb.lo, 0), (lb.hi, 0)
                     wkw = {"rows": h}
-                out.append(f"if ({var} > 0) {{")
+                # a row buffer warms up at its band's first step, a column
+                # buffer at the first lane step of each row step
+                first = "0" if lane else "band_begin"
+                out.append(f"if ({var} > {first}) {{")
                 out += _indent(self.rotate(name, dims, ax, h, n))
                 out.append("}")
                 out.append(sync)
-                out.append(f"if ({var} == 0) {{")
+                out.append(f"if ({var} == {first}) {{")
                 out += _indent(self.panel(
                     sp, *warm, lambda sh, v, n=name, d=dims: [f"{self.at(n, d, sh)} = {v};"],
                     **wkw,
@@ -931,7 +1021,14 @@ class _GroupEmitter:
             )
             body = self.ep_body()
         elif lg.row_carried:
-            lines.append(f"  for (int i0 = 0; i0 < {lg.steps}; ++i0) {{")
+            bands = row_bands(lg)
+            length = bands[0][1]
+            lines += [
+                f"  const int band_begin = blockIdx.x * {length};",
+                f"  const int band_end = blockIdx.x == {len(bands) - 1} ? {lg.steps} "
+                f": band_begin + {length};",
+                "  for (int i0 = band_begin; i0 < band_end; ++i0) {",
+            ]
         elif lg.lane_carried:
             lines.append("  const int i0 = blockIdx.x;")
             lines.append(f"  for (int j = 0; j < {lg.lane_steps}; ++j) {{")
@@ -1098,5 +1195,6 @@ __all__ = [
     "grid_x",
     "launch_dims",
     "output_shape",
+    "row_bands",
     "smem_layout",
 ]

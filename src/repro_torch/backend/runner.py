@@ -26,6 +26,7 @@ arrays for differential comparison.
 from __future__ import annotations
 
 import hashlib
+import warnings
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Union
@@ -39,10 +40,44 @@ from repro_torch.frontend.lower import Pipeline, execute_pipeline, normalize_pip
 from .build import load_library
 from .cuda_codegen import CudaKernel, emit_library
 from .eager import EagerKernel, LoweredGroup
+from .errors import LaneCarryDegradeWarning
 from .plan import PipelinePlan, RED_GRID_THRESHOLD, build_pipeline_plan
 from .verify import assert_plan_verified
 
 KERNEL_CHOICES = ("cuda", "eager")
+
+
+def _warn_lane_carry_degrades(plan: PipelinePlan) -> None:
+    """An explicit ``line_buffer=True`` that the planner cannot honor on a
+    lane-blocked kernel must not pass silently.  The planner records its
+    reason in ``KernelGroup.notes["lane_carry"]`` (and partial sheds in
+    ``notes["lane_carry_shed"]``); surface each one as a named warning,
+    attributed to the caller of ``compile_pipeline``."""
+    for kg in plan.kernels:
+        if kg.lane_grid is None:
+            continue
+        reason = kg.notes.get("lane_carry")
+        shed = kg.notes.get("lane_carry_shed")
+        out = kg.stages[-1].name
+        if reason not in (None, "carried"):
+            warnings.warn(
+                f"kernel {out!r}: line_buffer=True requested but the "
+                f"lane-blocked plan degraded to recompute mode "
+                f"(reason: {reason})",
+                LaneCarryDegradeWarning,
+                stacklevel=3,
+            )
+        elif shed:
+            stages = ", ".join(shed.get("stages", ())) or "<none>"
+            warnings.warn(
+                f"kernel {out!r}: line_buffer=True requested but the "
+                f"lane-blocked plan shed part of the carry "
+                f"(stages: {stages}; ring classes dropped: "
+                f"{shed.get('ring_classes', 0)}) — halo exceeds the lane "
+                f"block width for the shed members",
+                LaneCarryDegradeWarning,
+                stacklevel=3,
+            )
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -307,6 +342,8 @@ def compile_pipeline(
             return hit
         _CACHE_STATS["misses"] += 1
     plan = build_pipeline_plan(pipe, **plan_kwargs)
+    if plan_kwargs.get("line_buffer") is True:
+        _warn_lane_carry_degrades(plan)
     if verify is not False:
         assert_plan_verified(plan)
     lowered = [LoweredGroup(kg) for kg in plan.kernels]

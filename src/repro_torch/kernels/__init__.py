@@ -8,7 +8,8 @@ source path and the count of launches; ``ssd_scan`` is two kernels,
 ``ssd_gram`` and ``ssd_scan``, and ``matmul`` and ``flash_attention`` each
 route bf16 calls that TMA can read to a tensor-core kernel
 (``matmul_wgmma``, ``flash_attention_wgmma``) and every other call to a
-SIMT kernel (``matmul``, ``flash_attention``).
+SIMT kernel (``matmul``, ``flash_attention``); a SIMT matmul that splits K
+adds its splits with a second kernel, ``matmul_reduce``.
 """
 
 from . import flash_attention, matmul, ssd, stencil
@@ -16,7 +17,7 @@ from . import flash_attention, matmul, ssd, stencil
 KERNELS = {
     k.name: k
     for k in (
-        stencil.KERNEL, matmul.KERNEL, matmul.WGMMA, flash_attention.KERNEL,
+        stencil.KERNEL, matmul.KERNEL, matmul.REDUCE, matmul.WGMMA, flash_attention.KERNEL,
         flash_attention.WGMMA, ssd.GRAM, ssd.KERNEL,
     )
 }

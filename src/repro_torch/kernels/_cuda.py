@@ -5,12 +5,14 @@ in it an ``extern "C" int <name>_launch(...)`` that takes device pointers,
 the dims and a stream, launches that kernel on that stream and returns
 ``cudaGetLastError()``, and ``kernel_error_string``.  A source may include
 headers of ``csrc/`` (``#include "sm90.cuh"``, the Hopper building blocks
-of the tensor-core kernels): ``CudaLauncher.source()`` splices each one's
+of the tensor-core kernels, ``cp_async.cuh`` the SIMT matmul's
+asynchronous copies): ``CudaLauncher.source()`` splices each one's
 text in place of its ``#include`` line, so the build, which compiles the
 source text alone, finds it, and the build's digest covers it.  The text is
 built at first use by ``backend.build.load_library``, so it gets the same
 nvcc flags as the generated pipeline kernels (``sm_90a``, ``-O3
--fmad=false``, never fast math) and the same
+-fmad=false``, never fast math; a kernel that wants a fused multiply-add
+writes ``__fmaf_rn``, which the flag leaves fused) and the same
 ``build/torch_kernels/<sha256>/`` cache, and is bound with ``ctypes``.
 Nothing is built or loaded when a module is imported.
 """

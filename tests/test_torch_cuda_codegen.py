@@ -24,8 +24,9 @@ from conftest import sweep_inputs
 from repro_torch.apps import make_app
 from repro_torch.backend import EmitError, compile_pipeline
 from repro_torch.backend.build import build_many
+from repro_torch.backend import cuda_codegen
 from repro_torch.backend.cuda_codegen import (
-    CudaKernel, _flit, element_map, emit_kernel, emit_library, smem_layout,
+    CudaKernel, _flit, element_map, emit_kernel, emit_library, grid_x, row_bands, smem_layout,
 )
 from repro_torch.backend.eager import LoweredGroup
 from repro_torch.backend.plan import build_pipeline_plan
@@ -93,12 +94,80 @@ def test_source_is_deterministic_for_slice_plans(name, kw, ckw):
             assert f"<<<dim3({em.blocks}, {kg.batch_steps}), {em.threads}," in src
             assert f"w < {em.work}; w += gridDim.x * {em.threads})" in src
         else:
-            grid_x = 1 if carried else kg.steps0
+            bands = row_bands(LoweredGroup(kg)) if carried else None
+            grid_x = len(bands) if carried else kg.steps0
             assert f"<<<dim3({grid_x}, {kg.batch_steps})," in src
-        # carried groups sweep their row steps in order inside one block
+        # carried groups sweep a band of row steps in order inside each block
         body = emit_kernel(kg, str(i))
-        assert (f"for (int i0 = 0; i0 < {kg.steps0}; ++i0)" in body) == carried
+        assert ("for (int i0 = band_begin; i0 < band_end; ++i0)" in body) == carried
+        if carried:
+            assert (f"band_end = blockIdx.x == {len(bands) - 1} ? {kg.steps0} : "
+                    f"band_begin + {bands[0][1]};") in body
     assert "fmaf" not in src and "__fdividef" not in src
+
+
+def _row_carried(cases):
+    """Every row-carried group of the plans of ``cases``."""
+    out = []
+    for name, kw, ckw in cases:
+        for kg in _plan(name, kw, ckw).kernels:
+            lg = LoweredGroup(kg)
+            if lg.row_carried:
+                out.append(lg)
+    return out
+
+
+@pytest.mark.parametrize("band", [None, 1, 2, 3, 5])
+def test_row_bands_cover_each_step_once(band, monkeypatch):
+    """A row-carried launch runs every row step of every slot exactly once:
+    its bands are consecutive, none empty, and together ``[0, steps)``.  No
+    band after the first starts at a step with fewer valid rows than a
+    line buffer's halo, and a band chosen by the emitter holds at least
+    ``BAND_HALO_RATIO`` times the halo it warms up again."""
+    monkeypatch.setattr(cuda_codegen, "BAND_STEPS", band)
+    groups = _row_carried(SLICE_PLANS)
+    assert len(groups) >= 9
+    for lg in groups:
+        kg = lg.kg
+        bands = row_bands(lg)
+        covered = [i0 for b, e in bands for i0 in range(b, e)]
+        assert covered == list(range(lg.steps)), (kg.name, bands)
+        assert all(e > b for b, e in bands) and grid_x(lg) == len(bands)
+        length = bands[0][1]
+        assert all(e - b == length for b, e in bands[:-1])
+        if band is not None:
+            assert length == min(band, lg.steps)
+        elif len(bands) > 1:
+            ring, lb = cuda_codegen._row_halos(kg)
+            assert cuda_codegen.BAND_HALO_RATIO * max(ring, lb) <= length * kg.bh
+        lb_halo = cuda_codegen._row_halos(kg)[1]
+        assert all(b * kg.bh + lb_halo <= kg.e0 for b, _e in bands[1:])
+
+
+FULL_ROW = [
+    ("gaussian", {"size": 1082, "width": 1922}),
+    ("harris", {"schedule": "sch3", "size": 1024}),
+    ("unsharp", {"size": 1024}),
+    ("camera", {"size": 512}),
+]
+
+
+@pytest.mark.parametrize("name,kw", FULL_ROW, ids=[c[0] for c in FULL_ROW])
+def test_row_carried_launch_at_full_size(name, kw):
+    """At the served sizes a row-carried group fills the card: at batch 8
+    at least 128 blocks, and a single request more than one band; the rows
+    warmed up again at band starts stay under an eighth of each band."""
+    for batch, least in ((8, 128), (None, 2)):
+        ckw = {"batch": batch, "batch_capacity": batch} if batch else {}
+        groups = _row_carried([(name, kw, ckw)])
+        assert groups
+        for lg in groups:
+            kg = lg.kg
+            bands = row_bands(lg)
+            assert grid_x(lg) * kg.batch_steps >= least, (kg.name, batch, len(bands))
+            ring, lb = cuda_codegen._row_halos(kg)
+            assert 8 * max(ring, lb) <= bands[0][1] * kg.bh
+            assert f"<<<dim3({len(bands)}, {kg.batch_steps}), 512," in emit_kernel(kg)
 
 
 @pytest.mark.parametrize("name,kw,ckw,variant", [
@@ -308,6 +377,26 @@ def test_cuda_kernels_match_plain_version_on_card():
         for k in pp.kernels:
             assert got[k.name].is_cuda and k.launches == 1
             assert torch.equal(got[k.name], want[k.name]), (name, k.name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [None, 8])
+def test_row_bands_match_plain_version_on_card(batch):
+    """A row-carried group cut into bands across the SMs (unsharp 199: an
+    input ring, a line buffer on blur_x, padded rows), one request and 8
+    slots: bit for bit against the plain version, with one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; run on the GPU machine")
+    app = make_app("unsharp", size=199)
+    ckw = {"batch": batch, "batch_capacity": batch} if batch else {}
+    pp = compile_pipeline(app.pipeline, **ckw)
+    plain = compile_pipeline(app.pipeline, kernels="eager", **ckw)
+    (k,) = pp.kernels
+    assert k.kg.rings and k.kg.line_buffered and k.kg.padded and len(row_bands(k.lg)) > 1
+    ins = sweep_inputs(app, 4, "f32", batch=batch)
+    got, want = pp.run(ins), plain.run(ins)
+    assert got[k.name].is_cuda and k.launches == 1
+    assert torch.equal(got[k.name], want[k.name])
 
 
 def test_ptxas_usage_reads_the_build_log(tmp_path, monkeypatch):

@@ -6,7 +6,8 @@ against a shim kept in this file: ``threadIdx`` and ``blockIdx`` are
 thread-local, each CUDA thread of a block is a host thread, ``__syncthreads``
 is a ``std::barrier``, and the launcher's ``<<<grid, block, smem, stream>>>``
 becomes a host loop over the blocks (one block after another, so the
-kernel's shared memory is one host array).  The launcher is called through
+kernel's shared memory is one host array, set to NaN before each block: a
+block that read what the block before it left would show).  The launcher is called through
 ctypes exactly as ``CudaKernel`` calls it, with host pointers, and every
 group's output is held bit for bit against ``EagerKernel`` on seeded random
 f32 inputs.  ``-ffp-contract=off`` keeps g++ from fusing multiply-adds, as
@@ -31,9 +32,10 @@ import pytest
 import torch
 
 from repro_torch.apps import make_app
+from repro_torch.backend import cuda_codegen
 from repro_torch.backend.build import CSRC
 from repro_torch.backend.cuda_codegen import (
-    element_map, emit_library, launch_dims, output_shape,
+    element_map, emit_library, launch_dims, output_shape, row_bands,
 )
 from repro_torch.backend.eager import EagerKernel, LoweredGroup
 from repro_torch.backend.plan import build_pipeline_plan
@@ -41,37 +43,61 @@ from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
 
 pytestmark = pytest.mark.torch
 
-# (id, app, app kwargs, plan kwargs, element-parallel)
+# (id, app, app kwargs, plan kwargs, element-parallel, band length in row
+# steps forced through cuda_codegen.BAND_STEPS or None)
 CASES = [
     # a lane grid with a padded lane tail
-    ("resnet-lane", "resnet", {"img": 8, "cin": 4, "cout": 4}, {"block_w": 3}, True),
+    ("resnet-lane", "resnet", {"img": 8, "cin": 4, "cout": 4}, {"block_w": 3}, True, None),
     # the full-size plan's shape: one-lane blocks, a tile of 8 output
     # channels, each tap's run of 8 input channels a loop
-    ("resnet-bw1", "resnet", {"img": 6, "cin": 8, "cout": 16}, {"block_w": 1}, True),
+    ("resnet-bw1", "resnet", {"img": 6, "cin": 8, "cout": 16}, {"block_w": 1}, True, None),
     # one output channel per row step: the weights are the load shared, by
     # a tile of 5 rows
-    ("resnet-ytile", "resnet", {"img": 5, "cin": 8, "cout": 11}, {"block_w": 1}, True),
+    ("resnet-ytile", "resnet", {"img": 5, "cin": 8, "cout": 11}, {"block_w": 1}, True, None),
     # 11 channels and 11 rows: no tile divides them, one element per thread
     ("resnet-untiled", "resnet", {"img": 11, "cin": 8, "cout": 11},
-     {"block_w": 1, "block_h": 11}, True),
+     {"block_w": 1, "block_h": 11}, True, None),
     # a grid reduction over a resident operand, a masked K-tail, padded rows
     ("matmul-resident", "matmul", {"m": 8, "n": 13, "k": 149},
-     {"red_grid_threshold": 64, "block_h": 6}, True),
+     {"red_grid_threshold": 64, "block_h": 6}, True, None),
     # a grid reduction over chunk-streamed operands
     ("matmul-streamed", "matmul", {"m": 19, "n": 13, "k": 70},
-     {"red_grid_threshold": 64, "red_resident": False}, True),
-    ("upsample", "upsample", {"size": 16}, {}, True),
+     {"red_grid_threshold": 64, "red_resident": False}, True, None),
+    ("upsample", "upsample", {"size": 16}, {}, True, None),
     # batch slots, the last padded (3 requests in 4 slots)
     ("resnet-batched", "resnet", {"img": 8, "cin": 4, "cout": 4},
-     {"block_w": 3, "batch": 3, "batch_capacity": 4}, True),
+     {"block_w": 3, "batch": 3, "batch_capacity": 4}, True, None),
     # a carried group: column rings and a lane line buffer, on the old loop
-    ("gaussian-carried", "gaussian", {"size": 26}, {"block_w": 9, "line_buffer": True}, False),
+    ("gaussian-carried", "gaussian", {"size": 26}, {"block_w": 9, "line_buffer": True},
+     False, None),
+]
+# row-carried groups, their sweep cut into bands of 1, 2 and 3 row steps:
+# every band after the first warms its rings and line buffers up itself
+ROW_CASES = [
+    # an input ring (halo 2), 7 row steps
+    ("gaussian-ring", "gaussian", {"size": 30}, {"block_h": 4}),
+    # row line buffers on grad_x and grad_y beside a ring of halo 4
+    ("harris-linebuf", "harris", {"schedule": "sch3", "size": 36},
+     {"block_h": 4, "line_buffer": True}),
+    # a ring, a line buffer on blur_x and padded rows: 31 = 11 x 3 - 2, so
+    # the last row step holds one valid row, fewer than the halo
+    ("unsharp-padded", "unsharp", {"size": 33}, {"block_h": 3, "line_buffer": True}),
+    # denoise's ring (halo 2) and camera's (halo 1), both groups padded
+    ("camera-denoise", "camera", {"size": 16}, {"block_h": 3}),
+    # 3 requests in 4 slots
+    ("unsharp-batched", "unsharp", {"size": 15},
+     {"block_h": 3, "line_buffer": True, "batch": 3, "batch_capacity": 4}),
+]
+CASES += [
+    (f"{cid}-band{steps}", name, kw, ckw, False, steps)
+    for cid, name, kw, ckw in ROW_CASES for steps in (1, 2, 3)
 ]
 
 SHIM = r"""
 #pragma once
 // Host stand-in for the CUDA runtime: just enough of it for the emitted
-// kernels and ub_kernel.cuh.
+// kernels, ub_kernel.cuh and the SIMT matmul.
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstring>
@@ -82,33 +108,37 @@ struct dim3 {
   unsigned x, y, z;
   constexpr dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
+struct alignas(16) float4 { float x, y, z, w; };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* ub_block_barrier = nullptr;
 // the block's dynamic shared memory: blocks run one after another
-float ub_smem[232448 / 4];
+alignas(16) float ub_smem[232448 / 4];
 
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __shared__
+#define __align__(n)
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 inline void __syncthreads() { ub_block_barrier->arrive_and_wait(); }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline int min(int a, int b) { return a < b ? a : b; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host shim"; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 
 // every block of the grid, one after another; each CUDA thread of a block
 // is a host thread, and the block ends (every thread past its last
-// statement) before the next begins
-template <class K, class P>
-void ub_host_launch(K kernel, dim3 grid, dim3 block, const P& params) {
+// statement) before the next begins, which finds shared memory all NaN
+template <class K, class... P>
+void ub_host_launch(K kernel, dim3 grid, dim3 block, const P&... params) {
   gridDim = grid;
   blockDim = block;
   std::barrier<> bar(block.x);
@@ -119,20 +149,26 @@ void ub_host_launch(K kernel, dim3 grid, dim3 block, const P& params) {
       threadIdx = dim3(t);
       for (unsigned y = 0; y < grid.y; ++y)
         for (unsigned x = 0; x < grid.x; ++x) {
-          blockIdx = dim3(x, y);
-          kernel(params);
-          bar.arrive_and_wait();
+          for (unsigned z = 0; z < grid.z; ++z) {
+            // a block finds nothing of the block before it in shared memory
+            if (t == 0) std::fill(ub_smem, ub_smem + sizeof(ub_smem) / 4, NAN);
+            bar.arrive_and_wait();
+            blockIdx = dim3(x, y, z);
+            kernel(params...);
+            bar.arrive_and_wait();
+          }
         }
     });
   for (auto& th : pool) th.join();
 }
 """
 
-_LAUNCH = re.compile(r"(\w+)<<<(dim3\([^)]*\)), (\d+), [^>]*>>>\((\w+)\);")
+_LAUNCH = re.compile(r"(\w+)<<<(dim3\([^)]*\)|\w+), ([\w:]+), [^>]*>>>\(([^;]*)\);")
 
 
 def host_source(cuda_source: str) -> str:
-    """The emitted source with each ``<<<...>>>`` launch made a host launch."""
+    """A CUDA source with each ``<<<grid, block, ...>>>(args)`` launch made
+    a host launch."""
     out, n = _LAUNCH.subn(r"ub_host_launch(\1, \2, dim3(\3), \4);", cuda_source)
     assert n == cuda_source.count("<<<"), "a launch the shim does not know"
     return out
@@ -157,10 +193,12 @@ def libraries(gxx, tmp_path_factory):
     root = tmp_path_factory.mktemp("emit_host")
     (root / "cuda_runtime.h").write_text(SHIM)
     jobs = {}
-    for cid, name, kw, ckw, _ep in CASES:
+    for cid, name, kw, ckw, _ep, band in CASES:
         lowered = [LoweredGroup(kg) for kg in _plan(name, kw, ckw).kernels]
         src = root / f"{cid}.cpp"
-        src.write_text(host_source(emit_library(lowered)))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(cuda_codegen, "BAND_STEPS", band)
+            src.write_text(host_source(emit_library(lowered)))
         so = root / f"lib{cid}.so"
         cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
                "-pthread", "-w", "-I", str(root), "-I", str(CSRC), "-o", str(so), str(src)]
@@ -209,13 +247,20 @@ def random_inputs(app, seed: int, batch=None, capacity=None):
     return out
 
 
-@pytest.mark.parametrize("cid,name,kw,ckw,ep", CASES, ids=[c[0] for c in CASES])
-def test_emitted_kernel_equals_plain_version_bit_for_bit(libraries, cid, name, kw, ckw, ep):
+@pytest.mark.parametrize("cid,name,kw,ckw,ep,band", CASES, ids=[c[0] for c in CASES])
+def test_emitted_kernel_equals_plain_version_bit_for_bit(libraries, cid, name, kw, ckw, ep, band):
     lowered, lib = libraries[cid]
     app = make_app(name, **kw)
     bufs = random_inputs(app, 0, ckw.get("batch"), ckw.get("batch_capacity"))
     for i, lg in enumerate(lowered):
         assert (element_map(lg) is not None) == ep
+        if band is not None:
+            # the sweep is cut where the case says: several bands a slot
+            assert lg.row_carried
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(cuda_codegen, "BAND_STEPS", band)
+                bands = row_bands(lg)
+            assert len(bands) > 1 and bands[0] == (0, band)
         got = host_launch(lib, str(i), lg, bufs)
         want = EagerKernel(lg)(bufs)
         assert got.shape == want.shape

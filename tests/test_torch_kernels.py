@@ -249,11 +249,14 @@ def _cpu_calls(dtype=torch.float32):
 
     x, w = t(10, 12), torch.from_numpy(GAUSS)
     a, b = t(16, 32), t(32, 16)
+    # a long K on one tile: the SIMT kernel splits it and reduces
+    a_split, b_split = t(16, 256), t(256, 16)
     q, k, v = t(2, 32, 16), t(2, 32, 16), t(2, 32, 16)
     s_in = (t(32, 2, 4), t(32, 2).abs() * 0.1 + 0.01, -t(2).abs() - 0.1, t(32, 8), t(32, 8))
     return {
         "stencil3x3": ((stencil3x3, (x, w)), (ops.stencil3x3_op, (x, w))),
         "matmul": ((matmul, (a, b)), (ops.matmul_op, (a, b))),
+        "matmul_reduce": ((matmul, (a_split, b_split)), (ops.matmul_op, (a_split, b_split))),
         "matmul_wgmma": ((matmul, (a, b)), (ops.matmul_op, (a, b))),
         "flash_attention": ((flash_attention, (q, k, v)), (ops.attention_op, (q, k, v))),
         "flash_attention_wgmma": ((flash_attention, (q, k, v)), (ops.attention_op, (q, k, v))),
@@ -449,12 +452,15 @@ def test_kernels_lists_the_tensor_core_launchers():
 def test_source_inlines_the_hopper_header(tmp_path, monkeypatch):
     """``source()`` puts ``sm90.cuh`` in place of its ``#include`` line, so
     the build (which compiles the text alone) has it and the build's digest
-    changes with it; sources that name no header are read as they are."""
+    changes with it, and ``cp_async.cuh`` into the SIMT matmul's; sources
+    that name no header are read as they are."""
     header = (_cuda.CSRC / "sm90.cuh").read_text()
     for name in ("matmul_wgmma", "flash_attention_wgmma"):
         src = KERNELS[name].source()
         assert '#include "sm90.cuh"' not in src.splitlines() and header in src
-    assert KERNELS["matmul"].source() == KERNELS["matmul"].path.read_text()
+    assert KERNELS["stencil3x3"].source() == KERNELS["stencil3x3"].path.read_text()
+    cp_async = (_cuda.CSRC / "cp_async.cuh").read_text()
+    assert cp_async in KERNELS["matmul"].source() == KERNELS["matmul_reduce"].source()
     for f in ("matmul_wgmma.cu", "sm90.cuh"):
         shutil.copy(_cuda.CSRC / f, tmp_path / f)
     monkeypatch.setattr(_cuda, "CSRC", tmp_path)
@@ -502,6 +508,8 @@ def test_wgmma_descriptor_bit_fields(tmp_path):
     ("matmul", [(2048, 2048), (2048, 5632)], torch.bfloat16, None, 0.048, "operations"),
     ("matmul", [(2048, 2048), (2048, 5632)], torch.float32, None, 0.705, "operations"),
     ("matmul", [(256, 1000), (1000, 256)], torch.float32, None, 0.00196, "operations"),
+    # the tile's 16 f32 splits read once, the output written once
+    ("matmul_reduce", [(16, 256, 256)], torch.float32, None, 0.00133, "bytes"),
     ("flash_attention", [(32, 2048, 64)] * 3, torch.bfloat16, None, 0.0174, "operations"),
     ("flash_attention", [(40, 4096, 128)] * 3, torch.bfloat16, None, 0.174, "operations"),
     ("ssd_gram", [(2048, 128), (2048, 128)], torch.float32, 256, 0.00125, "bytes"),
@@ -520,12 +528,162 @@ def test_chip_smoke_bounds(name, shapes, dtype, chunk, bound_ms, by):
     spec.loader.exec_module(smoke)
     args = [torch.empty(sh, dtype=dtype if i == 0 or name != "ssd_scan" else torch.float32,
                         device="meta") for i, sh in enumerate(shapes)]
-    out_shape = {"stencil3x3": (1080, 1920), "matmul": (shapes[0][0], shapes[1][1]),
-                 "ssd_gram": (8, 256, 256)}.get(name, shapes[0])
+    if name == "matmul_reduce":
+        out_shape = shapes[0][1:]
+    else:
+        out_shape = {"stencil3x3": (1080, 1920), "matmul": (shapes[0][0], shapes[1][1]),
+                     "ssd_gram": (8, 256, 256)}.get(name, shapes[0])
     nbytes, ops_, peak = smoke.kernel_work(name, args, torch.empty(out_shape, dtype=dtype, device="meta"), chunk)
     t_bytes, t_ops = 1e3 * nbytes / smoke.PEAK_BYTES_PER_S, 1e3 * ops_ / peak
     assert ("bytes" if t_bytes >= t_ops else "operations") == by
     assert max(t_bytes, t_ops) == pytest.approx(bound_ms, rel=0.02)
+
+
+# ---------------------------------------------------------------------------
+# the SIMT matmul under g++, through its wrapper
+# ---------------------------------------------------------------------------
+
+BF16_SHIM = r"""
+#pragma once
+// Host stand-in for cuda_bf16.h: bf16 as its 16 bits, rounded to nearest even.
+#include <cstring>
+struct __nv_bfloat16 { unsigned short x; };
+inline float __bfloat162float(__nv_bfloat16 v) {
+  unsigned u = (unsigned)v.x << 16; float f; std::memcpy(&f, &u, 4); return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  unsigned u; std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(unsigned short)((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(unsigned short)(u >> 16)};
+}
+"""
+# cp.async as a plain copy (zeros where the copy is masked), its waits no-ops
+CP_ASYNC_SHIM = r"""
+#pragma once
+#include <cstring>
+inline void cp_async16(void* dst, const void* src, bool full) {
+  if (full) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16);
+}
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
+"""
+
+
+class _HostLauncher:
+    """A launcher of ``csrc/matmul.cu`` built for the host: the same C
+    entry and arguments as the CUDA launcher it stands for, and a count."""
+
+    def __init__(self, lib, launcher):
+        self.fn = getattr(lib, f"{launcher.name}_launch")
+        self.fn.argtypes = launcher._argtypes + [ctypes.c_void_p]
+        self.fn.restype = ctypes.c_int
+        self.launches = 0
+
+    def __call__(self, device, *args):
+        assert device.type == "cpu" and self.fn(*args, None) == 0
+        self.launches += 1
+
+
+@pytest.fixture(scope="module")
+def host_matmul(tmp_path_factory):
+    """``csrc/matmul.cu`` compiled by g++ against the emitted-kernel shim of
+    ``tests/test_torch_emit_host.py`` (a host thread per CUDA thread, the
+    blocks in turn, shared memory NaN before each), with ``cp.async`` a
+    plain copy."""
+    from test_torch_emit_host import SHIM, host_source
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not on PATH: the kernel cannot be built on the host")
+    root = tmp_path_factory.mktemp("matmul_host")
+    for name, text in (("cuda_runtime.h", SHIM), ("cuda_bf16.h", BF16_SHIM),
+                       ("cp_async.cuh", CP_ASYNC_SHIM)):
+        (root / name).write_text(text)
+    src = root / "matmul.cpp"
+    src.write_text(host_source(mm_mod.KERNEL.path.read_text()))
+    so = root / "libmatmul.so"
+    run = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread", "-w",
+         "-Dmatmul_smem=ub_smem", "-I", str(root), "-o", str(so), str(src)],
+        capture_output=True, text=True)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return ctypes.CDLL(str(so))
+
+
+# (m, n, k, dtype): the way each fills the ring and splits K is asserted
+HOST_MATMULS = [
+    # K and N not multiples of 4: loaded through registers, ragged edges
+    (37, 53, 29, torch.float32),
+    # cp.async with M and N edges inside a 64-tile and a K tail of 4
+    (70, 76, 52, torch.float32),
+    # the 256 x 1000 @ 1000 x 256 tile scaled down: K split in 3 (cp.async)
+    (32, 40, 200, torch.float32),
+    # K split in 3 and not a multiple of 4: registers
+    (40, 36, 250, torch.float32),
+    # 128-tiles, 9 x 17 of them, ragged at both edges
+    (1030, 2052, 20, torch.float32),
+    # bf16 with N not a multiple of 8: the SIMT route, converted to f32
+    (64, 84, 48, torch.bfloat16),
+    # bf16, K split: f32 partial sums, cast once by the reduction
+    (48, 36, 200, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("m,n,k,dtype", HOST_MATMULS,
+                         ids=[f"{m}x{n}x{k}-{str(d)[6:]}" for m, n, k, d in HOST_MATMULS])
+@pytest.mark.parametrize("values", ["integer", "normal"])
+def test_simt_matmul_on_host_matches_plain_version(host_matmul, m, n, k, dtype, values,
+                                                   monkeypatch):
+    """The SIMT kernel's source run on the CPU through ``matmul`` (its
+    device check lifted, its two launchers built for the host): integer
+    inputs, whose every sum is exact, bit for bit against the plain
+    version; normal ones at the JAX package's tolerance (1e-4 f32, 2e-2
+    bf16), since the kernel fuses each multiply-add.  One launch of the
+    kernel per call, and one of ``matmul_reduce`` where ``simt_plan``
+    splits K."""
+    kernel = _HostLauncher(host_matmul, mm_mod.KERNEL)
+    reduce = _HostLauncher(host_matmul, mm_mod.REDUCE)
+    monkeypatch.setattr(mm_mod, "require_cuda", lambda *a: torch.device("cpu"))
+    monkeypatch.setattr(mm_mod, "KERNEL", kernel)
+    monkeypatch.setattr(mm_mod, "REDUCE", reduce)
+    rng = np.random.default_rng(m * n + k)
+    if values == "integer":
+        a_np, b_np = (rng.integers(-8, 8, sh).astype(np.float32) for sh in ((m, k), (k, n)))
+    else:
+        a_np, b_np = (rng.standard_normal(sh).astype(np.float32) for sh in ((m, k), (k, n)))
+    a, b = ops.to_tensor(a_np, dtype, "cpu"), ops.to_tensor(b_np, dtype, "cpu")
+    blocks = dict(block_m=m, block_n=n)
+    got = mm_mod.matmul(a, b, **blocks)
+    want = matmul_plain(a, b, **blocks)
+    tile, k_split, splits = mm_mod.simt_plan(m, n, k)
+    assert (kernel.launches, reduce.launches) == (1, int(splits > 1))
+    assert got.dtype == dtype and got.shape == (m, n)
+    if values == "integer":
+        assert torch.equal(got, want)
+    else:
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_simt_plan_fills_the_card():
+    """Tiles and splits come from the shape alone: 128-tiles where they
+    reach 132 blocks (the f32 MLP up-projection), else 64-tiles, with K
+    split, in ranges that are multiples of 16 and at least 64 deep, until
+    the blocks reach 264 (the 256 x 1000 @ 1000 x 256 tile: 16 tiles, 16
+    splits of 64)."""
+    assert mm_mod.simt_plan(2048, 5632, 2048) == (128, 2048, 1)
+    assert mm_mod.simt_plan(256, 256, 1000) == (64, 64, 16)
+    assert mm_mod.simt_plan(64, 84, 48) == (64, 48, 1)
+    for m, n, k in [(256, 256, 1000), (64, 84, 48), (40, 36, 250), (16, 16, 4096), (8, 8, 7)]:
+        tile, k_split, splits = mm_mod.simt_plan(m, n, k)
+        blocks = -(-m // tile) * -(-n // tile) * splits
+        assert (splits - 1) * k_split < k <= splits * k_split
+        assert splits == 1 or (k_split % 16 == 0 and k_split >= 64)
+        assert blocks >= 132 or tile == 64
+        assert splits == 1 or blocks >= 264 or k_split == 64
+    # a long K on one tile: split as far as 64-deep ranges allow
+    assert mm_mod.simt_plan(16, 16, 4096) == (64, 64, 64)
 
 
 # ---------------------------------------------------------------------------
@@ -535,10 +693,11 @@ def test_chip_smoke_bounds(name, shapes, dtype, chunk, bound_ms, by):
 
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_version_on_card():
-    """Build and launch the seven kernels on small shapes; hold each against
+    """Build and launch the eight kernels on small shapes; hold each against
     its plain version (stencil and integer matmuls bit for bit), one launch
     per call of the kernel its route names (the SSD op: one of each of its
-    two kernels)."""
+    two kernels; a SIMT matmul that splits K: one of the kernel and one of
+    ``matmul_reduce``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc; run on the GPU machine")
     rng = np.random.default_rng(13)
@@ -590,12 +749,28 @@ def test_cuda_kernels_match_plain_version_on_card():
         ("ssd_gram", ssd_gram, ssd_gram_plain, (ssd_in[3], ssd_in[4], 32), {}, 1e-4),
         ("ssd_scan", ssd_scan, ssd_scan_plain, ssd_in, {"chunk": 32}, 1e-3),
     ]
+    # the SIMT matmul's host cases on the card: random at the JAX
+    # tolerances, integers bit for bit
+    for m, n, k, dtype in HOST_MATMULS:
+        kw = dict(block_m=m, block_n=n)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        cases.append(("matmul", matmul, matmul_plain, (t(m, k, dtype=dtype), t(k, n, dtype=dtype)),
+                      kw, tol))
+        if dtype == torch.bfloat16:
+            cases.append(("matmul", matmul, matmul_plain, (ints(m, k), ints(k, n)), kw, 0.0))
+        else:
+            cases.append(("matmul", matmul, matmul_plain,
+                          (ints(m, k).float(), ints(k, n).float()), kw, 0.0))
     for name, fn, plain, args, kw, tol in cases:
         before = {k: launcher.launches for k, launcher in KERNELS.items()}
         got = fn(*args, **kw)
         torch.cuda.synchronize()
         want = plain(*args, **kw)
         launched = {"ssd_scan": {"ssd_gram", "ssd_scan"}}.get(name, {name})
+        if name == "matmul":
+            (m, k), n = args[0].shape, args[1].shape[1]
+            if mm_mod.simt_plan(m, n, k)[2] > 1:
+                launched = {"matmul", "matmul_reduce"}
         assert got.is_cuda and all(
             launcher.launches == before[k] + (k in launched) for k, launcher in KERNELS.items()
         ), (name, [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)])
