@@ -59,14 +59,18 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    ``flash_attention`` take the tensor cores (``matmul_wgmma``,
    ``flash_attention_wgmma``), also where the shapes cut their tiles
    (Sq 96; Skv 192), while bf16 with K or N not a multiple of 8, or a
-   head dim above 128 (136, 256), and every f32 call take the SIMT
-   kernels (a SIMT matmul that splits K also ``matmul_reduce``).  The
+   head dim above 128 (136, 256) or not a multiple of 8 (30), and every
+   f32 call take the SIMT kernels (a SIMT matmul that splits K also
+   ``matmul_reduce``); the SIMT attention is also held at f32 where its
+   own 64-row tiles are cut (Sq 96, Skv 192), at D 136 and 256 and at
+   D 30, and the SSD op at N 20.  The
    tensor-core matmul's operand layout is checked first: the identity
    times a 64×64 B of distinct residues must give B bit for bit.
 7. hand-written kernels at model widths: a 1080p gaussian, tinyllama-1.1b's
    MLP up-projection (bf16 and f32) and prefill attention (bf16 and f32),
-   qwen3-14b's prefill attention, mamba2-2.7b's SSD prefill and the
-   matmul tile of phase 4.  Each configuration is driven once through its
+   qwen3-14b's prefill attention, gemma3-1b's global-layer prefill
+   attention (bf16, D 256: the SIMT kernel is its only route),
+   mamba2-2.7b's SSD prefill and the matmul tile of phase 4.  Each configuration is driven once through its
    ``repro_torch.kernels.ops`` entry point with every launch count zeroed
    just before and read just after; then each kernel is held against its
    plain version, its oracle and, for the gaussian and the matmul tile,
@@ -77,14 +81,17 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    its bound and the one PyTorch call computing the same function where
    there is one, timed both ways.  Each configuration names the kernels its
    call must launch, and no other may launch: the bf16 MLP up-projection
-   ``matmul_wgmma``, both bf16 prefills ``flash_attention_wgmma``, the f32
-   calls the SIMT kernels.  A tensor-core row also launches the SIMT kernel
+   ``matmul_wgmma``, the tinyllama and qwen3-14b bf16 prefills
+   ``flash_attention_wgmma``, gemma3-1b's and the f32 calls the SIMT
+   kernels.  A tensor-core row also launches the SIMT kernel
    on the same call (directly, into a buffer of its own, after the launch
    counts were read), holds its output against the same plain version and
    oracle at the same tolerance, and times it.
    The SSD op launches two kernels, C Bᵀ per chunk (``ssd_gram``) and the
    scan; each gets its own row.  An f32 matmul prints the SIMT kernel's
-   tile and K split (``matmul.simt_plan``); where K is split (the matmul
+   tile and K split (``matmul.simt_plan``), and every attention row the
+   SIMT attention kernel's tile, blocks and blocks an SM on its inputs
+   (``flash_attention.simt_plan``); where K is split (the matmul
    tile) the call launches ``matmul`` and ``matmul_reduce``, each timed
    alone on its own row, and the whole call too.  The f32 matmuls are bit
    for bit on their integer inputs and are also held at the JAX package's
@@ -575,6 +582,15 @@ def kernels_small() -> None:
                  ((2, 64, 64, 136), True, bf16, 3e-2, "flash_attention"),
                  ((2, 64, 128, 136), False, bf16, 3e-2, "flash_attention"),
                  ((1, 128, 128, 256), True, bf16, 3e-2, "flash_attention")]
+    # the SIMT kernel's own cuts: f32 at the 256 instantiation (D 136 and
+    # 256), query and KV extents that cut its 64-row tiles, and D 30, whose
+    # rows neither cp.async nor 8-byte bf16 loads can take
+    fa_cases += [((1, 128, 128, 136), True, f32, 2e-3, "flash_attention"),
+                 ((1, 64, 128, 256), False, f32, 2e-3, "flash_attention"),
+                 ((2, 96, 96, 64), True, f32, 2e-3, "flash_attention"),
+                 ((2, 96, 192, 64), False, f32, 2e-3, "flash_attention"),
+                 ((2, 96, 96, 30), True, f32, 2e-3, "flash_attention"),
+                 ((1, 64, 192, 30), False, bf16, 3e-2, "flash_attention")]
     for (b, sq, skv, d), causal, dtype, tol, want in fa_cases:
         q, k, v = rand((b, sq, d), dtype), rand((b, skv, d), dtype), rand((b, skv, d), dtype)
         kw = dict(causal=causal, block_q=32, block_kv=32)
@@ -594,7 +610,8 @@ def kernels_small() -> None:
         a = ops.to_tensor((-np.abs(rng.standard_normal(h)) - 0.1).astype(np.float32))
         return x, dt, a, rand((s, n)), rand((s, n))
 
-    for shape in [(64, 2, 8, 16), (128, 4, 16, 32), (32, 1, 4, 8)]:
+    # N 20: the gram kernel's 64-wide slice of N cut
+    for shape in [(64, 2, 8, 16), (128, 4, 16, 32), (32, 1, 4, 8), (64, 2, 8, 20)]:
         ins = ssd_inputs(*shape)
         held(f"[kernels-small] ssd_scan {shape} chunk 16", ssd_scan(*ins, chunk=16),
              ssd_scan_plain(*ins, chunk=16), kref.ssd_ref(*ins), 1e-3)
@@ -621,6 +638,7 @@ def kernels_full(full_apps, rows) -> None:
     from repro_torch.backend.build import ptxas_usage
     from repro_torch.core.ubplan import plan_ssd
     from repro_torch.kernels import KERNELS, ops, ref as kref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels.matmul import matmul_plain, matmul_reduce_plain, simt_plan
@@ -713,6 +731,11 @@ def kernels_full(full_apps, rows) -> None:
          flash_f32, ("F.scaled_dot_product_attention", sdpa, None), None),
         ("qwen3-14b-prefill", "flash_attention_wgmma",
          lambda: attention(40, 8, 4096, 128, bf16),
+         flash_bf16, ("F.scaled_dot_product_attention", sdpa, None), None),
+        # gemma3-1b's global layer (1 in 6; the kernel has no sliding
+        # window): 4 query heads over 1 KV head, D 256, which only the SIMT
+        # kernel takes
+        ("gemma3-1b-prefill", "flash_attention", lambda: attention(4, 1, 2048, 256, bf16),
          flash_bf16, ("F.scaled_dot_product_attention", sdpa, None), None),
         ("mamba2-2.7b-prefill", "ssd_scan", lambda: mamba(2048, 80, 64, 128), dict(tol=1e-3),
          None, None),
@@ -860,6 +883,15 @@ def kernels_full(full_apps, rows) -> None:
             row = measure(kname, label, dname, launches[kname], out,
                           lambda: op(*args, **kw), lambda: plain_fn(*args, **kw),
                           ref_fn(*args, **kw), check, lib, kernel_work(kname, args, out), simt)
+            if kname.startswith("flash_attention"):
+                # the SIMT kernel's tile and residency on these inputs (the
+                # row's own kernel, or the one launched on the same call)
+                row["simt_plan"] = plan = fa.simt_plan(*args)
+                log(f"[kernels-full] {label} {kname} {dname}: SIMT plan "
+                    f"{plan['block_q']}x{plan['block_kv']} tile (D compiled for {plan['dmax']}), "
+                    f"{plan['threads']} threads, {plan['blocks']} blocks, "
+                    f"{plan['blocks_per_sm']} a SM ({plan['smem_bytes']} B of shared memory "
+                    f"each), K and V by {plan['copy']}")
         else:
             # two kernels, each timed alone: C B^T of every chunk, then the
             # scan reading it; the whole call is timed too

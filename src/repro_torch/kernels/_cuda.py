@@ -95,6 +95,13 @@ class CudaLauncher:
         ``#include "<header>.cuh"`` replaced by that header of ``csrc/``."""
         return _INCLUDE.sub(lambda m: (CSRC / m.group(1)).read_text(), self.path.read_text())
 
+    def symbol(self, name: str, argtypes: Sequence[type], restype: type = ctypes.c_int):
+        """Another C function of the launcher's library (built at first
+        use), with its ``argtypes`` and ``restype`` set."""
+        fn = getattr(load_library(self.source()), name)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        return fn
+
     def _bind(self) -> None:
         lib = load_library(self.source())
         fn = getattr(lib, f"{self.name}_launch")

@@ -24,6 +24,12 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
+
+// the gram kernel's ring: two slices of C's and B's rows
+extern __shared__ __align__(16) float gram_smem[];
 
 namespace {
 
@@ -32,33 +38,121 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-constexpr int GT = 16;                   // gram kernel: 16 x 16 output tile per block
+constexpr int GT = 32, GNT = 64;         // gram kernel: 32 x 32 output tile, threads
+constexpr int GK = 64, GS = GK + 4;      // its ring slices: 64 of N, rows padded to 68
 constexpr int NT = 256, PT = 32;         // scan kernel: threads, P columns per block
 constexpr int LT = NT / PT;              // rows of one tile of the intra-chunk sum
 
+// One slice [n0, n0 + GK) of N: rows l0.. of C into cs and m0.. of B into
+// bs (GT x GS each), zeros past row L and column n.  By cp.async: n % 4 == 0
+// and b, c on 16 bytes, so a quad lies wholly inside or outside.
+template <bool ASYNC>
+__device__ __forceinline__ void gram_fill(float* cs, float* bs, const float* c, const float* b,
+                                          long long t0, int l0, int m0, int L, int n, int n0) {
+  if constexpr (ASYNC) {
+    for (int qd = threadIdx.x; qd < 2 * GT * (GK / 4); qd += GNT) {
+      const int r = qd / (GK / 4) % GT, e = qd % (GK / 4) * 4;
+      const bool is_b = qd >= GT * (GK / 4);
+      const int row = (is_b ? m0 : l0) + r;
+      const bool ok = row < L && n0 + e < n;
+      const float* src = is_b ? b : c;
+      cp_async16((is_b ? bs : cs) + r * GS + e, ok ? src + (t0 + row) * n + n0 + e : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < 2 * GT * GK; i += GNT) {
+      const int r = i / GK % GT, e = i % GK;
+      const bool is_b = i >= GT * GK;
+      const int row = (is_b ? m0 : l0) + r;
+      (is_b ? bs : cs)[r * GS + e] =
+          row < L && n0 + e < n ? (is_b ? b : c)[(t0 + row) * n + n0 + e] : 0.0f;
+    }
+  }
+}
+
 // g[t0 + l][m] = sum_n c[t0 + l][n] * b[t0 + m][n] for m <= l, and 0 for
-// m > l, t0 = chunk * L
-__global__ void __launch_bounds__(GT * GT) ssd_gram_kernel(
+// m > l, t0 = chunk * L.  Block (p, chunk) takes the p-th 32 x 32 tile on or
+// below the diagonal, (ti, tj) with tj <= ti, and, off the diagonal, writes
+// the zero tile (tj, ti) that mirrors it above: no block only writes zeros.
+// Thread (ty, tx) = (tid / 8, tid % 8) sums rows ty*4 + i and columns
+// tx + 8*j (i, j < 4) over N in order with __fmaf_rn, reading float4s of C
+// (a quarter warp reads one address) and of B (eight rows 68 floats apart:
+// distinct banks), through a 2-slice cp.async ring.
+template <bool ASYNC>
+__global__ void __launch_bounds__(GNT) ssd_gram_kernel(
     const float* __restrict__ b, const float* __restrict__ c, float* __restrict__ g, int L, int n) {
-  __shared__ float cs[GT][GT + 1], bs[GT][GT + 1];
-  const int l0 = blockIdx.y * GT, m0 = blockIdx.x * GT;
-  const long long t0 = (long long)blockIdx.z * L;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  if (m0 > l0 + GT - 1) {  // wholly above the diagonal
-    if (l0 + ty < L && m0 + tx < L) g[(t0 + l0 + ty) * L + m0 + tx] = 0.0f;
-    return;
+  const int p = blockIdx.x;
+  int ti = (int)((sqrtf(8.0f * p + 1.0f) - 1.0f) * 0.5f);
+  while (ti * (ti + 1) / 2 > p) --ti;
+  while ((ti + 1) * (ti + 2) / 2 <= p) ++ti;
+  const int tj = p - ti * (ti + 1) / 2;
+  const int l0 = ti * GT, m0 = tj * GT;
+  const long long t0 = (long long)blockIdx.y * L;
+  float* gc = g + t0 * L;
+  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+
+  if (tj < ti) {  // the mirror tile: rows m0.., columns l0.., all above the diagonal
+    if (L % 4 == 0) {
+      for (int qd = tid; qd < GT * GT / 4; qd += GNT) {
+        const int r = m0 + qd / (GT / 4), e = l0 + qd % (GT / 4) * 4;
+        if (r < L && e < L)
+          *reinterpret_cast<float4*>(gc + (long long)r * L + e) = float4{0.0f, 0.0f, 0.0f, 0.0f};
+      }
+    } else {
+      for (int i = tid; i < GT * GT; i += GNT) {
+        const int r = m0 + i / GT, e = l0 + i % GT;
+        if (r < L && e < L) gc[(long long)r * L + e] = 0.0f;
+      }
+    }
   }
-  float acc = 0.0f;
-  for (int n0 = 0; n0 < n; n0 += GT) {
-    cs[ty][tx] = (l0 + ty < L && n0 + tx < n) ? c[(t0 + l0 + ty) * n + n0 + tx] : 0.0f;
-    bs[ty][tx] = (m0 + ty < L && n0 + tx < n) ? b[(t0 + m0 + ty) * n + n0 + tx] : 0.0f;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  const int slices = (n + GK - 1) / GK;
+  gram_fill<ASYNC>(gram_smem, gram_smem + GT * GS, c, b, t0, l0, m0, L, n, 0);
+  cp_async_commit();
+  for (int s = 0; s < slices; ++s) {
+    // slice s has landed; every thread is done with slice s - 1, whose
+    // stage slice s + 1 takes
+    cp_async_wait<0>();
     __syncthreads();
-    const int kend = min(GT, n - n0);
-    for (int kk = 0; kk < kend; ++kk) acc = acc + cs[ty][kk] * bs[tx][kk];
-    __syncthreads();
+    if (s + 1 < slices) {
+      float* nx = gram_smem + (s + 1) % 2 * 2 * GT * GS;
+      gram_fill<ASYNC>(nx, nx + GT * GS, c, b, t0, l0, m0, L, n, (s + 1) * GK);
+    }
+    cp_async_commit();
+    const float* cs = gram_smem + s % 2 * 2 * GT * GS;
+    const float* bs = cs + GT * GS;
+    const int kq = min(GK, n - s * GK);  // columns of the slice; zeros pad it to a quad
+#pragma unroll 4
+    for (int e = 0; e < kq; e += 4) {
+      float4 cv[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cv[i] = *reinterpret_cast<const float4*>(cs + (ty * 4 + i) * GS + e);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(bs + (tx + 8 * j) * GS + e);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = __fmaf_rn(cv[i].x, bv[j].x, acc[i][j]);
+          acc[i][j] = __fmaf_rn(cv[i].y, bv[j].y, acc[i][j]);
+          acc[i][j] = __fmaf_rn(cv[i].z, bv[j].z, acc[i][j]);
+          acc[i][j] = __fmaf_rn(cv[i].w, bv[j].w, acc[i][j]);
+        }
+    }
   }
-  const int l = l0 + ty, m = m0 + tx;
-  if (l < L && m < L) g[(t0 + l) * L + m] = m <= l ? acc : 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int l = l0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + tx + 8 * j;
+      if (l < L && m < L) gc[(long long)l * L + m] = m <= l ? acc[i][j] : 0.0f;
+    }
+  }
 }
 
 size_t scan_smem_bytes(int L, int n) {
@@ -163,9 +257,15 @@ extern "C" const char* kernel_error_string(int err) {
 // per chunk, C B^T on and below the diagonal, 0 above.  One launch on `stream`.
 extern "C" int ssd_gram_launch(const void* b, const void* c, void* g, int s_len, int n, int L,
                                void* stream) {
-  const dim3 grid((L + GT - 1) / GT, (L + GT - 1) / GT, s_len / L);
-  ssd_gram_kernel<<<grid, dim3(GT, GT), 0, (cudaStream_t)stream>>>(
-      (const float*)b, (const float*)c, (float*)g, L, n);
+  const int tiles = (L + GT - 1) / GT;
+  const dim3 grid(tiles * (tiles + 1) / 2, s_len / L);
+  const int smem = 2 * 2 * GT * GS * (int)sizeof(float);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n % 4 == 0 && ((uintptr_t)b | (uintptr_t)c) % 16 == 0) {
+    ssd_gram_kernel<true><<<grid, GNT, smem, s>>>((const float*)b, (const float*)c, (float*)g, L, n);
+  } else {
+    ssd_gram_kernel<false><<<grid, GNT, smem, s>>>((const float*)b, (const float*)c, (float*)g, L, n);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -17,9 +17,15 @@ the diagonal, with the statistics one float per row and the masked scores
   tiles of 128 rows by TMA, Q Kᵀ and P V on the tensor cores (``wgmma``),
   P rounded to bf16 for its product.
 - ``"simt"`` (``csrc/flash_attention.cu``): every other call, f32 among
-  them.  64 query rows a block of 256 threads, 64-row KV tiles in shared
-  memory as f32; head dims up to 256 (its tiles must fit one block's
-  shared memory).
+  them, and bf16 head dims above 128 (gemma3-1b's 256) or not a multiple
+  of 8.  64 query rows a block, 64-row KV tiles in shared memory as f32;
+  each thread a register tile of 8 (D ≤ 64 by ``cp.async``, 128 threads)
+  or 4 rows (256 threads) by 4 score columns, and the same rows of the
+  output, read as float4s, every product an explicit fused multiply-add, the
+  softmax in registers (a row across 16 lanes, ``__shfl_xor_sync``), V of
+  a tile landing during its Q Kᵀ and the next K during its P V (by
+  ``cp.async`` for f32 rows it can copy whole, else through registers).
+  Head dims up to 256, compiled for 64, 128 or 256 (``simt_plan``).
 
 Neither is a fallback for the other: a refused launch raises.  ``block_q``
 and ``block_kv`` keep the JAX signature, defaults (``plan_attention``) and
@@ -39,6 +45,7 @@ from ._cuda import DTYPE_CODE, CudaLauncher, check_dtypes, require_cuda, tma_ali
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 WGMMA_MAX_HEAD_DIM = 128
+SIMT_BLOCK = 64   # query rows of a SIMT block, and KV rows of its tiles
 
 KERNEL = CudaLauncher(
     "flash_attention",
@@ -91,6 +98,33 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     _check(q, k, v, False, None, None)
     require_cuda("flash_attention", q, k, v)
     return _route(q)
+
+
+def simt_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """How the SIMT kernel takes these inputs: its tile (``block_q`` query
+    rows by ``block_kv`` KV rows), threads, the head dim it is compiled for
+    (``dmax``), its blocks and how K and V reach shared memory (``copy``:
+    ``"cp.async"`` for f32 with D % 4 == 0 on 16-byte boundaries, else
+    ``"registers"``).  On CUDA tensors also, from the card, each block's
+    shared memory (``smem_bytes``) and the blocks an SM holds
+    (``blocks_per_sm``)."""
+    b, sq, d = q.shape
+    aligned = (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0
+    copy = "cp.async" if q.dtype == torch.float32 and d % 4 == 0 and aligned else "registers"
+    plan = {"block_q": SIMT_BLOCK, "block_kv": SIMT_BLOCK,
+            "threads": 128 if d <= 64 and copy == "cp.async" else 256,
+            "dmax": 64 if d <= 64 else 128 if d <= 128 else 256,
+            "blocks": -(-sq // SIMT_BLOCK) * b, "copy": copy}
+    if q.is_cuda:
+        out = [ctypes.c_int() for _ in range(3)]
+        query = KERNEL.symbol("flash_attention_occupancy", [ctypes.c_int] * 3
+                              + [ctypes.POINTER(ctypes.c_int)] * 3)
+        with torch.cuda.device(q.device):
+            rc = query(d, DTYPE_CODE[q.dtype], int(copy == "cp.async"), *map(ctypes.byref, out))
+        if rc != 0:
+            raise RuntimeError(f"flash_attention: occupancy query failed (cudaError {rc})")
+        plan["smem_bytes"], plan["threads"], plan["blocks_per_sm"] = (x.value for x in out)
+    return plan
 
 
 def flash_attention(
@@ -153,6 +187,6 @@ def flash_attention_plain(
 
 
 __all__ = [
-    "KERNEL", "MAX_HEAD_DIM", "NEG_INF", "WGMMA", "WGMMA_MAX_HEAD_DIM", "flash_attention",
-    "flash_attention_plain", "route",
+    "KERNEL", "MAX_HEAD_DIM", "NEG_INF", "SIMT_BLOCK", "WGMMA", "WGMMA_MAX_HEAD_DIM",
+    "flash_attention", "flash_attention_plain", "route", "simt_plan",
 ]

@@ -7,7 +7,12 @@ grid, one (L, H, P) block of x per step, with the whole (H, P, N) f32 state
 in VMEM scratch.  The CUDA kernels do not carry the BlockSpecs over.
 ``C Bᵀ`` of a chunk is the same for every head and too large for one block
 at L = 256 (256 KiB), so a first kernel (``ssd_gram``) writes its lower
-triangle for every chunk into a buffer.  The state of a head depends only
+triangle for every chunk into a buffer: one 64-thread block per 32×32 tile
+on or below the diagonal (36 a chunk at L = 256), each thread a 4×4 tile
+of explicit FMAs over float4s of C and B, which a 2-slice ``cp.async``
+ring brings in 64 of N at a time (through registers where N % 4 != 0 or
+the data is not on 16 bytes); a block off the diagonal also writes the
+zero tile mirroring it above, so no block only writes zeros.  The state of a head depends only
 on that head's inputs, so the scan kernel's (``ssd_chunk_scan``) grid is
 (head, 32-wide slice of P), each block looping over the chunks in order
 with its slice of the state in shared memory and reading the buffer.

@@ -96,7 +96,8 @@ CASES += [
 SHIM = r"""
 #pragma once
 // Host stand-in for the CUDA runtime: just enough of it for the emitted
-// kernels, ub_kernel.cuh and the SIMT matmul.
+// kernels, ub_kernel.cuh and the SIMT kernels (matmul, flash attention, the
+// SSD gram).
 #include <algorithm>
 #include <barrier>
 #include <cmath>
@@ -109,6 +110,7 @@ struct dim3 {
   constexpr dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* ub_block_barrier = nullptr;
@@ -116,6 +118,7 @@ inline std::barrier<>* ub_block_barrier = nullptr;
 alignas(16) float ub_smem[232448 / 4];
 
 #define __global__
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
@@ -127,12 +130,27 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 inline void __syncthreads() { ub_block_barrier->arrive_and_wait(); }
+// a warp shuffle through a block-wide exchange array: every thread of the
+// block calls it together (as the kernels do), so two barriers frame it
+inline float ub_exchange[1024];
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  ub_exchange[threadIdx.x] = v;
+  __syncthreads();
+  const float out = ub_exchange[threadIdx.x ^ lane_mask];
+  __syncthreads();
+  return out;
+}
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host shim"; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
+template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 
 // every block of the grid, one after another; each CUDA thread of a block
 // is a host thread, and the block ends (every thread past its last
@@ -163,7 +181,13 @@ void ub_host_launch(K kernel, dim3 grid, dim3 block, const P&... params) {
 }
 """
 
-_LAUNCH = re.compile(r"(\w+)<<<(dim3\([^)]*\)|\w+), ([\w:]+), [^>]*>>>\(([^;]*)\);")
+# kernel (a template's arguments included), grid (dim3(...) with one level
+# of inner parentheses, or an expression without commas), block, then the
+# arguments
+_LAUNCH = re.compile(
+    r"(\w+(?:<[^<>;]*>)?)<<<(dim3\((?:[^()]|\([^()]*\))*\)|[^<>,;]+), ([\w:]+), [^>]*>>>"
+    r"\(([^;]*)\);"
+)
 
 
 def host_source(cuda_source: str) -> str:

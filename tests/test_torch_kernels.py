@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.backend import build
 from repro_torch.kernels import KERNELS, _cuda, flash_attention as fa_mod, matmul as mm_mod, ops, ref
+from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.matmul import matmul, matmul_plain
 from repro_torch.kernels.ssd import (
@@ -512,6 +513,8 @@ def test_wgmma_descriptor_bit_fields(tmp_path):
     ("matmul_reduce", [(16, 256, 256)], torch.float32, None, 0.00133, "bytes"),
     ("flash_attention", [(32, 2048, 64)] * 3, torch.bfloat16, None, 0.0174, "operations"),
     ("flash_attention", [(40, 4096, 128)] * 3, torch.bfloat16, None, 0.174, "operations"),
+    # gemma3-1b's global layer, D 256: the tensor cores' bound of its work
+    ("flash_attention", [(4, 2048, 256)] * 3, torch.bfloat16, None, 0.00869, "operations"),
     ("ssd_gram", [(2048, 128), (2048, 128)], torch.float32, 256, 0.00125, "bytes"),
     ("ssd_scan", [(2048, 80, 64), (2048, 80), (80,), (2048, 128), (2048, 128), (8, 256, 256)],
      torch.float32, 256, 0.1204, "operations"),
@@ -571,16 +574,23 @@ template <int N> inline void cp_async_wait() {}
 
 
 class _HostLauncher:
-    """A launcher of ``csrc/matmul.cu`` built for the host: the same C
-    entry and arguments as the CUDA launcher it stands for, and a count."""
+    """A launcher of a SIMT kernel built for the host: the same C entry and
+    arguments as the CUDA launcher it stands for, and a count.  With
+    ``out=(i, nbytes)``, argument ``i`` is the output, whose
+    ``nbytes(*args)`` bytes are set to NaN before the launch, so an element
+    the kernel leaves unwritten shows."""
 
-    def __init__(self, lib, launcher):
+    def __init__(self, lib, launcher, out=None):
         self.fn = getattr(lib, f"{launcher.name}_launch")
         self.fn.argtypes = launcher._argtypes + [ctypes.c_void_p]
         self.fn.restype = ctypes.c_int
+        self.out = out
         self.launches = 0
 
     def __call__(self, device, *args):
+        if self.out is not None:
+            i, nbytes = self.out
+            ctypes.memset(args[i], 0xFF, nbytes(*args))
         assert device.type == "cpu" and self.fn(*args, None) == 0
         self.launches += 1
 
@@ -687,6 +697,144 @@ def test_simt_plan_fills_the_card():
 
 
 # ---------------------------------------------------------------------------
+# the SIMT flash_attention and ssd_gram under g++, through their wrappers
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def host_simt(tmp_path_factory):
+    """``csrc/flash_attention.cu`` and ``csrc/ssd_scan.cu`` compiled by g++
+    against the shim of ``tests/test_torch_emit_host.py`` (a host thread per
+    CUDA thread, ``__shfl_xor_sync`` through a block-wide exchange array,
+    shared memory NaN before each block), with ``cp.async`` a plain copy and
+    each kernel's dynamic shared memory the shim's array; both built
+    together.  Returns ``{file: library}``."""
+    import re
+
+    from test_torch_emit_host import SHIM, host_source
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not on PATH: the kernels cannot be built on the host")
+    root = tmp_path_factory.mktemp("simt_host")
+    for name, text in (("cuda_runtime.h", SHIM), ("cuda_bf16.h", BF16_SHIM),
+                       ("cp_async.cuh", CP_ASYNC_SHIM)):
+        (root / name).write_text(text)
+    jobs = {}
+    for launcher in (fa_mod.KERNEL, ssd_mod.GRAM):
+        text = re.sub(r"extern __shared__ (?:__align__\(16\) )?float (\w+)\[\];",
+                      r"float* const \1 = ub_smem;", launcher.path.read_text())
+        src = root / f"{launcher.file}.cpp"
+        src.write_text(host_source(text))
+        so = root / f"lib{launcher.file}.so"
+        jobs[launcher.file] = (so, subprocess.Popen(
+            [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread", "-w",
+             "-I", str(root), "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for file, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, log[-4000:]
+        libs[file] = ctypes.CDLL(str(so))
+    return libs
+
+
+# (batch, Sq, Skv, D, causal, dtype): how each reaches shared memory follows
+# from dtype, D and alignment (cp.async for f32 with D % 4 == 0, else through
+# registers; bf16 rows as 8-byte quads where D % 4 == 0)
+HOST_FLASH = [
+    # cp.async, both tiles cut (96 = 64 + 32)
+    (2, 96, 96, 64, True, torch.float32),
+    # non-causal, Sq != Skv, the last KV tile cut
+    (1, 96, 192, 64, False, torch.float32),
+    # D 30: f32 through registers, columns zero-padded to 32
+    (2, 96, 96, 30, True, torch.float32),
+    (1, 64, 192, 30, False, torch.bfloat16),
+    # the 128 instantiation (D 100, not a multiple of 8), bf16 held in
+    # registers across the products
+    (1, 64, 192, 100, False, torch.float32),
+    (1, 96, 96, 100, True, torch.bfloat16),
+    # the 256 instantiation: D 136 and 256, f32 by cp.async, bf16 quads
+    (1, 96, 96, 136, True, torch.float32),
+    (1, 96, 192, 136, False, torch.bfloat16),
+    (1, 128, 128, 256, True, torch.bfloat16),
+    (1, 64, 128, 256, False, torch.float32),
+    # bf16 the tensor cores take: the SIMT kernel on the same call
+    (2, 128, 128, 64, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,d,causal,dtype", HOST_FLASH, ids=[
+    f"{b}x{sq}x{skv}x{d}-{'causal' if c else 'full'}-{str(t)[6:]}"
+    for b, sq, skv, d, c, t in HOST_FLASH])
+def test_simt_flash_attention_on_host_matches_plain_version(host_simt, b, sq, skv, d, causal,
+                                                            dtype, monkeypatch):
+    """The SIMT kernel's source run on the CPU through ``flash_attention``
+    (its device check lifted, its launcher built for the host, the route
+    held to ``"simt"`` for bf16 the tensor cores would take), one launch a
+    call, against the plain version at the card's tolerances: 2e-3 and each
+    row's error within 1e-4 of its norm for f32, 3e-2 for bf16."""
+    # the output (b, sq, d) of dtype code `dt`
+    out = (3, lambda q, k, v, o, b, sq, skv, d, scale, causal, dt: b * sq * d * (4 - 2 * dt))
+    kernel = _HostLauncher(host_simt["flash_attention"], fa_mod.KERNEL, out)
+    monkeypatch.setattr(fa_mod, "require_cuda", lambda *a: torch.device("cpu"))
+    monkeypatch.setattr(fa_mod, "KERNEL", kernel)
+    monkeypatch.setattr(fa_mod, "_route", lambda q: "simt")
+    rng = np.random.default_rng(sq * d + skv)
+    q, k, v = (ops.to_tensor(rng.standard_normal((b, n, d)).astype(np.float32), dtype, "cpu")
+               for n in (sq, skv, skv))
+    kw = dict(causal=causal, block_q=32, block_kv=32)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    assert kernel.launches == 1
+    assert got.dtype == dtype and got.shape == (b, sq, d)
+    plan = fa_mod.simt_plan(q, k, v)
+    assert plan["blocks"] == -(-sq // 64) * b
+    assert plan["threads"] == (128 if d <= 64 and plan["copy"] == "cp.async" else 256)
+    assert plan["copy"] == ("cp.async" if dtype == torch.float32 and d % 4 == 0 else "registers")
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        rows = (got - want).norm(dim=-1) / want.norm(dim=-1)
+        assert float(rows.max()) <= 1e-4
+
+
+# (chunk, N): S = 96 (84 for chunk 42); chunk 48 and 42 take two row tiles
+# of 32, so a block writes the zero tile mirroring it above the diagonal
+# (float4 stores where the chunk is a multiple of 4); N 18 goes through
+# registers, the others by cp.async
+HOST_GRAMS = [(ch, n) for ch in (8, 16, 48) for n in (16, 20, 32)] + [(48, 18), (42, 20)]
+
+
+@pytest.mark.parametrize("chunk,n", HOST_GRAMS, ids=[f"chunk{c}-n{n}" for c, n in HOST_GRAMS])
+@pytest.mark.parametrize("values", ["integer", "normal"])
+def test_ssd_gram_on_host_matches_plain_version(host_simt, chunk, n, values, monkeypatch):
+    """``ssd_gram``'s kernel run on the CPU through its wrapper, one launch
+    a call: integer inputs, whose every sum is exact, bit for bit against
+    ``ssd_gram_plain``; normal ones within 1e-4 of an f64 product."""
+    # the output (s_len / L, L, L) f32
+    gram = _HostLauncher(host_simt["ssd_scan"], ssd_mod.GRAM,
+                         (2, lambda b, c, g, s_len, n, L: 4 * s_len * L))
+    monkeypatch.setattr(ssd_mod, "require_cuda", lambda *a: torch.device("cpu"))
+    monkeypatch.setattr(ssd_mod, "GRAM", gram)
+    s = 84 if chunk == 42 else 96
+    rng = np.random.default_rng(chunk * n)
+    if values == "integer":
+        b_np, c_np = (rng.integers(-8, 8, (s, n)).astype(np.float32) for _ in range(2))
+    else:
+        b_np, c_np = (rng.standard_normal((s, n)).astype(np.float32) for _ in range(2))
+    b, c = torch.from_numpy(b_np), torch.from_numpy(c_np)
+    got = ssd_mod.ssd_gram(b, c, chunk)
+    assert gram.launches == 1 and got.shape == (s // chunk, chunk, chunk)
+    if values == "integer":
+        assert torch.equal(got, ssd_gram_plain(b, c, chunk))
+    else:
+        g64 = torch.matmul(c.double().view(-1, chunk, n),
+                           b.double().view(-1, chunk, n).transpose(1, 2)).tril()
+        torch.testing.assert_close(got.double(), g64, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -694,7 +842,7 @@ def test_simt_plan_fills_the_card():
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_version_on_card():
     """Build and launch the eight kernels on small shapes; hold each against
-    its plain version (stencil and integer matmuls bit for bit), one launch
+    its plain version (stencil, integer matmuls and grams bit for bit), one launch
     per call of the kernel its route names (the SSD op: one of each of its
     two kernels; a SIMT matmul that splits K: one of the kernel and one of
     ``matmul_reduce``)."""
@@ -761,6 +909,18 @@ def test_cuda_kernels_match_plain_version_on_card():
         else:
             cases.append(("matmul", matmul, matmul_plain,
                           (ints(m, k).float(), ints(k, n).float()), kw, 0.0))
+    # the SIMT attention's and the gram's host cases on the card (bf16 that
+    # the tensor cores take goes there, by its route)
+    for b, sq, skv, d, causal, dtype in HOST_FLASH:
+        qkv = (t(b, sq, d, dtype=dtype), t(b, skv, d, dtype=dtype), t(b, skv, d, dtype=dtype))
+        name = "flash_attention_wgmma" if fa_mod._route(qkv[0]) == "wgmma" else "flash_attention"
+        cases.append((name, flash_attention, flash_attention_plain, qkv,
+                      dict(causal=causal, block_q=32, block_kv=32),
+                      2e-3 if dtype == torch.float32 else 3e-2))
+    for chunk, n in HOST_GRAMS:
+        s_len = 84 if chunk == 42 else 96
+        cases.append(("ssd_gram", ssd_gram, ssd_gram_plain,
+                      (ints(s_len, n).float(), ints(s_len, n).float(), chunk), {}, 0.0))
     for name, fn, plain, args, kw, tol in cases:
         before = {k: launcher.launches for k, launcher in KERNELS.items()}
         got = fn(*args, **kw)
