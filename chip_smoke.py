@@ -28,11 +28,12 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    write, as in phase 7), the plain version over its comparison call.
    Each group's launch (blocks, threads, the thread map of an
    element-parallel group and its tile, the bands of row steps a
-   row-carried group's sweep is cut into), its registers and spills as
-   ``ptxas -v`` reported them, and its library's nvcc seconds are
-   printed.  Each is also held against a computation that shares no code
-   with the port: gaussian
-   against ``F.conv2d`` (atol 1e-3), upsample against
+   row-carried group's sweep is cut into, a lane-carried group's barriers
+   a lane step), its shared memory, its blocks an SM by the CUDA
+   runtime's occupancy calculator, its registers and spills as ``ptxas
+   -v`` reported them, and its library's nvcc seconds are printed.  Each
+   is also held against a computation that shares no code with the port:
+   gaussian against ``F.conv2d`` (atol 1e-3), upsample against
    ``expand().contiguous()`` (exact), resnet against ``F.conv2d`` and
    matmul against ``torch.matmul`` (all three timed as the library call,
    one call and replayed as the kernel is),
@@ -63,7 +64,7 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    f32 call take the SIMT kernels (a SIMT matmul that splits K also
    ``matmul_reduce``); the SIMT attention is also held at f32 where its
    own 64-row tiles are cut (Sq 96, Skv 192), at D 136 and 256 and at
-   D 30, and the SSD op at N 20.  The
+   D 30, and the SSD op at N 20 and at P 40, N 18.  The
    tensor-core matmul's operand layout is checked first: the identity
    times a 64×64 B of distinct residues must give B bit for bit.
 7. hand-written kernels at model widths: a 1080p gaussian, tinyllama-1.1b's
@@ -87,8 +88,12 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    on the same call (directly, into a buffer of its own, after the launch
    counts were read), holds its output against the same plain version and
    oracle at the same tolerance, and times it.
-   The SSD op launches two kernels, C Bᵀ per chunk (``ssd_gram``) and the
-   scan; each gets its own row.  An f32 matmul prints the SIMT kernel's
+   The SSD op launches four kernels, C Bᵀ per chunk (``ssd_gram``), each
+   chunk's own state and the cumulative log-decay (``ssd_chunk_state``),
+   the states entering the chunks (``ssd_state_pass``) and y
+   (``ssd_chunk_out``); each is timed alone on its own row against its
+   plain version and an oracle (f64 for the gram and the states,
+   ``ref.ssd_ref`` for y), and the op is timed whole.  An f32 matmul prints the SIMT kernel's
    tile and K split (``matmul.simt_plan``), and every attention row the
    SIMT attention kernel's tile, blocks and blocks an SM on its inputs
    (``flash_attention.simt_plan``); where K is split (the matmul
@@ -473,10 +478,10 @@ def kernel_work(name: str, args, out, chunk=None) -> tuple:
     """Bytes a hand-written kernel must move (each input read once, the
     output written once), the operations it does on these inputs (only the
     scores a causal mask keeps; only the lower triangle of each SSD chunk,
-    whose C B^T the scan reads only there; the additions of a split-K
-    matmul's reduction)
-    and the peak rate of the unit they could use: bf16 tensor cores for
-    bf16 products, else IEEE f32."""
+    whose C B^T the SSD read-out kernel reads only there; the additions of
+    a split-K matmul's reduction) and the peak rate of the unit they could
+    use: bf16 tensor cores for bf16 products, else IEEE f32 (the SSD
+    kernels' products are f32 whatever x's dtype)."""
     import torch
 
     name = name.removesuffix("_wgmma")         # the tensor-core kernels do the op's work
@@ -497,13 +502,29 @@ def kernel_work(name: str, args, out, chunk=None) -> tuple:
     elif name == "ssd_gram":                      # C B^T of each chunk, lower triangle
         s, n = args[0].shape
         ops = 2 * (s // chunk) * (chunk * (chunk + 1) // 2) * n
-    else:                                         # ssd_scan, given ssd_gram's output
+    elif name == "ssd_chunk_state":               # (x, dt, a, b): each chunk's contribution
         s, h, p = args[0].shape
         n = args[3].shape[1]
+        nbytes += 4 * s * h                         # and s, written beside it
+        ops = 2 * s * h * p * n
+        peak = PEAK_F32_FLOPS
+    elif name == "ssd_state_pass":                # (states, s): the states rewritten in place
+        nc, h, n, p = args[0].shape
+        # every chunk's entering state written; the contributions and s (its
+        # last step) of every chunk but the last read: the last makes only
+        # the state after the sequence, which nothing reads
+        nbytes = 4 * (2 * nc - 1) * h * n * p + 4 * (nc - 1) * h
+        ops = 2 * (nc - 1) * h * n * p
+        peak = PEAK_F32_FLOPS
+    else:                                         # ssd_chunk_out: (x, dt, c, g, s, states)
+        s, h, p = args[0].shape
+        n = args[2].shape[1]
         tri, n_chunks = chunk * (chunk + 1) // 2, s // chunk
-        nbytes -= 4 * (args[5].numel() - n_chunks * tri)    # reads G's lower triangles only
-        # the intra-chunk sum, the state's read-out and its update
-        ops = 2 * n_chunks * tri * h * p + 4 * s * h * p * n
+        nbytes -= 4 * (args[3].numel() - n_chunks * tri)    # reads G's lower triangles only
+        nbytes -= 4 * h * n * p                             # and no state entering chunk 0 (zero)
+        # the intra-chunk sum, and the read-out of every chunk but the first
+        ops = 2 * n_chunks * tri * h * p + 2 * (s - chunk) * h * p * n
+        peak = PEAK_F32_FLOPS
     return nbytes, ops, peak
 
 
@@ -610,8 +631,9 @@ def kernels_small() -> None:
         a = ops.to_tensor((-np.abs(rng.standard_normal(h)) - 0.1).astype(np.float32))
         return x, dt, a, rand((s, n)), rand((s, n))
 
-    # N 20: the gram kernel's 64-wide slice of N cut
-    for shape in [(64, 2, 8, 16), (128, 4, 16, 32), (32, 1, 4, 8), (64, 2, 8, 20)]:
+    # N 20: the gram kernel's 64-wide slice of N cut; (96, 3, 40, 18): the
+    # state's P tile cut and B through registers
+    for shape in [(64, 2, 8, 16), (128, 4, 16, 32), (32, 1, 4, 8), (64, 2, 8, 20), (96, 3, 40, 18)]:
         ins = ssd_inputs(*shape)
         held(f"[kernels-small] ssd_scan {shape} chunk 16", ssd_scan(*ins, chunk=16),
              ssd_scan_plain(*ins, chunk=16), kref.ssd_ref(*ins), 1e-3)
@@ -643,7 +665,8 @@ def kernels_full(full_apps, rows) -> None:
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels.matmul import matmul_plain, matmul_reduce_plain, simt_plan
     from repro_torch.kernels.ssd import (
-        ssd_chunk_scan, ssd_chunk_scan_plain, ssd_gram, ssd_gram_plain, ssd_scan_plain,
+        ssd_chunk_out, ssd_chunk_out_plain, ssd_chunk_state, ssd_chunk_state_plain, ssd_gram,
+        ssd_gram_plain, ssd_scan_plain, ssd_state_pass, ssd_state_pass_plain,
     )
     from repro_torch.kernels.stencil import stencil3x3_plain
 
@@ -683,7 +706,7 @@ def kernels_full(full_apps, rows) -> None:
     entry["matmul_wgmma"] = entry["matmul"]
     entry["flash_attention_wgmma"] = entry["flash_attention"]
     # the CUDA kernels each configuration's call must launch, and only they
-    path = {"ssd_scan": ("ssd_gram", "ssd_scan")}
+    path = {"ssd_scan": ("ssd_gram", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")}
 
     def simt_call(kname, args, scratch):
         """The SIMT kernel of a tensor-core kernel's op on the same inputs,
@@ -844,7 +867,9 @@ def kernels_full(full_apps, rows) -> None:
         launches = {name: KERNELS[name].launches for name in names}
         others = {name: k.launches for name, k in KERNELS.items()
                   if k.launches and name not in launches}
-        if not all(launches.values()) or others:
+        # the SSD op launches each of its four kernels exactly once
+        once = kname != "ssd_scan" or set(launches.values()) == {1}
+        if not all(launches.values()) or others or not once:
             raise AssertionError(f"[kernels-full] {label}: the main path must launch "
                                  f"{list(launches)} and nothing else; it launched {launches}, "
                                  f"and besides {others}")
@@ -893,31 +918,59 @@ def kernels_full(full_apps, rows) -> None:
                     f"{plan['blocks_per_sm']} a SM ({plan['smem_bytes']} B of shared memory "
                     f"each), K and V by {plan['copy']}")
         else:
-            # two kernels, each timed alone: C B^T of every chunk, then the
-            # scan reading it; the whole call is timed too
-            s, h, p = args[0].shape
-            b, c = args[3], args[4]
-            chunk = min(plan_ssd(s, h, p, b.shape[1]).notes["chunk"], s)
+            # four kernels, each timed alone on the outputs of the ones
+            # before it: C B^T of every chunk, each chunk's own state and s,
+            # the states entering the chunks, y; the whole call is timed too
+            x, dt, a, b, c = args
+            s_len, h, p = x.shape
+            n = b.shape[1]
+            chunk = min(plan_ssd(s_len, h, p, n).notes["chunk"], s_len)
+            nc = s_len // chunk
             g = ssd_gram(b, c, chunk)
-            g64 = torch.matmul(c.double().view(-1, chunk, c.shape[1]),
-                               b.double().view(-1, chunk, b.shape[1]).transpose(1, 2)).tril()
-            cc, bt = c.view(-1, chunk, c.shape[1]), b.view(-1, chunk, b.shape[1]).transpose(1, 2)
+            g64 = torch.matmul(c.double().view(-1, chunk, n),
+                               b.double().view(-1, chunk, n).transpose(1, 2)).tril()
+            cc, bt = c.view(-1, chunk, n), b.view(-1, chunk, n).transpose(1, 2)
             measure("ssd_gram", label, dname, launches["ssd_gram"], g,
                     lambda: ssd_gram(b, c, chunk), lambda: ssd_gram_plain(b, c, chunk),
                     g64, dict(tol=1e-4),
                     ("torch.bmm (the whole square)", lambda: torch.bmm(cc, bt), None, torch.tril),
                     kernel_work("ssd_gram", (b, c), g, chunk))
             del g64
-            row = measure("ssd_scan", label, dname, launches["ssd_scan"], out,
-                          lambda: ssd_chunk_scan(*args, g, chunk=chunk),
-                          lambda: ssd_chunk_scan_plain(*args, g, chunk=chunk),
+            # f64 oracles of the two state kernels, the Pallas body's formulas
+            s64 = torch.cumsum(a.double()[None, None] * dt.double().view(nc, chunk, h), dim=1)
+            w64 = torch.exp(s64[:, -1:] - s64) * dt.double().view(nc, chunk, h)
+            st64 = torch.einsum("clh,clhp,cln->chnp", w64, x.double().view(nc, chunk, h, p),
+                                b.double().view(nc, chunk, n))
+            states, sl = ssd_chunk_state(x, dt, a, b, chunk)
+            held(f"[kernels-full] {label} ssd_chunk_state {dname}: s", sl,
+                 ssd_chunk_state_plain(x, dt, a, b, chunk)[1], s64.reshape(s_len, h), 1e-4)
+            measure("ssd_chunk_state", label, dname, launches["ssd_chunk_state"], states,
+                    lambda: ssd_chunk_state(x, dt, a, b, chunk),
+                    lambda: ssd_chunk_state_plain(x, dt, a, b, chunk)[0], st64, dict(tol=1e-3),
+                    None, kernel_work("ssd_chunk_state", (x, dt, a, b), states, chunk))
+            decay64 = torch.exp(s64[:, -1])
+            enter64 = torch.zeros_like(st64)
+            for ci in range(1, nc):
+                enter64[ci] = decay64[ci - 1][:, None, None] * enter64[ci - 1] + st64[ci - 1]
+            del s64, w64, st64
+            entering = ssd_state_pass(states.clone(), sl, chunk)
+            spare = states.clone()          # rewritten by every timed launch
+            measure("ssd_state_pass", label, dname, launches["ssd_state_pass"], entering,
+                    lambda: ssd_state_pass(spare, sl, chunk),
+                    lambda: ssd_state_pass_plain(states, sl, chunk), enter64, dict(tol=1e-3),
+                    None, kernel_work("ssd_state_pass", (states, sl), entering, chunk))
+            del enter64, spare, states
+            row = measure("ssd_chunk_out", label, dname, launches["ssd_chunk_out"], out,
+                          lambda: ssd_chunk_out(x, dt, c, g, sl, entering, chunk),
+                          lambda: ssd_chunk_out_plain(x, dt, c, g, sl, entering, chunk),
                           ref_fn(*args), check, None,
-                          kernel_work("ssd_scan", (*args, g), out, chunk))
+                          kernel_work("ssd_chunk_out", (x, dt, c, g, sl, entering), out, chunk))
             row["call_ms"] = time_ms(lambda: op(*args), 10)
             row["call_device_ms"] = graph_ms(lambda: op(*args))
-            log(f"[kernels-full] {label} ssd_op (ssd_gram + ssd_scan): {row['call_ms']:.4f} ms "
-                f"({row['call_device_ms']:.4f} ms replayed, L2 flushed)")
-            del g
+            log(f"[kernels-full] {label} ssd_op (ssd_gram + ssd_chunk_state + ssd_state_pass + "
+                f"ssd_chunk_out): {row['call_ms']:.4f} ms ({row['call_device_ms']:.4f} ms "
+                "replayed, L2 flushed)")
+            del g, sl, entering
         if generated is not None:
             app_label, names = generated
             (gk,) = compile_pipeline(full_apps[app_label].pipeline).kernels
@@ -967,7 +1020,8 @@ def main() -> int:
     )
     from repro_torch.backend.build import build_many, digest, ptxas_usage
     from repro_torch.backend.cuda_codegen import (
-        REPLACES, block_threads, element_map, emit_library, grid_x, row_bands,
+        REPLACES, block_threads, element_map, emit_library, grid_x, lane_layout, row_bands,
+        smem_layout,
     )
     from repro_torch.backend.eager import LoweredGroup
     from repro_torch.backend.plan import build_pipeline_plan
@@ -1065,6 +1119,9 @@ def main() -> int:
             blocks = grid_x(k.lg) * k.kg.batch_steps
             threads = block_threads(k.lg)
             regs = usage.get(f"ub_kernel_{gi}", {})
+            smem = smem_layout(k.kg)[2]
+            per_sm = k.blocks_per_sm()
+            lane = lane_layout(k.lg)
             nbytes, ops = bytes_and_ops(k)
             t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
             t_ops = 1e3 * ops / PEAK_F32_FLOPS
@@ -1107,6 +1164,9 @@ def main() -> int:
                 "bands": len(bands) if bands else None,
                 "band_steps": bands[0][1] if bands else None,
                 "tile": em.tile if em is not None else None,
+                "smem_bytes": smem,
+                "blocks_per_sm": per_sm,
+                "barriers_per_lane_step": lane[1] if lane else None,
                 "regs_per_thread": regs.get("registers"),
                 "spill_bytes": regs.get("spill_stores"),
                 "nvcc_s": nvcc_s,
@@ -1120,10 +1180,14 @@ def main() -> int:
             elif bands:
                 thread_map = (f"element loop, row sweep in {len(bands)} bands of "
                               f"{bands[0][1]} row steps ({k.lg.steps} in all) a slot")
+            elif lane:
+                thread_map = (f"element loop, {k.lg.lane_steps} lane steps a block, "
+                              f"{lane[1]} barriers a lane step")
             else:
                 thread_map = "element loop"
             log(f"[full] {label}/{k.name} grid={k.kg.grid} bh={k.kg.bh} bw={k.kg.bw} "
-                f"smem={k.kg.scratch_bytes} B [{', '.join(variants(k.kg))}]: "
+                f"smem={smem} B (plan scratch {k.kg.scratch_bytes} B) "
+                f"[{', '.join(variants(k.kg))}]: "
                 f"max|cuda - plain| = {err!r} (tolerance 0); "
                 f"{ms:.4f} ms/launch ({dev_ms:.4f} ms replayed, L2 flushed), "
                 f"plain {plain_ms:.2f} ms, bound "
@@ -1131,7 +1195,7 @@ def main() -> int:
                 f"library {library_ms if library_ms is None else round(library_ms, 4)} ms "
                 f"({library_device_ms if library_device_ms is None else round(library_device_ms, 4)}"
                 f" ms replayed), compile {compile_s:.2f} s; {thread_map}: {blocks} blocks of {threads} "
-                f"threads, {regs.get('registers')} registers, "
+                f"threads, {per_sm} a SM, {regs.get('registers')} registers, "
                 f"{regs.get('spill_stores')} B spilled, nvcc {nvcc_s} s")
             if err != 0.0:
                 raise AssertionError(f"{label}/{k.name}: CUDA kernel differs from plain by {err}")

@@ -1,7 +1,8 @@
 """Plan -> CUDA C++ emission for Hopper (``sm_90a``).
 
-``emit_kernel`` writes one CUDA kernel, plus an ``extern "C"`` launcher, for a
-planned :class:`~repro_torch.backend.plan.KernelGroup`.  It replaces the JAX
+``emit_kernel`` writes one CUDA kernel, plus an ``extern "C"`` launcher and
+an occupancy query, for a planned
+:class:`~repro_torch.backend.plan.KernelGroup`.  It replaces the JAX
 package's generated Pallas kernel (``repro/backend/codegen.py``,
 ``emit_kernel``) and computes what that kernel computes; it is not a
 block-by-block transliteration:
@@ -36,9 +37,17 @@ block-by-block transliteration:
   Pallas kernel does.  The same operations on the same loaded values give
   every element the value the sweep in one block gives it, bit for bit.
 
-* **Shared memory holds exactly what Pallas kept in VMEM scratch**: the fused
+* **Shared memory holds what Pallas kept in VMEM scratch**: the fused
   intermediates' panels and row or column line-buffer rings and the input
-  rings (``KernelGroup.scratch_bytes``).  Delivered view blocks are read
+  rings (``KernelGroup.scratch_bytes``), except that in a column-carried
+  group the column rings of one buffer, and the lane line buffers of one
+  stage, that differ only by row shift share one panel of ``bh`` + the
+  largest shift rows (:func:`shift_panels`): each physical row is landed
+  or evaluated once a lane step, by the member of the largest shift that
+  holds it, and the others read it at their row offset.  A member's
+  program masks by its own output row, so a row the panel holds real where
+  a shifted ring held 0 is read only by outputs that are never stored.
+  Delivered view blocks are read
   straight from global memory through the plan's own address arithmetic
   (resolved once in ``eager.LoweredGroup``), every load bounded by the
   buffer's extents and the view's valid rows and lanes, with 0 outside.
@@ -47,7 +56,11 @@ block-by-block transliteration:
   program (the reference interpreter's f32 operations in the Pallas
   kernel's order, reductions unrolled per chunk) as C.
   ``__syncthreads()`` separates ring rotation, landing, each fused stage
-  and the output store, in the order of the Pallas kernel body.
+  and the output store, in the order of the Pallas kernel body; a
+  column-carried group's lane step instead runs in phases, every rotation
+  first, then each level of producers one above what it reads, one
+  barrier after each (:func:`lane_layout` reports the count), with each
+  phase's loops merged into one over all its parts.
 * **Element-parallel groups get a thread map of their own**
   (:func:`element_map`): a group with no rings, no fused scratch and no
   carry (resnet's lane grid, matmul's grid reduction, upsample) shares
@@ -177,18 +190,105 @@ def _indent(lines: Sequence[str]) -> List[str]:
     return ["  " + ln for ln in lines]
 
 
+@dataclass(frozen=True)
+class ShiftPanel:
+    """One shared-memory array of a lane-carried group that several column
+    rings of one buffer, or the lane line buffers of one stage, share: they
+    differ only by row shift, so member ``members[i]`` (a ring or
+    scratch-entry index) is the array from row ``offsets[i]`` on, and a
+    physical row is held once, not once per shift.  A single ring or line
+    buffer is a panel of one member."""
+
+    members: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    bh: int
+
+    @property
+    def rows(self) -> int:
+        return self.offsets[-1] + self.bh
+
+    def segments(self) -> List[Tuple[int, int]]:
+        """``(member, rows)``: the member of the largest row shift holding
+        each row lands or evaluates it, its first ``rows`` rows (up to the
+        next member's first row).  A row that no member holds is never
+        read."""
+        out = []
+        for i, m in enumerate(self.members):
+            gap = self.offsets[i + 1] - self.offsets[i] if i + 1 < len(self.members) else self.bh
+            out.append((m, min(self.bh, gap)))
+        return out
+
+
+def _panels(by_shift: Mapping[object, List[Tuple[int, int]]], bh: int) -> List[ShiftPanel]:
+    out = []
+    for members in by_shift.values():
+        members = sorted(members)
+        lo = members[0][0]
+        out.append(ShiftPanel(tuple(i for _s, i in members),
+                              tuple(s - lo for s, _i in members), bh))
+    return out
+
+
+def shift_panels(kg: KernelGroup) -> Tuple[List[ShiftPanel], List[ShiftPanel]]:
+    """A lane-carried group's panels: those of its lane line buffers (one
+    per stage) and of its column rings (one per buffer and view, rings whose
+    delivered views differ only by their row start); none for any other
+    group.  Rings merge where their rows are the leading axis at stride 1."""
+    if kg.lane_grid is None or not (kg.rings or kg.line_buffered):
+        return [], []
+    lbs: Dict[object, List[Tuple[int, int]]] = {}
+    for i, (sp, key) in enumerate(kg.scratch_entries()):
+        if isinstance(key, tuple) and key[1] is None:
+            lbs.setdefault(sp.name, []).append((key[0], i))
+
+    def unshifted(gi: int, k: int) -> tuple:
+        """View group ``gi``'s fields with ``k`` rows of shift taken out."""
+        g = kg.groups[gi]
+        fields = {f.name: getattr(g, f.name) for f in dataclasses.fields(g)}
+        fields["k0"] -= k
+        fields["base"] = [b - k if j == g.blocked_axis else b for j, b in enumerate(g.base)]
+        return tuple((n, tuple(v) if isinstance(v, list) else v) for n, v in fields.items())
+
+    rings: Dict[object, List[Tuple[int, int]]] = {}
+    for i, r in enumerate(kg.rings):
+        if r.lane and r.row_axis == 0 and r.row_stride == 1:
+            key: object = (r.buffer, r.axis, r.stride0, r.lo, r.hi, r.ndim, tuple(r.span),
+                           tuple(r.base[1:]), unshifted(r.steady, r.row_k0),
+                           unshifted(r.prefix, r.row_k0))
+        else:
+            key = i
+        rings.setdefault(key, []).append((r.row_k0, i))
+    return _panels(lbs, kg.bh), _panels(rings, kg.bh)
+
+
 def smem_layout(kg: KernelGroup) -> Tuple[List[int], List[int], int]:
     """Shared-memory float offsets of each scratch entry and each input
-    ring, and the total bytes (== ``kg.scratch_bytes``)."""
+    ring, and the total bytes: ``kg.scratch_bytes``, less in a lane-carried
+    group whose shift panels (``shift_panels``) hold rows once for several
+    members (a member's offset is its first row in the panel)."""
+    lb_panels, ring_panels = shift_panels(kg)
+    entries = kg.scratch_entries()
+    shapes = [sp.scratch_shape(kg.bh, key) for sp, key in entries]
+    shapes += [r.ring_shape(kg.bh, kg.bw) for r in kg.rings]
+    n = len(entries)
+    panel_of = {m: pan for pan in lb_panels for m in pan.members}
+    panel_of.update({n + m: ShiftPanel(tuple(n + i for i in pan.members), pan.offsets, pan.bh)
+                     for pan in ring_panels for m in pan.members})
+    offs: List[Optional[int]] = [None] * len(shapes)
     off = 0
-    s_off, r_off = [], []
-    for sp, key in kg.scratch_entries():
-        s_off.append(off)
-        off += math.prod(sp.scratch_shape(kg.bh, key))
-    for r in kg.rings:
-        r_off.append(off)
-        off += math.prod(r.ring_shape(kg.bh, kg.bw))
-    return s_off, r_off, 4 * off
+    for i, shape in enumerate(shapes):
+        if offs[i] is not None:
+            continue
+        pan = panel_of.get(i)
+        if pan is None:
+            offs[i] = off
+            off += math.prod(shape)
+            continue
+        row = math.prod(shape[1:])
+        for m, o in zip(pan.members, pan.offsets):
+            offs[m] = off + o * row
+        off += pan.rows * row
+    return offs[:n], offs[n:], 4 * off
 
 
 @dataclass(frozen=True)
@@ -440,6 +540,16 @@ def grid_x(lg: LoweredGroup) -> int:
     return lg.steps * lg.lane_steps
 
 
+def lane_layout(lg: LoweredGroup) -> Optional[Tuple[int, int]]:
+    """A lane-carried group's shared-memory bytes (``smem_layout``) and
+    ``__syncthreads()`` per lane step of its kernel; None for any other
+    group."""
+    if not lg.lane_carried:
+        return None
+    em = _GroupEmitter(lg, "0")
+    return em.smem, em.lane_step()[1]
+
+
 def block_threads(lg: LoweredGroup) -> int:
     """Threads per block of the group's launch (``blockDim.x``)."""
     em = element_map(lg)
@@ -464,6 +574,7 @@ class _GroupEmitter:
         for b in lg.buffer_order:
             self.ranks.append(next(g.ndim for g in kg.groups if g.buffer == b))
         self.max_rank = max(self.ranks) if self.ranks else 1
+        self.lb_panels, self.ring_panels = shift_panels(kg)
         self.s_off, self.r_off, self.smem = smem_layout(kg)
         if self.smem > H100_SMEM_PER_BLOCK:
             raise EmitError(
@@ -528,19 +639,43 @@ class _GroupEmitter:
 
     # -- loops --------------------------------------------------------------
 
+    @staticmethod
+    def decode(shape: Sequence[int]) -> List[str]:
+        """The coordinates ``p<d>`` of element ``e`` of ``shape``."""
+        if len(shape) == 1:
+            return ["const int p0 = e;"]
+        out = ["int rem = e;"]
+        for d in range(len(shape) - 1, 0, -1):
+            out.append(f"const int p{d} = rem % {shape[d]}; rem /= {shape[d]};")
+        return out + ["const int p0 = rem;"]
+
     def loop(self, shape: Sequence[int], body: List[str]) -> List[str]:
         n = math.prod(shape)
         out = [f"for (int e = threadIdx.x; e < {n}; e += {self.nt}) {{"]
-        if len(shape) == 1:
-            out.append("  const int p0 = e;")
-        else:
-            out.append("  int rem = e;")
-            for d in range(len(shape) - 1, 0, -1):
-                out.append(f"  const int p{d} = rem % {shape[d]}; rem /= {shape[d]};")
-            out.append("  const int p0 = rem;")
-        out += _indent(body)
+        out += _indent(self.decode(shape) + body)
         out.append("}")
         return out
+
+    def loops(self, parts: Sequence[Tuple[Sequence[int], List[str]]]) -> List[str]:
+        """One loop of the block's threads over the elements of each part
+        ``(shape, body)`` in turn, so that no thread waits on a short part;
+        a body sees its own element index ``e`` and coordinates."""
+        if len(parts) == 1:
+            return self.loop(*parts[0])
+        total = sum(math.prod(shape) for shape, _b in parts)
+        out = [f"for (int f = threadIdx.x; f < {total}; f += {self.nt}) {{"]
+        start = 0
+        for i, (shape, body) in enumerate(parts):
+            n = math.prod(shape)
+            if i == 0:
+                out.append(f"  if (f < {n}) {{")
+            elif i < len(parts) - 1:
+                out.append(f"  }} else if (f < {start + n}) {{")
+            else:
+                out.append("  } else {")
+            out += _indent(_indent([f"const int e = f - {start};"] + self.decode(shape) + body))
+            start += n
+        return out + ["  }", "}"]
 
     @staticmethod
     def at(
@@ -561,34 +696,41 @@ class _GroupEmitter:
         self, sp: StagePlan, shift: int, lshift: int,
         store: Callable[[Sequence[int], str], List[str]],
         rows: Optional[int] = None, cols: Optional[int] = None,
-    ) -> List[str]:
+    ) -> Tuple[Tuple[int, ...], List[str]]:
+        """Stage ``sp``'s panel at row and lane shift ``(shift, lshift)``
+        (``rows`` leading rows, ``cols`` trailing lanes), stored by
+        ``store``: the ``(shape, body)`` of a ``loop`` or a part of
+        ``loops``."""
         shape = self.lg.panel_shape(sp, rows, cols)
         body, val = self.program(self.lg.programs[(sp.name, shift, lshift)])
-        return self.loop(shape, body + store(shape, val))
+        return shape, body + store(shape, val)
 
-    def rotate(self, name: str, dims: Sequence[int], axis: int, halo: int, n: int) -> List[str]:
-        """Carry the ring's tail ``[n, n + halo)`` into its head on ``axis``."""
-        if axis == 0:
-            inner = math.prod(dims[1:])
-            return [
-                f"for (int e = threadIdx.x; e < {halo * inner}; e += {self.nt}) "
-                f"{name}[e] = {name}[{n * inner} + e];"
-            ]
+    def rotate_rows(self, name: str, dims: Sequence[int], halo: int, n: int) -> List[str]:
+        """Carry the ring's tail rows ``[n, n + halo)`` into its head."""
+        inner = math.prod(dims[1:])
+        return [
+            f"for (int e = threadIdx.x; e < {halo * inner}; e += {self.nt}) "
+            f"{name}[e] = {name}[{n * inner} + e];"
+        ]
+
+    def rotate_lanes(self, name: str, dims: Sequence[int], axis: int, halo: int,
+                     n: int) -> Tuple[Tuple[int, ...], List[str]]:
+        """Carry ``name``'s lane tail ``[n, n + halo)`` on ``axis`` into its
+        head, as a part of ``loops``."""
         shape = _resized(dims, axis, halo)
-        return self.loop(
-            shape,
-            [f"{self.at(name, dims, shape)} = {self.at(name, dims, shape, {axis: n})};"],
-        )
+        return shape, [f"{self.at(name, dims, shape)} = {self.at(name, dims, shape, {axis: n})};"]
 
     def land(
-        self, name: str, dims: Sequence[int], axis: int, offset: int, gi: int, n: int,
-        back: int = 0,
-    ) -> List[str]:
-        """Land view group ``gi``'s block at ``offset`` on ``axis``; with
-        ``back``, rows from ``bh - back`` on of its block at the step
+        self, r: int, offset: int, gi: int, n: int, rows: Optional[int] = None, back: int = 0,
+    ) -> Tuple[Tuple[int, ...], List[str]]:
+        """Land view group ``gi``'s block into ring ``r``, ``n`` of it at
+        ``offset`` on the ring's axis (only its first ``rows`` rows where
+        given): the ``(shape, body)`` of a ``loop`` or a part of ``loops``.
+        With ``back``, rows from ``bh - back`` on of its block at the step
         before: what a ring of halo ``back`` would have carried into this
         step, loaded (and bounded by the view's valid rows) as that step
         loaded them."""
+        dims, axis = self.r_shapes[r], self.kg.rings[r].axis
         tap = block_tap(self.kg, gi)
         if back:
             def at(ax: AxisIndex) -> AxisIndex:
@@ -598,7 +740,102 @@ class _GroupEmitter:
                       tuple((at(ax), lim) for ax, lim in tap.bounds))
         val = self.tap(tap)
         shape = _resized(dims, axis, n)
-        return self.loop(shape, [f"{self.at(name, dims, shape, {axis: offset})} = {val};"])
+        if rows is not None:
+            shape = _resized(shape, 0, rows)
+        return shape, [f"{self.at(f'r{r}', dims, shape, {axis: offset})} = {val};"]
+
+    # -- lane-carried groups ------------------------------------------------
+
+    def _sources(self, progs) -> set:
+        """The shared arrays ``progs`` read: ``("r", ring)`` and ``("s", entry)``."""
+        return {("r" if op[1].kind == "ring" else "s", op[1].src)
+                for prog in progs for op in prog if op[0] == "tap" and op[1].kind != "view"}
+
+    def lane_step(self) -> Tuple[List[str], int]:
+        """One lane step ``j`` of a lane-carried group, and its barriers.
+
+        Each panel (``shift_panels``) holds a physical row once; the member
+        of the largest row shift holding it lands or evaluates it.  The
+        step runs in phases, one barrier after each: every column ring and
+        lane line buffer rotates (at ``j == 0`` the rings land their
+        warm-up lanes instead), then each level of producers (the rings'
+        steady lanes; a stage one level above every array it reads, with
+        its warm-up lanes at ``j == 0``), then the output.  No barrier
+        follows the output unless it reads an array that the next step's
+        rotation writes."""
+        lg, kg = self.lg, self.kg
+        bw = kg.bw
+        sync = "__syncthreads();"
+        rotate, warm = [], []
+        level: Dict[Tuple[str, int], int] = {}
+        phases: Dict[int, Tuple[List, List]] = {}
+        for pan in self.ring_panels:
+            r0 = pan.members[0]
+            ring = kg.rings[r0]
+            dims = (pan.rows,) + tuple(self.r_shapes[r0][1:])
+            rotate.append(self.rotate_lanes(f"r{r0}", dims, ring.axis, ring.halo, bw))
+            for r, rows in pan.segments():
+                ring = kg.rings[r]
+                warm.append(self.land(r, 0, ring.prefix, ring.halo, rows))
+                phases.setdefault(1, ([], []))[1].append(
+                    self.land(r, ring.halo, ring.steady, bw, rows))
+            level.update({("r", r): 1 for r in pan.members})
+        # a lane line buffer's panel is emitted at its first member, a fused
+        # panel alone
+        first = {pan.members[0]: pan for pan in self.lb_panels}
+        later = {m for pan in self.lb_panels for m in pan.members[1:]}
+        for si, (sp, key) in enumerate(lg.entries):
+            if si in later:
+                continue
+            pan = first.get(si, ShiftPanel((si,), (0,), kg.bh))
+            lb = sp.line_buffer if si in first else None
+            part_warm, part_main = [], []
+            if lb is None:
+                s, t = key if isinstance(key, tuple) else (key, 0)
+                progs = [lg.programs[(sp.name, s, t)]]
+                part_main.append(self.panel(sp, s, t, lambda sh, v, n=f"s{si}": [f"{n}[e] = {v};"]))
+            else:
+                dims = (pan.rows,) + tuple(self.s_shapes[si][1:])
+                ax, h = len(dims) - 1, lb.halo
+                rotate.append(self.rotate_lanes(f"s{si}", dims, ax, h, bw))
+                progs = []
+                for m, rows in pan.segments():
+                    s = lg.entries[m][1][0]
+                    name, mdims = f"s{m}", self.s_shapes[m]
+                    progs += [lg.programs[(sp.name, s, lb.lo)], lg.programs[(sp.name, s, lb.hi)]]
+                    part_warm.append(self.panel(
+                        sp, s, lb.lo,
+                        lambda sh, v, n=name, d=mdims: [f"{self.at(n, d, sh)} = {v};"],
+                        rows=rows, cols=h))
+                    part_main.append(self.panel(
+                        sp, s, lb.hi,
+                        lambda sh, v, n=name, d=mdims, o={ax: h}: [
+                            f"{self.at(n, d, sh, o)} = {v};"],
+                        rows=rows))
+            lv = 1 + max((level[src] for src in self._sources(progs)), default=0)
+            level.update({("s", m): lv for m in pan.members})
+            ph = phases.setdefault(lv, ([], []))
+            ph[0].extend(part_warm)
+            ph[1].extend(part_main)
+        out: List[str] = []
+        if rotate:
+            out += ["if (j > 0) {"] + _indent(self.loops(rotate))
+            out += (["} else {"] + _indent(self.loops(warm)) + ["}"]) if warm else ["}"]
+            out.append(sync)
+        for lv in sorted(phases):
+            part_warm, part_main = phases[lv]
+            if part_warm:
+                out += ["if (j == 0) {"] + _indent(self.loops(part_warm)) + ["}"]
+            out += self.loops(part_main)
+            out.append(sync)
+        out += self.output_panel()
+        progs = [lg.programs[(kg.output.name, 0, 0)]] + (
+            [lg.init_program] if lg.init_program is not None else [])
+        rotated = {("r", r) for r in range(len(kg.rings))}
+        rotated |= {("s", m) for pan in self.lb_panels for m in pan.members}
+        if self._sources(progs) & rotated:
+            out.append(sync)
+        return out, sum(ln.strip() == sync for ln in out)
 
     # -- element-parallel groups --------------------------------------------
 
@@ -878,66 +1115,60 @@ class _GroupEmitter:
     # -- kernel -------------------------------------------------------------
 
     def step(self) -> List[str]:
-        """One grid step of the Pallas kernel body, at ``(i0, j)``."""
+        """One grid step of the Pallas kernel body, at ``(i0, j)``, of a
+        row-carried group or one that carries nothing."""
         lg, kg = self.lg, self.kg
-        bh, bw = kg.bh, kg.bw
+        bh = kg.bh
         sync = "__syncthreads();"
         out: List[str] = []
         if kg.rings:
             # rotate the carried halo (or warm up at the first step), then
-            # land the steady block
+            # land the steady block; a band's first step after step 0 lands
+            # the steady rows the step before would have rotated in
             for r, ring in enumerate(kg.rings):
-                dims, h, ax = self.r_shapes[r], ring.halo, ring.axis
-                rotate = _indent(self.rotate(f"r{r}", dims, ax, h, bw if ring.lane else bh))
-                prefix = _indent(self.land(f"r{r}", dims, ax, 0, ring.prefix, h))
-                if ring.lane:
-                    out += ["if (j > 0) {"] + rotate + ["} else {"] + prefix + ["}"]
-                else:
-                    # a band's first step after step 0 lands the steady rows
-                    # the step before would have rotated in
-                    back = _indent(self.land(f"r{r}", dims, ax, 0, ring.steady, h, back=h))
-                    out += (["if (i0 > band_begin) {"] + rotate + ["} else if (i0 == 0) {"]
-                            + prefix + ["} else {"] + back + ["}"])
+                h = ring.halo
+                rotate = _indent(self.rotate_rows(f"r{r}", self.r_shapes[r], h, bh))
+                prefix = _indent(self.loop(*self.land(r, 0, ring.prefix, h)))
+                back = _indent(self.loop(*self.land(r, 0, ring.steady, h, back=h)))
+                out += (["if (i0 > band_begin) {"] + rotate + ["} else if (i0 == 0) {"]
+                        + prefix + ["} else {"] + back + ["}"])
             out.append(sync)
             for r, ring in enumerate(kg.rings):
-                n = bw if ring.lane else bh
-                out += self.land(f"r{r}", self.r_shapes[r], ring.axis, ring.halo, ring.steady, n)
+                out += self.loop(*self.land(r, ring.halo, ring.steady, bh))
             out.append(sync)
         for si, (sp, key) in enumerate(lg.entries):
             name, dims, lb = f"s{si}", self.s_shapes[si], sp.line_buffer
-            if key is None or (isinstance(key, tuple) and key[1] is None):
-                # a row line buffer (key None) or a column ring of a lane
-                # line buffer (key (row shift, None))
-                lane = key is not None
+            if key is None:
+                # a row line buffer: it warms up at its band's first step
                 h = lb.halo
-                ax, n, var = (len(dims) - 1, bw, "j") if lane else (0, bh, "i0")
-                if lane:
-                    warm, steady = (key[0], lb.lo), (key[0], lb.hi)
-                    wkw = {"cols": h}
-                else:
-                    warm, steady = (lb.lo, 0), (lb.hi, 0)
-                    wkw = {"rows": h}
-                # a row buffer warms up at its band's first step, a column
-                # buffer at the first lane step of each row step
-                first = "0" if lane else "band_begin"
-                out.append(f"if ({var} > {first}) {{")
-                out += _indent(self.rotate(name, dims, ax, h, n))
+                out.append("if (i0 > band_begin) {")
+                out += _indent(self.rotate_rows(name, dims, h, bh))
                 out.append("}")
                 out.append(sync)
-                out.append(f"if ({var} == {first}) {{")
-                out += _indent(self.panel(
-                    sp, *warm, lambda sh, v, n=name, d=dims: [f"{self.at(n, d, sh)} = {v};"],
-                    **wkw,
-                ))
+                out.append("if (i0 == band_begin) {")
+                out += _indent(self.loop(*self.panel(
+                    sp, lb.lo, 0, lambda sh, v, n=name, d=dims: [f"{self.at(n, d, sh)} = {v};"],
+                    rows=h,
+                )))
                 out.append("}")
-                out += self.panel(
-                    sp, *steady,
-                    lambda sh, v, n=name, d=dims, o={ax: h}: [f"{self.at(n, d, sh, o)} = {v};"],
-                )
+                out += self.loop(*self.panel(
+                    sp, lb.hi, 0,
+                    lambda sh, v, n=name, d=dims, o={0: h}: [f"{self.at(n, d, sh, o)} = {v};"],
+                ))
             else:
                 s, t = key if isinstance(key, tuple) else (key, 0)
-                out += self.panel(sp, s, t, lambda sh, v, n=name: [f"{n}[e] = {v};"])
+                out += self.loop(*self.panel(sp, s, t, lambda sh, v, n=name: [f"{n}[e] = {v};"]))
             out.append(sync)
+        out += self.output_panel()
+        if lg.row_carried:
+            out.append(sync)
+        return out
+
+    def output_panel(self) -> List[str]:
+        """The output stage's panel (a grid reduction's chunks summed in
+        order), stored where it lies inside the output's extents."""
+        lg, kg = self.lg, self.kg
+        bh, bw = kg.bh, kg.bw
         out_sp = kg.output
         ext = out_sp.nstage.pure_extents
         if lg.lane_blocked(out_sp):
@@ -956,17 +1187,13 @@ class _GroupEmitter:
             return [f"if ({cond}) {target} = {v};" if cond else f"{target} = {v};"]
         rg = kg.red_grid
         if rg is None:
-            out += self.panel(out_sp, 0, 0, store)
-        else:
-            init, iv = self.program(lg.init_program)
-            chunk, cv = self.program(lg.programs[(out_sp.name, 0, 0)])
-            body = ["float acc;", "{"] + _indent(init) + [f"  acc = {iv};", "}"]
-            body.append(f"for (int k = 0; k < {rg.steps}; ++k) {{")
-            body += _indent(chunk) + [f"  acc = {cv};", "}"]
-            out += self.loop(lg.panel_shape(out_sp), body + store(None, "acc"))
-        if lg.row_carried or lg.lane_carried:
-            out.append(sync)
-        return out
+            return self.loop(*self.panel(out_sp, 0, 0, store))
+        init, iv = self.program(lg.init_program)
+        chunk, cv = self.program(lg.programs[(out_sp.name, 0, 0)])
+        body = ["float acc;", "{"] + _indent(init) + [f"  acc = {iv};", "}"]
+        body.append(f"for (int k = 0; k < {rg.steps}; ++k) {{")
+        body += _indent(chunk) + [f"  acc = {cv};", "}"]
+        return self.loop(lg.panel_shape(out_sp), body + store(None, "acc"))
 
     def source(self) -> str:
         lg, kg = self.lg, self.kg
@@ -1040,7 +1267,7 @@ class _GroupEmitter:
             lines.append("  const int i0 = blockIdx.x;")
             lines.append("  {")
         if em is None:
-            body = self.step()
+            body = self.lane_step()[0] if lg.lane_carried else self.step()
         lines += ["    " + ln for ln in body]
         lines += ["  }", "}", ""]
         lines += [
@@ -1060,13 +1287,23 @@ class _GroupEmitter:
             "  return (int)cudaGetLastError();",
             "}",
             "",
+            "// the blocks of this kernel an SM of the current card holds at once",
+            f'extern "C" int ub_occupancy_{t}(int* blocks_per_sm) {{',
+            f"  cudaError_t err = cudaFuncSetAttribute(ub_kernel_{t}, "
+            f"cudaFuncAttributeMaxDynamicSharedMemorySize, {self.smem});",
+            "  if (err != cudaSuccess) return (int)err;",
+            f"  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, "
+            f"ub_kernel_{t}, {self.nt}, {self.smem});",
+            "}",
+            "",
         ]
         return "\n".join(lines)
 
 
 def emit_kernel(kg: KernelGroup, tag: str = "0", lowered: Optional[LoweredGroup] = None) -> str:
-    """CUDA C++ for one kernel group: a ``__global__`` kernel and its
-    ``extern "C"`` launcher ``ub_launch_<tag>``.  Deterministic in the plan.
+    """CUDA C++ for one kernel group: a ``__global__`` kernel, its
+    ``extern "C"`` launcher ``ub_launch_<tag>`` and its occupancy query
+    ``ub_occupancy_<tag>``.  Deterministic in the plan.
     Raises :class:`EmitError` for a plan the port cannot run
     (``eager.check_supported``) or a scratch footprint over the H100's
     shared memory per block."""
@@ -1137,6 +1374,7 @@ class CudaKernel:
         ]
         fn.restype = ctypes.c_int
         self._fn = fn
+        self._lib, self._tag = lib, tag
         self._err = lib.ub_error_string
         self._err.argtypes = [ctypes.c_int]
         self._err.restype = ctypes.c_char_p
@@ -1148,6 +1386,20 @@ class CudaKernel:
     @property
     def stage_names(self) -> List[str]:
         return self.kg.stage_names
+
+    def blocks_per_sm(self) -> int:
+        """The blocks of this kernel an SM of the current card holds at
+        once, by the CUDA runtime's occupancy calculator on the kernel as
+        built (its threads, registers and shared memory)."""
+        fn = getattr(self._lib, f"ub_occupancy_{self._tag}")
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        n = ctypes.c_int()
+        rc = fn(ctypes.byref(n))
+        if rc != 0:
+            raise EmitError(f"occupancy query failed: {self._err(rc).decode()} (cudaError {rc})",
+                            kernel=self.kg.name)
+        return n.value
 
     def __call__(self, buffers: Mapping[str, torch.Tensor]) -> torch.Tensor:
         lg, kg = self.lg, self.kg
@@ -1193,8 +1445,10 @@ __all__ = [
     "emit_kernel",
     "emit_library",
     "grid_x",
+    "lane_layout",
     "launch_dims",
     "output_shape",
     "row_bands",
+    "shift_panels",
     "smem_layout",
 ]

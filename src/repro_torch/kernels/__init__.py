@@ -4,8 +4,9 @@
 PyTorch version, the torch oracles (``ref``) and the ``ops`` entry points.
 
 ``KERNELS`` maps each CUDA kernel's name to its launcher, which holds the
-source path and the count of launches; ``ssd_scan`` is two kernels,
-``ssd_gram`` and ``ssd_scan``, and ``matmul`` and ``flash_attention`` each
+source path and the count of launches; ``ssd_scan`` is four kernels,
+``ssd_gram``, ``ssd_chunk_state``, ``ssd_state_pass`` and
+``ssd_chunk_out``, and ``matmul`` and ``flash_attention`` each
 route bf16 calls that TMA can read to a tensor-core kernel
 (``matmul_wgmma``, ``flash_attention_wgmma``) and every other call to a
 SIMT kernel (``matmul``, ``flash_attention``); a SIMT matmul that splits K
@@ -18,7 +19,7 @@ KERNELS = {
     k.name: k
     for k in (
         stencil.KERNEL, matmul.KERNEL, matmul.REDUCE, matmul.WGMMA, flash_attention.KERNEL,
-        flash_attention.WGMMA, ssd.GRAM, ssd.KERNEL,
+        flash_attention.WGMMA, ssd.GRAM, ssd.STATE, ssd.PASS, ssd.OUT,
     )
 }
 

@@ -35,7 +35,7 @@ from repro_torch.apps import make_app
 from repro_torch.backend import cuda_codegen
 from repro_torch.backend.build import CSRC
 from repro_torch.backend.cuda_codegen import (
-    element_map, emit_library, launch_dims, output_shape, row_bands,
+    element_map, emit_library, lane_layout, launch_dims, output_shape, row_bands, shift_panels,
 )
 from repro_torch.backend.eager import EagerKernel, LoweredGroup
 from repro_torch.backend.plan import build_pipeline_plan
@@ -69,6 +69,20 @@ CASES = [
      {"block_w": 3, "batch": 3, "batch_capacity": 4}, True, None),
     # a carried group: column rings and a lane line buffer, on the old loop
     ("gaussian-carried", "gaussian", {"size": 26}, {"block_w": 9, "line_buffer": True},
+     False, None),
+    # harris sch3 carried along its lanes, as at 2048: five row-shifted
+    # column rings and three row-shifted lane line buffers a gradient, each
+    # set one shared panel; 21 = 2 x 9 + 3 valid rows (the last row step
+    # partial) and 21 = 4 x 5 + 1 lanes (the lane tail ragged)
+    ("harris-lane-carried", "harris", {"schedule": "sch3", "size": 25},
+     {"block_h": 9, "block_w": 5, "line_buffer": True}, False, None),
+    # the last row step with one valid row of five, fewer than the largest
+    # row shift (4); 26 = 3 x 7 + 5 lanes
+    ("harris-lane-partial", "harris", {"schedule": "sch3", "size": 30},
+     {"block_h": 5, "block_w": 7, "line_buffer": True}, False, None),
+    # batch slots, the last padded; 17 = 3 x 5 + 2 rows, 17 = 2 x 6 + 5 lanes
+    ("harris-lane-batched", "harris", {"schedule": "sch3", "size": 21},
+     {"block_w": 6, "block_h": 5, "line_buffer": True, "batch": 3, "batch_capacity": 4},
      False, None),
 ]
 # row-carried groups, their sweep cut into bands of 1, 2 and 3 row steps:
@@ -294,3 +308,46 @@ def test_emitted_kernel_equals_plain_version_bit_for_bit(libraries, cid, name, k
             f"{float((got - want).abs().max())}"
         )
         bufs[lg.kg.name] = got
+
+
+@pytest.mark.parametrize("cid", ["harris-lane-carried", "harris-lane-partial",
+                                 "harris-lane-batched"])
+def test_lane_carried_panels_share_rows(libraries, cid):
+    """A lane-carried harris keeps one shared panel for the input's five
+    row-shifted column rings (bh + 4 rows) and one for each gradient's three
+    row-shifted lane line buffers (bh + 2 rows), so its shared memory is
+    below the plan's scratch (a ring or line buffer per shift), and its lane
+    step has four barriers (rotation, rings, gradients, their products)
+    where one phase per ring set, line buffer and stage had 18."""
+    lowered, _lib = libraries[cid]
+    (lg,) = lowered
+    kg = lg.kg
+    assert lg.lane_carried
+    lbs, rings = shift_panels(kg)
+    assert [pan.rows for pan in rings] == [kg.bh + 4]
+    assert [pan.rows for pan in lbs] == [kg.bh + 2, kg.bh + 2]
+    smem, barriers = lane_layout(lg)
+    assert smem < kg.scratch_bytes
+    assert barriers == 4 < 18
+
+
+@pytest.mark.parametrize("cid", [c[0] for c in CASES])
+def test_occupancy_query_binds(libraries, cid):
+    """``CudaKernel.blocks_per_sm`` calls each group's
+    ``ub_occupancy_<tag>`` in the library (the shim's occupancy calculator
+    answers 1 block an SM)."""
+    lowered, lib = libraries[cid]
+    for i, lg in enumerate(lowered):
+        assert cuda_codegen.CudaKernel(lg, lib, str(i)).blocks_per_sm() == 1
+
+
+def test_harris_2048_lane_layout():
+    """chip_smoke.py's harris 2048 group: 39,168 bytes of shared memory
+    (72,320 with a ring or line buffer per row shift) and 4 barriers a lane
+    step (18 before)."""
+    (kg,) = _plan("harris", {"schedule": "sch3", "size": 2048},
+                  {"batch": 8, "batch_capacity": 8}).kernels
+    lg = LoweredGroup(kg)
+    assert (kg.bh, kg.bw, lg.steps, lg.lane_steps) == (5, 256, 409, 8)
+    assert kg.scratch_bytes == 72320
+    assert lane_layout(lg) == (39168, 4)

@@ -32,7 +32,9 @@ from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.matmul import matmul, matmul_plain
 from repro_torch.kernels.ssd import (
-    ssd_chunk_scan, ssd_chunk_scan_plain, ssd_gram, ssd_gram_plain, ssd_scan, ssd_scan_plain,
+    ssd_chunk_out, ssd_chunk_out_plain, ssd_chunk_scan, ssd_chunk_scan_plain, ssd_chunk_state,
+    ssd_chunk_state_plain, ssd_gram, ssd_gram_plain, ssd_scan, ssd_scan_plain, ssd_state_pass,
+    ssd_state_pass_plain,
 )
 from repro_torch.kernels.stencil import stencil3x3, stencil3x3_plain
 
@@ -262,7 +264,10 @@ def _cpu_calls(dtype=torch.float32):
         "flash_attention": ((flash_attention, (q, k, v)), (ops.attention_op, (q, k, v))),
         "flash_attention_wgmma": ((flash_attention, (q, k, v)), (ops.attention_op, (q, k, v))),
         "ssd_gram": ((ssd_gram, (s_in[3], s_in[4], 16)), (ops.ssd_op, s_in)),
-        "ssd_scan": ((ssd_scan, s_in), (ops.ssd_op, s_in)),
+        "ssd_chunk_state": ((ssd_chunk_state, (*s_in[:4], 16)), (ops.ssd_op, s_in)),
+        "ssd_state_pass": ((ssd_state_pass, (t(2, 2, 8, 4), t(32, 2), 16)), (ops.ssd_op, s_in)),
+        "ssd_chunk_out": ((ssd_chunk_out, (s_in[0], s_in[1], s_in[4], t(2, 16, 16), t(32, 2),
+                                           t(2, 2, 8, 4), 16)), (ops.ssd_op, s_in)),
     }
 
 
@@ -516,8 +521,15 @@ def test_wgmma_descriptor_bit_fields(tmp_path):
     # gemma3-1b's global layer, D 256: the tensor cores' bound of its work
     ("flash_attention", [(4, 2048, 256)] * 3, torch.bfloat16, None, 0.00869, "operations"),
     ("ssd_gram", [(2048, 128), (2048, 128)], torch.float32, 256, 0.00125, "bytes"),
-    ("ssd_scan", [(2048, 80, 64), (2048, 80), (80,), (2048, 128), (2048, 128), (8, 256, 256)],
-     torch.float32, 256, 0.1204, "operations"),
+    # mamba2-2.7b: the chunk-local products at the f32 FMA rate (the read-out
+    # of chunks 1..7 only: the state entering chunk 0 is zero), the state
+    # pass by its bytes, the workspace among them (8 chunks' states written,
+    # 7 chunks' contributions read: the last chunk's is never used)
+    ("ssd_chunk_state", [(2048, 80, 64), (2048, 80), (80,), (2048, 128)], torch.float32, 256,
+     0.0401, "operations"),
+    ("ssd_state_pass", [(8, 80, 128, 64), (2048, 80)], torch.float32, 256, 0.01174, "bytes"),
+    ("ssd_chunk_out", [(2048, 80, 64), (2048, 80), (2048, 128), (8, 256, 256), (2048, 80),
+                       (8, 80, 128, 64)], torch.float32, 256, 0.0753, "operations"),
 ])
 def test_chip_smoke_bounds(name, shapes, dtype, chunk, bound_ms, by):
     """``chip_smoke.kernel_work`` gives each phase-7 configuration the bound
@@ -529,13 +541,13 @@ def test_chip_smoke_bounds(name, shapes, dtype, chunk, bound_ms, by):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    args = [torch.empty(sh, dtype=dtype if i == 0 or name != "ssd_scan" else torch.float32,
+    args = [torch.empty(sh, dtype=dtype if i == 0 or not name.startswith("ssd_") else torch.float32,
                         device="meta") for i, sh in enumerate(shapes)]
     if name == "matmul_reduce":
         out_shape = shapes[0][1:]
     else:
         out_shape = {"stencil3x3": (1080, 1920), "matmul": (shapes[0][0], shapes[1][1]),
-                     "ssd_gram": (8, 256, 256)}.get(name, shapes[0])
+                     "ssd_gram": (8, 256, 256), "ssd_chunk_state": (8, 80, 128, 64)}.get(name, shapes[0])
     nbytes, ops_, peak = smoke.kernel_work(name, args, torch.empty(out_shape, dtype=dtype, device="meta"), chunk)
     t_bytes, t_ops = 1e3 * nbytes / smoke.PEAK_BYTES_PER_S, 1e3 * ops_ / peak
     assert ("bytes" if t_bytes >= t_ops else "operations") == by
@@ -561,11 +573,16 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   return {(unsigned short)(u >> 16)};
 }
 """
-# cp.async as a plain copy (zeros where the copy is masked), its waits no-ops
+# cp.async as a plain copy (zeros where the copy is masked), its waits no-ops;
+# a copy from a source off 16 bytes, which faults on the card, is counted
 CP_ASYNC_SHIM = r"""
 #pragma once
+#include <cstdint>
 #include <cstring>
+extern "C" int cp_async_misaligned;
+int cp_async_misaligned = 0;
 inline void cp_async16(void* dst, const void* src, bool full) {
+  if (full && (uintptr_t)src % 16) ++cp_async_misaligned;
   if (full) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16);
 }
 inline void cp_async_commit() {}
@@ -575,23 +592,26 @@ template <int N> inline void cp_async_wait() {}
 
 class _HostLauncher:
     """A launcher of a SIMT kernel built for the host: the same C entry and
-    arguments as the CUDA launcher it stands for, and a count.  With
-    ``out=(i, nbytes)``, argument ``i`` is the output, whose
+    arguments as the CUDA launcher it stands for, and a count.  Each of
+    ``outs``, ``(i, nbytes)``, names an output, argument ``i``, whose
     ``nbytes(*args)`` bytes are set to NaN before the launch, so an element
-    the kernel leaves unwritten shows."""
+    the kernel leaves unwritten shows.  A launch that issues a ``cp.async``
+    from a source off 16 bytes, a fault on the card, fails."""
 
-    def __init__(self, lib, launcher, out=None):
+    def __init__(self, lib, launcher, *outs):
+        self.misaligned = ctypes.c_int.in_dll(lib, "cp_async_misaligned")
         self.fn = getattr(lib, f"{launcher.name}_launch")
         self.fn.argtypes = launcher._argtypes + [ctypes.c_void_p]
         self.fn.restype = ctypes.c_int
-        self.out = out
+        self.outs = outs
         self.launches = 0
 
     def __call__(self, device, *args):
-        if self.out is not None:
-            i, nbytes = self.out
+        for i, nbytes in self.outs:
             ctypes.memset(args[i], 0xFF, nbytes(*args))
+        self.misaligned.value = 0
         assert device.type == "cpu" and self.fn(*args, None) == 0
+        assert self.misaligned.value == 0, "cp.async from a source off 16 bytes"
         self.launches += 1
 
 
@@ -834,6 +854,110 @@ def test_ssd_gram_on_host_matches_plain_version(host_simt, chunk, n, values, mon
         torch.testing.assert_close(got.double(), g64, rtol=1e-4, atol=1e-4)
 
 
+# (chunk, P, N, dtype) over S 96 and H 3: chunk 8 and 16 leave most of a
+# 64-row tile empty, chunk 48 cuts one; P 40 cuts the 64-wide P tile; N 18
+# brings B in through registers (not a multiple of 4) and N 20 cuts a
+# 16-deep slice; bf16 x goes through registers everywhere; P 5 takes f32 x
+# through registers too, and N * P 90 and 85 a state pass without float4s
+HOST_SSD = [(ch, p, n, dtype) for ch in (8, 16, 48) for p in (8, 40) for n in (16, 18, 20)
+            for dtype in (torch.float32, torch.bfloat16)]
+HOST_SSD += [(16, 5, 18, torch.float32), (48, 5, 17, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("chunk,p,n,dtype", HOST_SSD, ids=[
+    f"chunk{c}-p{p}-n{n}-{str(d)[6:]}" for c, p, n, d in HOST_SSD])
+def test_ssd_chunk_kernels_on_host_match_plain_versions(host_simt, chunk, p, n, dtype,
+                                                         monkeypatch):
+    """``ssd_chunk_state``, ``ssd_state_pass`` and ``ssd_chunk_out`` run on
+    the CPU through their wrappers (outputs NaN first), one launch each a
+    call, each within 1e-4 of its plain version on the same inputs (a bf16
+    y within one bf16 rounding, 2**-8 relative, of the plain version's f32
+    value), and ``ssd_chunk_scan``, which launches the three, within 1e-4
+    of ``ssd_chunk_scan_plain`` (its f32 sums reordered: the scan of s,
+    the chunk-local products)."""
+    lib = host_simt["ssd_scan"]
+    # outputs: the states (S / L, H, N, P) and s (S, H), f32; y (S, H, P) of x's dtype
+    state = _HostLauncher(lib, ssd_mod.STATE,
+                          (4, lambda *a: 4 * a[6] // a[10] * a[7] * a[8] * a[9]),
+                          (5, lambda *a: 4 * a[6] * a[7]))
+    pass_ = _HostLauncher(lib, ssd_mod.PASS)
+    out = _HostLauncher(lib, ssd_mod.OUT, (6, lambda *a: a[7] * a[8] * a[9] * (4 - 2 * a[12])))
+    monkeypatch.setattr(ssd_mod, "require_cuda", lambda *a: torch.device("cpu"))
+    for name, launcher in (("STATE", state), ("PASS", pass_), ("OUT", out)):
+        monkeypatch.setattr(ssd_mod, name, launcher)
+    rng = np.random.default_rng(chunk * 1000 + p * n)
+    arrs = ssd_arrays(rng, 96, 3, p, n)
+    x = ops.to_tensor(arrs[0], dtype, "cpu")
+    dt, a, b, c = (torch.from_numpy(v) for v in arrs[1:])
+    g = ssd_gram_plain(b, c, chunk)
+
+    def close(got, want, tol=1e-4):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+    states, s = ssd_chunk_state(x, dt, a, b, chunk)
+    want_states, want_s = ssd_chunk_state_plain(x, dt, a, b, chunk)
+    assert states.shape == (96 // chunk, 3, n, p) and s.shape == (96, 3)
+    close(s, want_s)
+    close(states, want_states)
+    entering = ssd_state_pass(states.clone(), s, chunk)
+    close(entering, ssd_state_pass_plain(states, s, chunk))
+    y = ssd_chunk_out(x, dt, c, g, s, entering, chunk)
+    assert y.dtype == dtype and y.shape == (96, 3, p)
+    want_y = ssd_chunk_out_plain(x.float(), dt, c, g, s, entering, chunk)
+    close(y.float(), want_y, 1e-4 if dtype == torch.float32 else 2 ** -8)
+    assert (state.launches, pass_.launches, out.launches) == (1, 1, 1)
+    y = ssd_chunk_scan(x, dt, a, b, c, g, chunk=chunk)
+    assert (state.launches, pass_.launches, out.launches) == (2, 2, 2)
+    want = ssd_chunk_scan_plain(x.float(), dt, a, b, c, g, chunk=chunk)
+    close(y.float(), want, 1e-4 if dtype == torch.float32 else 2 ** -8)
+
+
+@pytest.mark.parametrize("n,p", [(16, 8), (18, 5)], ids=["float4", "scalar"])
+def test_ssd_state_pass_on_host_ignores_the_last_chunk(host_simt, n, p, monkeypatch):
+    """The last chunk's contribution and s make only the state after the
+    sequence, which nothing reads: ``ssd_state_pass`` gives the same
+    entering states, all finite, with them NaN (float4 and scalar
+    threads)."""
+    pass_ = _HostLauncher(host_simt["ssd_scan"], ssd_mod.PASS)
+    monkeypatch.setattr(ssd_mod, "require_cuda", lambda *a: torch.device("cpu"))
+    monkeypatch.setattr(ssd_mod, "PASS", pass_)
+    rng = np.random.default_rng(n * p)
+    chunk, nc, h = 16, 4, 3
+    states = torch.from_numpy(rng.standard_normal((nc, h, n, p)).astype(np.float32))
+    s = torch.from_numpy(-rng.random((nc * chunk, h)).astype(np.float32))
+    want = ssd_state_pass_plain(states, s, chunk)
+    states[-1], s[-chunk:] = float("nan"), float("nan")
+    got = ssd_state_pass(states.clone(), s, chunk)
+    assert pass_.launches == 1 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_ssd_chunk_out_on_host_takes_states_off_16_bytes(host_simt, monkeypatch):
+    """``ssd_chunk_out`` on f32 x whose states start one float past a
+    16-byte boundary: the launcher must not take them by ``cp.async``
+    (``_HostLauncher`` fails the launch), and y is within 1e-4 of its plain
+    version."""
+    out = _HostLauncher(host_simt["ssd_scan"], ssd_mod.OUT,
+                        (6, lambda *a: a[7] * a[8] * a[9] * (4 - 2 * a[12])))
+    monkeypatch.setattr(ssd_mod, "require_cuda", lambda *a: torch.device("cpu"))
+    monkeypatch.setattr(ssd_mod, "OUT", out)
+    chunk, p, n = 16, 8, 16
+    rng = np.random.default_rng(7)
+    arrs = ssd_arrays(rng, 96, 3, p, n)
+    x, dt, a, b, c = (torch.from_numpy(v) for v in arrs)
+    g = ssd_gram_plain(b, c, chunk)
+    states, s = ssd_chunk_state_plain(x, dt, a, b, chunk)
+    entering = ssd_state_pass_plain(states, s, chunk)
+    flat = torch.empty(entering.numel() + 1)
+    off = flat[1:].view(entering.shape)
+    off.copy_(entering)
+    assert off.data_ptr() % 16 != 0
+    y = ssd_chunk_out(x, dt, c, g, s, off, chunk)
+    assert out.launches == 1
+    torch.testing.assert_close(y, ssd_chunk_out_plain(x, dt, c, g, s, entering, chunk),
+                               rtol=1e-4, atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -841,10 +965,10 @@ def test_ssd_gram_on_host_matches_plain_version(host_simt, chunk, n, values, mon
 
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_version_on_card():
-    """Build and launch the eight kernels on small shapes; hold each against
+    """Build and launch the ten kernels on small shapes; hold each against
     its plain version (stencil, integer matmuls and grams bit for bit), one launch
     per call of the kernel its route names (the SSD op: one of each of its
-    two kernels; a SIMT matmul that splits K: one of the kernel and one of
+    four kernels; a SIMT matmul that splits K: one of the kernel and one of
     ``matmul_reduce``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc; run on the GPU machine")
@@ -896,6 +1020,9 @@ def test_cuda_kernels_match_plain_version_on_card():
          tuple(t(2, 64, 136, dtype=bf16) for _ in range(3)), {"causal": True}, 3e-2),
         ("ssd_gram", ssd_gram, ssd_gram_plain, (ssd_in[3], ssd_in[4], 32), {}, 1e-4),
         ("ssd_scan", ssd_scan, ssd_scan_plain, ssd_in, {"chunk": 32}, 1e-3),
+        # mamba2-like: P 64, N 128, the default chunk of 256, two chunks
+        ("ssd_scan", ssd_scan, ssd_scan_plain,
+         tuple(ops.to_tensor(a) for a in ssd_arrays(rng, 512, 4, 64, 128)), {}, 1e-3),
     ]
     # the SIMT matmul's host cases on the card: random at the JAX
     # tolerances, integers bit for bit
@@ -921,12 +1048,20 @@ def test_cuda_kernels_match_plain_version_on_card():
         s_len = 84 if chunk == 42 else 96
         cases.append(("ssd_gram", ssd_gram, ssd_gram_plain,
                       (ints(s_len, n).float(), ints(s_len, n).float(), chunk), {}, 0.0))
+    # the SSD kernels' host cases on the card, through the op (a bf16 y
+    # within a bf16 rounding of the plain version's)
+    for chunk, p, n, dtype in HOST_SSD:
+        arrs = ssd_arrays(rng, 96, 3, p, n)
+        cases.append(("ssd_scan", ssd_scan, ssd_scan_plain,
+                      (ops.to_tensor(arrs[0], dtype), *(ops.to_tensor(v) for v in arrs[1:])),
+                      {"chunk": chunk}, 1e-3 if dtype == torch.float32 else 1e-2))
     for name, fn, plain, args, kw, tol in cases:
         before = {k: launcher.launches for k, launcher in KERNELS.items()}
         got = fn(*args, **kw)
         torch.cuda.synchronize()
         want = plain(*args, **kw)
-        launched = {"ssd_scan": {"ssd_gram", "ssd_scan"}}.get(name, {name})
+        launched = {"ssd_scan": {"ssd_gram", "ssd_chunk_state", "ssd_state_pass",
+                                 "ssd_chunk_out"}}.get(name, {name})
         if name == "matmul":
             (m, k), n = args[0].shape, args[1].shape[1]
             if mm_mod.simt_plan(m, n, k)[2] > 1:
