@@ -29,7 +29,9 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    Each group's launch (blocks, threads, the thread map of an
    element-parallel group and its tile, the bands of row steps a
    row-carried group's sweep is cut into, a lane-carried group's barriers
-   a lane step), its shared memory, its blocks an SM by the CUDA
+   a lane step, the inputs a group that carries nothing stages in shared
+   memory and its output's register tile), its shared memory, its blocks
+   an SM by the CUDA
    runtime's occupancy calculator, its registers and spills as ``ptxas
    -v`` reported them, and its library's nvcc seconds are printed.  Each
    is also held against a computation that shares no code with the port:
@@ -38,7 +40,8 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    matmul against ``torch.matmul`` (all three timed as the library call,
    one call and replayed as the kernel is),
    mobilenet against a depthwise and a pointwise ``F.conv2d`` (two calls,
-   so no library time), and harris (1024 and 2048), unsharp and camera's
+   so no one-call library time: the two are timed together as
+   ``two_call_ms``), and harris (1024 and 2048), unsharp and camera's
    two groups, on one slot, against the app's math written as whole-image
    torch expressions (``rtol=1e-4, atol=1e-3``).  The DNN configurations
    take integers in [0, 16), so every sum stays below 2**24 and any
@@ -58,9 +61,9 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    and attention call must launch the expected kernel and no other (read
    from the launch counts): bf16 ``matmul`` and
    ``flash_attention`` take the tensor cores (``matmul_wgmma``,
-   ``flash_attention_wgmma``), also where the shapes cut their tiles
-   (Sq 96; Skv 192), while bf16 with K or N not a multiple of 8, or a
-   head dim above 128 (136, 256) or not a multiple of 8 (30), and every
+   ``flash_attention_wgmma``, head dims 32 to 256), also where the shapes
+   cut their tiles (Sq 96; Skv 192; at D 256 too), while bf16 with K or N
+   not a multiple of 8, or a head dim not a multiple of 8 (30), and every
    f32 call take the SIMT kernels (a SIMT matmul that splits K also
    ``matmul_reduce``); the SIMT attention is also held at f32 where its
    own 64-row tiles are cut (Sq 96, Skv 192), at D 136 and 256 and at
@@ -70,7 +73,7 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
 7. hand-written kernels at model widths: a 1080p gaussian, tinyllama-1.1b's
    MLP up-projection (bf16 and f32) and prefill attention (bf16 and f32),
    qwen3-14b's prefill attention, gemma3-1b's global-layer prefill
-   attention (bf16, D 256: the SIMT kernel is its only route),
+   attention (bf16, D 256, on the tensor cores),
    mamba2-2.7b's SSD prefill and the matmul tile of phase 4.  Each configuration is driven once through its
    ``repro_torch.kernels.ops`` entry point with every launch count zeroed
    just before and read just after; then each kernel is held against its
@@ -82,9 +85,8 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    its bound and the one PyTorch call computing the same function where
    there is one, timed both ways.  Each configuration names the kernels its
    call must launch, and no other may launch: the bf16 MLP up-projection
-   ``matmul_wgmma``, the tinyllama and qwen3-14b bf16 prefills
-   ``flash_attention_wgmma``, gemma3-1b's and the f32 calls the SIMT
-   kernels.  A tensor-core row also launches the SIMT kernel
+   ``matmul_wgmma``, the tinyllama, qwen3-14b and gemma3-1b bf16 prefills
+   ``flash_attention_wgmma``, the f32 calls the SIMT kernels.  A tensor-core row also launches the SIMT kernel
    on the same call (directly, into a buffer of its own, after the launch
    counts were read), holds its output against the same plain version and
    oracle at the same tolerance, and times it.
@@ -96,7 +98,9 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    ``ref.ssd_ref`` for y), and the op is timed whole.  An f32 matmul prints the SIMT kernel's
    tile and K split (``matmul.simt_plan``), and every attention row the
    SIMT attention kernel's tile, blocks and blocks an SM on its inputs
-   (``flash_attention.simt_plan``); where K is split (the matmul
+   (``flash_attention.simt_plan``), a tensor-core attention row also its
+   own (``flash_attention.wgmma_plan``: tile, blocks, blocks an SM,
+   shared bytes); where K is split (the matmul
    tile) the call launches ``matmul`` and ``matmul_reduce``, each timed
    alone on its own row, and the whole call too.  The f32 matmuls are bit
    for bit on their integer inputs and are also held at the JAX package's
@@ -432,8 +436,24 @@ def library_check(label: str, bufs, out):
         err = float((want - out).abs().max())
         ok = torch.allclose(out, want, rtol=1e-5, atol=1e-3)
         return None, ok, (f"max|cuda - depthwise + pointwise F.conv2d| = {err!r} "
-                          "(rtol=1e-5 atol=1e-3; two calls, no library time)")
+                          "(rtol=1e-5 atol=1e-3; two calls, no one-call library time)")
     return None, None, None
+
+
+def two_calls(label: str, bufs):
+    """mobilenet's depthwise and pointwise ``F.conv2d`` as two calls on the
+    group's inputs (what ``library_check`` holds it against), for timing
+    beside the group: no one PyTorch call computes the group, so this is
+    not a ``library_ms``; None for any other configuration."""
+    import torch.nn.functional as F
+
+    if label != "mobilenet":
+        return None
+    x, wd, wp = bufs["ifmap"], bufs["dw_weights"], bufs["pw_weights"]
+    nb, _, _, c = x.shape
+    xs = x.permute(0, 3, 1, 2).reshape(1, nb * c, x.shape[1], x.shape[2]).contiguous()
+    wds, wps = wd.reshape(nb * c, 1, 3, 3), wp.reshape(-1, c, 1, 1)
+    return lambda: F.conv2d(F.conv2d(xs, wds, groups=nb * c), wps, groups=nb)
 
 
 GAUSS_W = [[1, 2, 1], [2, 4, 2], [1, 2, 1]]
@@ -592,17 +612,20 @@ def kernels_small() -> None:
         if not torch.equal(got, plain):
             raise AssertionError(f"stencil3x3 {(h, w)}: not bit-equal to the plain version")
     # (batch, Sq, Skv, D): the JAX package's shapes, query and KV extents
-    # that cut the tensor cores' 128-row tiles, and bf16 head dims above the
-    # tensor-core kernel's 128, which stay on the SIMT kernel
+    # that cut the tensor cores' 128-row tiles, and bf16 head dims above 128,
+    # which the D 256 tensor-core kernel takes, its 64-row tiles cut too
     fa_cases = [((b, s, s, d), causal, dtype, tol,
                  "flash_attention_wgmma" if dtype == bf16 else "flash_attention")
                 for b, s, d in [(2, 128, 64), (1, 256, 32), (4, 64, 128)]
                 for causal in (True, False) for dtype, tol in ((f32, 2e-3), (bf16, 3e-2))]
     fa_cases += [((2, 96, 96, 64), True, bf16, 3e-2, "flash_attention_wgmma"),
                  ((2, 64, 192, 32), False, bf16, 3e-2, "flash_attention_wgmma"),
-                 ((2, 64, 64, 136), True, bf16, 3e-2, "flash_attention"),
-                 ((2, 64, 128, 136), False, bf16, 3e-2, "flash_attention"),
-                 ((1, 128, 128, 256), True, bf16, 3e-2, "flash_attention")]
+                 ((2, 64, 64, 136), True, bf16, 3e-2, "flash_attention_wgmma"),
+                 ((2, 64, 128, 136), False, bf16, 3e-2, "flash_attention_wgmma"),
+                 ((1, 128, 128, 256), True, bf16, 3e-2, "flash_attention_wgmma"),
+                 ((2, 96, 96, 256), True, bf16, 3e-2, "flash_attention_wgmma"),
+                 ((2, 64, 192, 256), False, bf16, 3e-2, "flash_attention_wgmma"),
+                 ((1, 320, 320, 256), True, bf16, 3e-2, "flash_attention_wgmma")]
     # the SIMT kernel's own cuts: f32 at the 256 instantiation (D 136 and
     # 256), query and KV extents that cut its 64-row tiles, and D 30, whose
     # rows neither cp.async nor 8-byte bf16 loads can take
@@ -756,9 +779,8 @@ def kernels_full(full_apps, rows) -> None:
          lambda: attention(40, 8, 4096, 128, bf16),
          flash_bf16, ("F.scaled_dot_product_attention", sdpa, None), None),
         # gemma3-1b's global layer (1 in 6; the kernel has no sliding
-        # window): 4 query heads over 1 KV head, D 256, which only the SIMT
-        # kernel takes
-        ("gemma3-1b-prefill", "flash_attention", lambda: attention(4, 1, 2048, 256, bf16),
+        # window): 4 query heads over 1 KV head, D 256, on the tensor cores
+        ("gemma3-1b-prefill", "flash_attention_wgmma", lambda: attention(4, 1, 2048, 256, bf16),
          flash_bf16, ("F.scaled_dot_product_attention", sdpa, None), None),
         ("mamba2-2.7b-prefill", "ssd_scan", lambda: mamba(2048, 80, 64, 128), dict(tol=1e-3),
          None, None),
@@ -917,6 +939,13 @@ def kernels_full(full_apps, rows) -> None:
                     f"{plan['threads']} threads, {plan['blocks']} blocks, "
                     f"{plan['blocks_per_sm']} a SM ({plan['smem_bytes']} B of shared memory "
                     f"each), K and V by {plan['copy']}")
+            if kname == "flash_attention_wgmma":
+                row["wgmma_plan"] = plan = fa.wgmma_plan(*args)
+                log(f"[kernels-full] {label} {kname} {dname}: tensor-core plan "
+                    f"{plan['block_q']}x{plan['block_kv']} tile (D compiled for {plan['dmax']}), "
+                    f"{plan['consumers']} consumer warpgroup(s), "
+                    f"{plan['threads']} threads, {plan['blocks']} blocks, "
+                    f"{plan['blocks_per_sm']} a SM ({plan['smem_bytes']} B of shared memory each)")
         else:
             # four kernels, each timed alone on the outputs of the ones
             # before it: C B^T of every chunk, each chunk's own state and s,
@@ -1020,8 +1049,8 @@ def main() -> int:
     )
     from repro_torch.backend.build import build_many, digest, ptxas_usage
     from repro_torch.backend.cuda_codegen import (
-        REPLACES, block_threads, element_map, emit_library, grid_x, lane_layout, row_bands,
-        smem_layout,
+        REPLACES, block_threads, element_map, emit_library, grid_x, lane_layout, output_tile,
+        row_bands, shared_bytes, staged_inputs,
     )
     from repro_torch.backend.eager import LoweredGroup
     from repro_torch.backend.plan import build_pipeline_plan
@@ -1119,7 +1148,9 @@ def main() -> int:
             blocks = grid_x(k.lg) * k.kg.batch_steps
             threads = block_threads(k.lg)
             regs = usage.get(f"ub_kernel_{gi}", {})
-            smem = smem_layout(k.kg)[2]
+            smem = shared_bytes(k.lg)
+            staged = staged_inputs(k.lg)
+            ot = output_tile(k.lg)
             per_sm = k.blocks_per_sm()
             lane = lane_layout(k.lg)
             nbytes, ops = bytes_and_ops(k)
@@ -1132,6 +1163,13 @@ def main() -> int:
             if library is not None:
                 library_ms = time_ms(library, 10)
                 library_device_ms = graph_ms(library)
+            pair = two_calls(label, bufs)
+            two_ms = two_device_ms = None
+            if pair is not None:
+                two_ms = time_ms(pair, 10)
+                two_device_ms = graph_ms(pair)
+                log(f"[full] {label}/{k.name} depthwise + pointwise F.conv2d, two calls: "
+                    f"{two_ms:.4f} ms ({two_device_ms:.4f} ms replayed)")
             if lib_ok is None:
                 # the last slot, whole image, held against the app's math
                 # written as whole-image torch expressions
@@ -1167,6 +1205,11 @@ def main() -> int:
                 "smem_bytes": smem,
                 "blocks_per_sm": per_sm,
                 "barriers_per_lane_step": lane[1] if lane else None,
+                "staged": [{"buffer": st.buffer, "bytes": st.nbytes, "smem_bytes": st.smem_bytes,
+                            "strides": list(st.strides)} for st in staged],
+                "output_tile": [ot.rows, ot.cols] if ot is not None else None,
+                "two_call_ms": two_ms,
+                "two_call_device_ms": two_device_ms,
                 "regs_per_thread": regs.get("registers"),
                 "spill_bytes": regs.get("spill_stores"),
                 "nvcc_s": nvcc_s,
@@ -1183,6 +1226,13 @@ def main() -> int:
             elif lane:
                 thread_map = (f"element loop, {k.lg.lane_steps} lane steps a block, "
                               f"{lane[1]} barriers a lane step")
+            elif ot is not None or staged:
+                thread_map = (
+                    "element loop; staged "
+                    + (", ".join(f"{st.buffer} {st.nbytes} B ({st.smem_bytes} B, strides "
+                                 f"{list(st.strides)})" for st in staged) or "nothing")
+                    + (f"; output tile {ot.rows}x{ot.cols} a thread ({ot.lanes} lanes x "
+                       f"{ot.groups} groups)" if ot is not None else ""))
             else:
                 thread_map = "element loop"
             log(f"[full] {label}/{k.name} grid={k.kg.grid} bh={k.kg.bh} bw={k.kg.bw} "

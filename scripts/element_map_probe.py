@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Time thread-map variants of the element-parallel generated groups on one GPU.
+"""Time thread-map variants of the element-parallel generated groups, and of
+mobilenet's group that carries nothing, on one GPU.
 
-    python3 scripts/element_map_probe.py [--apps resnet,matmul,upsample]
-        [--batches 8,1] [--variants loop,128x8,128x4] [--out FILE]
+    python3 scripts/element_map_probe.py [--apps resnet,matmul,upsample,mobilenet]
+        [--batches 8,1] [--variants loop,128x8,128x4,t16,t4] [--out FILE]
 
 For each app at its ``chip_smoke.py`` size and each batch, every variant of
-the element-parallel emission (``cuda_codegen.element_map``) is emitted,
+the element-parallel emission (``cuda_codegen.element_map``) or of the
+register-tiled output panel (``cuda_codegen.output_tile``) is emitted,
 built (one nvcc per variant, all started together), held bit for bit
 against the plain PyTorch version on the same CUDA inputs, and timed: one
 call between CUDA events (median of 10) and per call over replays of a
@@ -13,11 +15,13 @@ CUDA graph behind an L2-evicting write (``chip_smoke.graph_ms``).  A
 variant is ``<threads>x<tile>`` (threads per block, the most elements one
 thread evaluates together), optionally followed by ``b<blocks>`` (the cap
 on blocks per slot), ``u<n>`` (the unroll of a rolled run of reduction
-terms) and ``r<n>`` (the shortest run rolled), or ``loop``: the element
-loop every carried or fused group uses, which these groups took before
-their own thread map.  Prints one line per variant (with its registers
-and spills from ``ptxas -v`` and its nvcc seconds) and, with ``--out``,
-writes them as JSON.  Needs a CUDA device.
+terms) and ``r<n>`` (the shortest run rolled); or ``t<n>``, the most
+output elements a thread of mobilenet's tiled output panel evaluates
+(``OUT_TILE_MAX``); or ``loop``: the element loop every carried or fused
+group uses, which these groups took before their own thread map (for
+mobilenet also with no input staged).  Prints one line per variant (with
+its registers and spills from ``ptxas -v`` and its nvcc seconds) and, with
+``--out``, writes them as JSON.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ APPS = {
     "resnet": ({"img": 56, "cin": 64, "cout": 64}, True),
     "matmul": ({"m": 256, "n": 256, "k": 1000}, True),
     "upsample": ({"size": 1024}, False),
+    "mobilenet": ({"img": 112, "cin": 32, "cout": 64}, True),
 }
 
 
@@ -48,11 +53,16 @@ def emit(app, batch: int, variant: str):
     plan = build_pipeline_plan(app.pipeline, vmem_budget=H100_SMEM_PER_BLOCK, **kw)
     lowered = [LoweredGroup(kg) for kg in plan.kernels]
     knobs = ("THREADS_ELEMENT", "TILE_MAX", "MAX_BLOCKS_PER_SLOT", "ROLL_UNROLL", "ROLL_MIN",
-             "element_map")
+             "element_map", "output_tile", "staged_inputs", "OUT_TILE_MAX")
     saved = {k: getattr(cc, k) for k in knobs}
     try:
+        tiled = re.fullmatch(r"t(\d+)", variant)
         if variant == "loop":
             cc.element_map = lambda lg: None
+            cc.output_tile = lambda lg: None
+            cc.staged_inputs = lambda lg: []
+        elif tiled:
+            cc.OUT_TILE_MAX = int(tiled.group(1))
         else:
             m = re.fullmatch(r"(\d+)x(\d+)(?:b(\d+))?(?:u(\d+))?(?:r(\d+))?", variant)
             if m is None:
@@ -60,7 +70,7 @@ def emit(app, batch: int, variant: str):
             for k, v in zip(knobs, m.groups()):
                 if v:
                     setattr(cc, k, int(v))
-        maps = [cc.element_map(lg) for lg in lowered]
+        maps = [(cc.element_map(lg), cc.output_tile(lg), cc.staged_inputs(lg)) for lg in lowered]
         return lowered, maps, cc.emit_library(lowered)
     finally:
         for k, v in saved.items():
@@ -104,7 +114,7 @@ def main() -> int:
     rng = np.random.default_rng(20261017)
     plain_cache = {}
     for name, app, integer, batch, variant, lowered, maps, src in jobs:
-        (lg,), (em,) = lowered, maps
+        (lg,), ((em, ot, staged),) = lowered, maps
         key = (name, batch)
         if key not in plain_cache:
             ins = inputs_for(app, rng, batch=batch if batch > 1 else None, integer=integer)
@@ -121,6 +131,9 @@ def main() -> int:
             "thread_axis": em.thread_axis if em else None,
             "tile": em.tile if em else None, "threads": em.threads if em else None,
             "blocks": (em.blocks if em else None), "bit_equal": bool(same),
+            "output_tile": [ot.rows, ot.cols] if ot else None,
+            "staged": [[st.buffer, st.smem_bytes] for st in staged],
+            "blocks_per_sm": k.blocks_per_sm(),
             "ms": time_ms(lambda: k(bufs), 10), "graph_ms": graph_ms(lambda: k(bufs)),
             "nvcc_s": secs.get(digest(src)), **usage, "card": card,
         }

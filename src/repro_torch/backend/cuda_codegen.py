@@ -61,6 +61,15 @@ block-by-block transliteration:
   first, then each level of producers one above what it reads, one
   barrier after each (:func:`lane_layout` reports the count), with each
   phase's loops merged into one over all its parts.
+* **A group that carries nothing stages its weights and tiles its
+  output** (mobilenet's fused depthwise -> pointwise at full size): each
+  input whose loads vary with no row step, lane step or chunk is copied
+  into shared memory once a block, coalesced, in a bank-conflict-free
+  layout (:func:`staged_inputs`), and the output panel is evaluated in
+  register tiles (:func:`output_tile`): lanes along the output's innermost
+  axis, each thread several positions by several of those elements, its
+  programs interleaved and a reduction's chain rolled, so each fused value
+  or weight is loaded once for the elements that share it.
 * **Element-parallel groups get a thread map of their own**
   (:func:`element_map`): a group with no rings, no fused scratch and no
   carry (resnet's lane grid, matmul's grid reduction, upsample) shares
@@ -142,6 +151,11 @@ MAX_BLOCKS_PER_SLOT = 4096
 # is emitted as a loop, unrolled ROLL_UNROLL times
 ROLL_MIN = 8
 ROLL_UNROLL = 4
+# a group that carries nothing and is not element-parallel evaluates its
+# output panel in register tiles: OUT_LANES threads along the panel's
+# innermost axis, each thread at most OUT_TILE_MAX output elements
+OUT_LANES = 32
+OUT_TILE_MAX = 16
 
 # the TPU kernel this emitter replaces, for reports
 REPLACES = "src/repro/backend/codegen.py:755"
@@ -166,6 +180,29 @@ def _flit(v: float) -> str:
     if math.isinf(f):
         return "__int_as_float(0x7f800000)" if f > 0 else "__int_as_float(0xff800000)"
     return f"{f.hex()}f"
+
+
+def _rhs(op: Op, ref: Callable[[int], str], index: Callable[[AxisIndex], str],
+         load: Callable[[Tap], str], conds: Callable[[Bounds], List[str]], acc: str = "acc") -> str:
+    """Op ``op``'s value as a C expression: ``ref(j)`` names op ``j``'s
+    value; ``index``, ``load`` and ``conds`` write an index, a load and a
+    mask's bounds that can fail; ``acc`` is the running accumulator."""
+    kind = op[0]
+    if kind == "const":
+        return _flit(op[1])
+    if kind == "iter":
+        return f"(float)({index(op[1])})"
+    if kind == "tap":
+        return load(op[1])
+    if kind == "bin":
+        a, b = ref(op[2]), ref(op[3])
+        return f"{a} {_BIN_INFIX[op[1]]} {b}" if op[1] in _BIN_INFIX else f"{_BIN_FN[op[1]]}({a}, {b})"
+    if kind == "sel":
+        return f"ub_sel({ref(op[1])}, {ref(op[2])}, {ref(op[3])})"
+    if kind == "mask":
+        ok = conds(op[2])
+        return f"({' && '.join(ok)}) ? {ref(op[1])} : 0.f" if ok else ref(op[1])
+    return acc
 
 
 def _affine(const: int, terms: Sequence[Tuple[int, str]]) -> str:
@@ -335,6 +372,92 @@ def _chain(ops: Sequence[Op]) -> Optional[Tuple[int, List[int]]]:
                     return None
         prev = e
     return head, ends
+
+
+def _runs(sigs: Sequence[Tuple[tuple, tuple]]) -> List[Tuple[int, int, Optional[tuple]]]:
+    """A chain's terms, by their ``(signature, constants)``, as runs
+    ``(first, count, step)``: each the longest run of terms from ``first``
+    whose signatures agree and whose constants advance by the same
+    ``step`` a term (None for a run of one)."""
+    out = []
+    s = 0
+    while s < len(sigs):
+        n, step = 1, None
+        while s + n < len(sigs) and sigs[s + n][0] == sigs[s][0]:
+            d = tuple(y - x for x, y in zip(sigs[s][1], sigs[s + n][1]))
+            if step is None:
+                step = d
+            if d != tuple(n * x for x in step):
+                break
+            n += 1
+        out.append((s, n, step))
+        s += n
+    return out
+
+
+def _roll_op(op: Op, it) -> Op:
+    """``op`` inside a loop over ``r``: each index constant, in signature
+    order, advances by the next step of ``it`` per iteration."""
+    def roll(axs):
+        return tuple(RolledIndex(**vars(ax), rstep=next(it)) for ax in axs)
+
+    def bounds(bnd):
+        return tuple(zip(roll([ax for ax, _l in bnd]), (lim for _a, lim in bnd)))
+
+    if op[0] == "iter":
+        return ("iter", roll([op[1]])[0])
+    if op[0] == "tap":
+        t = op[1]
+        return ("tap", Tap(t.kind, t.src, roll(t.axes), bounds(t.bounds)))
+    if op[0] == "mask":
+        return ("mask", op[1], bounds(op[2]))
+    return op
+
+
+def _term_signature(ops: Sequence[Op], a: int, e: int, head: int,
+                    checks: Callable[[Op], List[bool]]) -> Tuple[tuple, tuple]:
+    """What must agree for a chain's terms ``ops[a..e]`` to share a loop
+    body, and their constants: every op's kind and operands (relative to the
+    term, the chain's previous value or the head), every index's variables,
+    every bound's limit, and which checks of each load and mask the emitter
+    writes (``checks``)."""
+    sig: List[object] = []
+    consts: List[int] = []
+    kept: List[bool] = []
+
+    def axes(axs):
+        for ax in axs:
+            sig.append((ax.q, ax.stride, ax.step, ax.lstep, ax.kstep))
+            consts.append(ax.const)
+
+    def ref(x: int):
+        return ("acc",) if x == a - 1 else ("h", x) if x < head else ("l", x - a)
+
+    for j in range(a, e + 1):
+        op = ops[j]
+        kind = op[0]
+        if kind == "const":
+            sig.append(("const", _flit(op[1])))
+        elif kind == "iter":
+            sig.append("iter")
+            axes([op[1]])
+        elif kind == "tap":
+            t = op[1]
+            sig.append(("tap", t.kind, t.src, len(t.axes), tuple(lim for _a, lim in t.bounds)))
+            axes(t.axes)
+            axes([ax for ax, _l in t.bounds])
+            kept += checks(op)
+        elif kind == "mask":
+            sig.append(("mask", ref(op[1]), tuple(lim for _a, lim in op[2])))
+            axes([ax for ax, _l in op[2]])
+            kept += checks(op)
+        elif kind in ("bin", "sel"):
+            sig.append((kind, op[1] if kind == "bin" else None,
+                        tuple(ref(x) for x in _operands(op))))
+        else:
+            sig.append(("acc",))
+    sig.append(tuple(kept))
+    return tuple(sig), tuple(consts)
 
 
 def element_parallel(lg: LoweredGroup) -> bool:
@@ -540,6 +663,162 @@ def grid_x(lg: LoweredGroup) -> int:
     return lg.steps * lg.lane_steps
 
 
+def carries_nothing(lg: LoweredGroup) -> bool:
+    """A group that is neither row-carried, lane-carried nor
+    element-parallel: fused recompute panels, one block per row step (and
+    lane step), nothing carried from one block to the next."""
+    return not (lg.row_carried or lg.lane_carried) and element_map(lg) is None
+
+
+def _stage_programs(lg: LoweredGroup) -> List[Tuple[Sequence[Op], Tuple[int, ...]]]:
+    """Every program the group evaluates, with its panel's shape."""
+    kg = lg.kg
+    out = [(prog, lg.panel_shape(kg.stage_plan(name))) for (name, _s, _t), prog in lg.programs.items()]
+    if lg.init_program is not None:
+        out.append((lg.init_program, lg.panel_shape(kg.output)))
+    return out
+
+
+def _panel_ranges(shape: Sequence[int]) -> Dict[str, Tuple[int, int]]:
+    return {f"p{q}": (0, e - 1) for q, e in enumerate(shape)}
+
+
+@dataclass(frozen=True)
+class StagedInput:
+    """A grid-invariant input of a group that carries nothing (the weights
+    of a convolution: no load of it moves with the row step, lane step or
+    chunk), which every block copies into shared memory over its required
+    ``extents``, before its first panel, with a coalesced copy.  The copy
+    is ``w<slot>`` at float ``offset`` of the block's shared memory, axis
+    ``a`` at float stride ``strides[a]``: each extent after the first
+    padded to an odd count, so that 32 threads reading 32 consecutive
+    indices of any one axis hit 32 banks."""
+
+    buffer: str
+    slot: int
+    extents: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    offset: int
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes of the copy (one slot's)."""
+        return 4 * math.prod(self.extents)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Its shared memory, padding included."""
+        return 4 * self.extents[0] * self.strides[0]
+
+
+def staged_inputs(lg: LoweredGroup) -> List[StagedInput]:
+    """The inputs a group that carries nothing stages in shared memory
+    (none for any other group), while they fit beside the group's scratch
+    in the H100's shared memory per block: each buffer all of whose loads
+    vary with no row step, lane step or chunk and stay inside its required
+    extents."""
+    if not carries_nothing(lg):
+        return []
+    kg = lg.kg
+    need = kg.required_extents()
+    taps: Dict[int, List[Tuple[Tap, Tuple[int, ...]]]] = {}
+    for prog, shape in _stage_programs(lg):
+        for op in prog:
+            if op[0] == "tap" and op[1].kind == "view":
+                b = lg.slot_of[kg.groups[op[1].src].buffer]
+                taps.setdefault(b, []).append((op[1], shape))
+
+    def invariant(t: Tap) -> bool:
+        axes = list(t.axes) + [ax for ax, _l in t.bounds]
+        return all(ax.step == 0 and ax.lstep == 0 and ax.kstep == 0 for ax in axes)
+
+    def inside(t: Tap, shape: Tuple[int, ...], ext: Tuple[int, ...]) -> bool:
+        rng = _panel_ranges(shape)
+        return len(t.axes) == len(ext) and all(
+            0 <= _span(ax, rng)[0] and _span(ax, rng)[1] < e for ax, e in zip(t.axes, ext))
+
+    off = smem_layout(kg)[2]
+    out: List[StagedInput] = []
+    for b, buf in enumerate(lg.buffer_order):
+        ext = tuple(need[buf])
+        if b not in taps or not all(invariant(t) and inside(t, sh, ext) for t, sh in taps[b]):
+            continue
+        padded = [e if a == 0 or e % 2 else e + 1 for a, e in enumerate(ext)]
+        strides = tuple(math.prod(padded[a + 1:]) for a in range(len(ext)))
+        st = StagedInput(buf, b, ext, strides, off // 4)
+        if off + st.smem_bytes <= H100_SMEM_PER_BLOCK:
+            out.append(st)
+            off += st.smem_bytes
+    return out
+
+
+
+@dataclass(frozen=True)
+class OutputTile:
+    """How the output panel of a group that carries nothing maps to its
+    block's threads.  The panel is ``outer`` positions (its axes but the
+    innermost, flattened) by ``inner`` (its innermost axis, the output's
+    contiguous one).  ``lanes`` consecutive threads run along the innermost
+    axis, each evaluating ``cols`` elements ``lanes`` apart, so every store
+    of a warp is one run of memory; the block's ``groups`` rows of threads
+    each take ``rows`` outer positions ``groups`` apart.  A thread's
+    ``rows`` x ``cols`` programs are interleaved statement by statement, so
+    a load that does not vary along the innermost axis (a fused panel's
+    value) is issued once for its ``cols`` elements, and one that varies
+    only along it (a weight) once for its ``rows``.  Threads loop over the
+    panel in passes of ``groups * rows`` by ``lanes * cols`` elements; an
+    element past the panel is evaluated at the last position and not
+    stored."""
+
+    lanes: int
+    cols: int
+    groups: int
+    rows: int
+    outer: int
+    inner: int
+
+
+def output_tile(lg: LoweredGroup) -> Optional[OutputTile]:
+    """The register tile of a group that carries nothing (None for any
+    other group, under a grid reduction, or where no load of the output
+    panel could be shared): ``OUT_LANES`` threads along the innermost axis
+    (fewer where it is shorter), as many columns as cover it where some
+    load does not vary along it, then as many rows as the block's groups of
+    threads need to cover the outer positions in as few passes as
+    ``OUT_TILE_MAX`` elements a thread allow, where some load varies only
+    along the innermost axis."""
+    if not carries_nothing(lg) or lg.kg.red_grid is not None:
+        return None
+    shape = lg.panel_shape(lg.kg.output)
+    n = len(shape)
+    outer, inner = math.prod(shape[:-1]), shape[-1]
+    last = f"p{n - 1}"
+    taps = [op[1] for op in lg.programs[(lg.kg.output.name, 0, 0)] if op[0] == "tap"]
+
+    def varies(t: Tap, var: str) -> bool:
+        return any(_uses(ax, var) for ax in t.axes) or any(_uses(ax, var) for ax, _l in t.bounds)
+
+    share_cols = any(not varies(t, last) for t in taps)
+    share_rows = any(not any(varies(t, f"p{q}") for q in range(n - 1)) for t in taps)
+    if not (share_cols or share_rows):
+        return None
+    lanes = min(OUT_LANES, inner)
+    groups = THREADS_GRID // lanes
+    cols = min(-(-inner // lanes), OUT_TILE_MAX) if share_cols else 1
+    rows = 1
+    if share_rows:
+        want = -(-outer // groups)
+        passes = -(-want // max(OUT_TILE_MAX // cols, 1))
+        rows = -(-want // passes)
+    return OutputTile(lanes, cols, groups, rows, outer, inner)
+
+
+def shared_bytes(lg: LoweredGroup) -> int:
+    """A group's dynamic shared memory: its scratch (``smem_layout``) and
+    its staged inputs (``staged_inputs``)."""
+    return smem_layout(lg.kg)[2] + sum(st.smem_bytes for st in staged_inputs(lg))
+
+
 def lane_layout(lg: LoweredGroup) -> Optional[Tuple[int, int]]:
     """A lane-carried group's shared-memory bytes (``smem_layout``) and
     ``__syncthreads()`` per lane step of its kernel; None for any other
@@ -584,8 +863,30 @@ class _GroupEmitter:
             )
         self.s_shapes = [sp.scratch_shape(kg.bh, key) for sp, key in lg.entries]
         self.r_shapes = [r.ring_shape(kg.bh, kg.bw) for r in kg.rings]
+        self.staged = {st.slot: st for st in staged_inputs(lg)}
+        self.smem += sum(st.smem_bytes for st in self.staged.values())
+        self.tile = output_tile(lg)
+        # the panel coordinates' ranges of the program being emitted
+        self.prng: Dict[str, Tuple[int, int]] = {}
 
     # -- loads --------------------------------------------------------------
+
+    def block_ranges(self, shape: Sequence[int]) -> Dict[str, Tuple[int, int]]:
+        """The ranges of a panel's coordinates and of the row and lane step."""
+        lg = self.lg
+        return {**_panel_ranges(shape), "i0": (0, lg.steps - 1), "j": (0, lg.lane_steps - 1)}
+
+    def staging(self) -> List[str]:
+        """The staged inputs' coalesced copies into shared memory, each over
+        its required extents, then a barrier."""
+        out: List[str] = []
+        for b, st in self.staged.items():
+            n = len(st.extents)
+            dims = [f"D{b}_{a}" for a in range(n)]
+            lin = _affine(0, [(s, f"p{a}") for a, s in enumerate(st.strides)])
+            val = f"g{b}[{_horner([f'p{a}' for a in range(n)], dims)}]"
+            out += self.loop(st.extents, [f"w{b}[{lin}] = {val};"])
+        return out + ["__syncthreads();"]
 
     @staticmethod
     def index(ax: AxisIndex, sub: Optional[Mapping[str, str]] = None) -> str:
@@ -597,44 +898,45 @@ class _GroupEmitter:
         sub = sub or {}
         return _affine(ax.const, [(c, sub.get(v, v)) for c, v in terms if c])
 
-    def bounds(self, bounds: Bounds) -> List[str]:
-        return [f"{self.index(ax)} < {limit}" for ax, limit in bounds]
+    def bounds(self, bounds: Bounds, sub: Optional[Mapping[str, str]] = None) -> List[str]:
+        return [f"{self.index(ax, sub)} < {limit}" for ax, limit in bounds]
 
-    def tap(self, t: Tap) -> str:
-        idx = [self.index(ax) for ax in t.axes]
+    def tap(self, t: Tap, sub: Optional[Mapping[str, str]] = None) -> str:
+        idx = [self.index(ax, sub) for ax in t.axes]
         if t.kind == "ring":
             return f"r{t.src}[{_horner(idx, self.r_shapes[t.src])}]"
         if t.kind == "scratch":
             return f"s{t.src}[{_horner(idx, self.s_shapes[t.src])}]"
         b = self.lg.slot_of[self.kg.groups[t.src].buffer]
+        st = self.staged.get(b)
+        if st is not None:
+            # the shared copy: every index lies inside the required extents
+            # (``staged_inputs``), so the buffer's bounds cannot fail and
+            # are dropped; a valid-row bound that some element of the
+            # launch fails keeps its 0
+            coef: Dict[str, int] = {}
+            const = 0
+            for ax, s in zip(t.axes, st.strides):
+                const += s * ax.const
+                terms = [(getattr(ax, "rstep", 0), "r")]
+                if ax.q is not None:
+                    terms.append((ax.stride, f"p{ax.q}"))
+                for c, v in terms:
+                    if c:
+                        coef[v] = coef.get(v, 0) + s * c
+            sub = sub or {}
+            val = f"w{b}[{_affine(const, [(c, sub.get(v, v)) for v, c in sorted(coef.items())])}]"
+            ok = [f"{self.index(ax, sub)} < {lim}" for ax, lim in t.bounds
+                  if _span(ax, self.prng)[1] >= lim]
+            return f"(({' && '.join(ok)}) ? {val} : 0.f)" if ok else val
         dims = [f"D{b}_{j}" for j in range(len(idx))]
         ok = [f"(unsigned)({a}) < (unsigned){d}" for a, d in zip(idx, dims)]
-        ok += self.bounds(t.bounds)
+        ok += self.bounds(t.bounds, sub)
         return f"ub_load(g{b}, {' && '.join(ok)}, {_horner(idx, dims)})"
 
     def program(self, ops: Sequence[Op]) -> Tuple[List[str], str]:
-        lines = []
-        for k, op in enumerate(ops):
-            kind = op[0]
-            if kind == "const":
-                rhs = _flit(op[1])
-            elif kind == "iter":
-                rhs = f"(float)({self.index(op[1])})"
-            elif kind == "tap":
-                rhs = self.tap(op[1])
-            elif kind == "bin":
-                a, b = f"v{op[2]}", f"v{op[3]}"
-                if op[1] in _BIN_INFIX:
-                    rhs = f"{a} {_BIN_INFIX[op[1]]} {b}"
-                else:
-                    rhs = f"{_BIN_FN[op[1]]}({a}, {b})"
-            elif kind == "sel":
-                rhs = f"ub_sel(v{op[1]}, v{op[2]}, v{op[3]})"
-            elif kind == "mask":
-                rhs = f"({' && '.join(self.bounds(op[2]))}) ? v{op[1]} : 0.f"
-            else:
-                rhs = "acc"
-            lines.append(f"const float v{k} = {rhs};")
+        lines = [f"const float v{k} = {_rhs(op, 'v{}'.format, self.index, self.tap, self.bounds)};"
+                 for k, op in enumerate(ops)]
         return lines, f"v{len(ops) - 1}"
 
     # -- loops --------------------------------------------------------------
@@ -702,6 +1004,7 @@ class _GroupEmitter:
         ``store``: the ``(shape, body)`` of a ``loop`` or a part of
         ``loops``."""
         shape = self.lg.panel_shape(sp, rows, cols)
+        self.prng = self.block_ranges(shape)
         body, val = self.program(self.lg.programs[(sp.name, shift, lshift)])
         return shape, body + store(shape, val)
 
@@ -906,29 +1209,12 @@ class _GroupEmitter:
         t)`` names op ``j``'s value for element ``t``."""
         em = self.em
         ta = em.tile_axis
-        kind = op[0]
         lines = []
         for t in range(em.tile) if dep[i] else (0,):
             sub = {ta: f"{ta}_{t}"} if dep[i] and em.tile > 1 else {}
-            if kind == "const":
-                rhs = _flit(op[1])
-            elif kind == "iter":
-                rhs = f"(float)({self.index(op[1], sub)})"
-            elif kind == "tap":
-                rhs = self.ep_load(op[1], sub)
-            elif kind == "bin":
-                a, b = ref(op[2], t), ref(op[3], t)
-                if op[1] in _BIN_INFIX:
-                    rhs = f"{a} {_BIN_INFIX[op[1]]} {b}"
-                else:
-                    rhs = f"{_BIN_FN[op[1]]}({a}, {b})"
-            elif kind == "sel":
-                rhs = f"ub_sel({ref(op[1], t)}, {ref(op[2], t)}, {ref(op[3], t)})"
-            elif kind == "mask":
-                ok = self.ep_bounds(op[2], sub)
-                rhs = f"({' && '.join(ok)}) ? {ref(op[1], t)} : 0.f" if ok else ref(op[1], t)
-            else:
-                rhs = acc[t]
+            rhs = _rhs(op, lambda j, t=t: ref(j, t), lambda ax, s=sub: self.index(ax, s),
+                       lambda tp, s=sub: self.ep_load(tp, s), lambda b, s=sub: self.ep_bounds(b, s),
+                       acc[t] if op[0] == "acc" else "")
             lines.append(f"const float {ref(i, t)} = {rhs};")
         return lines
 
@@ -961,99 +1247,40 @@ class _GroupEmitter:
             lines += self.ep_op(ops[i], i, dep, name, acc)
         lines.append(f"float {', '.join(f'ch{t} = {name(head - 1, t)}' for t in tiles)};")
         starts = [head] + [e + 1 for e in ends[:-1]]
-        sigs = [self.ep_signature(ops, a, e, head) for a, e in zip(starts, ends)]
-        s = 0
-        while s < len(ends):
-            # the longest run of terms from s whose constants advance by one step
-            n, step = 1, None
-            while s + n < len(ends) and sigs[s + n][0] == sigs[s][0]:
-                d = tuple(y - x for x, y in zip(sigs[s][1], sigs[s + n][1]))
-                if step is None:
-                    step = d
-                if d != tuple(n * x for x in step):
-                    break
-                n += 1
+        sigs = [_term_signature(ops, a, e, head, self.ep_checks) for a, e in zip(starts, ends)]
+        for s, n, step in _runs(sigs):
             a, e = starts[s], ends[s]
             if n >= ROLL_MIN:
                 lines += [f"#pragma unroll {ROLL_UNROLL}", f"for (int r = 0; r < {n}; ++r) {{"]
                 lines += _indent(self.ep_term(ops, a, e, dep, name, step, n)) + ["}"]
-                s += n
             else:
-                lines += ["{"] + _indent(self.ep_term(ops, a, e, dep, name)) + ["}"]
-                s += 1
+                for j in range(n):
+                    a, e = starts[s + j], ends[s + j]
+                    lines += ["{"] + _indent(self.ep_term(ops, a, e, dep, name)) + ["}"]
         return lines, [f"ch{t}" for t in tiles]
 
-    def ep_signature(self, ops: Sequence[Op], a: int, e: int, head: int):
-        """What must agree for terms ``ops[a..e]`` to share a loop body, and
-        their constants: every op's kind and operands (relative to the
-        term, the chain's previous value or the head), every index's
-        variables and every bound's limit, and which loads and bounds the
-        launch has to check."""
-        sig: List[object] = []
-        consts: List[int] = []
-        checks: List[bool] = []
-
-        def axes(axs):
-            for ax in axs:
-                sig.append((ax.q, ax.stride, ax.step, ax.lstep, ax.kstep))
-                consts.append(ax.const)
-
-        def ref(x: int):
-            return ("acc",) if x == a - 1 else ("h", x) if x < head else ("l", x - a)
-
-        for j in range(a, e + 1):
-            op = ops[j]
-            kind = op[0]
-            if kind == "const":
-                sig.append(("const", _flit(op[1])))
-            elif kind == "iter":
-                sig.append("iter")
-                axes([op[1]])
-            elif kind == "tap":
-                t = op[1]
-                sig.append(("tap", t.kind, t.src, len(t.axes), tuple(lim for _a, lim in t.bounds)))
-                axes(t.axes)
-                axes([ax for ax, _l in t.bounds])
-                b = self.lg.slot_of[self.kg.groups[t.src].buffer]
-                for ax, n in zip(t.axes, self.need[b]):
-                    lo, hi = _span(ax, self.rng)
-                    checks.append(lo < 0 or hi >= n)
-                checks += [_span(ax, self.rng)[1] >= lim for ax, lim in t.bounds]
-            elif kind == "mask":
-                sig.append(("mask", ref(op[1]), tuple(lim for _a, lim in op[2])))
-                axes([ax for ax, _l in op[2]])
-                checks += [_span(ax, self.rng)[1] >= lim for ax, lim in op[2]]
-            elif kind in ("bin", "sel"):
-                sig.append((kind, op[1] if kind == "bin" else None,
-                            tuple(ref(x) for x in _operands(op))))
-            else:
-                sig.append(("acc",))
-        sig.append(tuple(checks))
-        return tuple(sig), tuple(consts)
+    def ep_checks(self, op: Op) -> List[bool]:
+        """Which of a load's or mask's checks some element of the launch
+        can fail."""
+        if op[0] == "tap":
+            t = op[1]
+            b = self.lg.slot_of[self.kg.groups[t.src].buffer]
+            out = []
+            for ax, n in zip(t.axes, self.need[b]):
+                lo, hi = _span(ax, self.rng)
+                out.append(lo < 0 or hi >= n)
+            return out + [_span(ax, self.rng)[1] >= lim for ax, lim in t.bounds]
+        return [_span(ax, self.rng)[1] >= lim for ax, lim in op[2]]
 
     def ep_term(self, ops, a, e, dep, name, step=None, n=1) -> List[str]:
         """Term ``ops[a..e]``, then its addition to the chain.  With
         ``step``, the body of a loop over ``r`` in ``[0, n)``: every index
         constant of the term advances by its step per iteration."""
         it = iter(step or ())
-
-        def roll(axs):
-            return tuple(RolledIndex(**vars(ax), rstep=next(it)) for ax in axs)
-
-        def bounds(bnd):
-            return tuple(zip(roll([ax for ax, _l in bnd]), (lim for _a, lim in bnd)))
-
         body = []
         self.rng["r"] = (0, n - 1)
         for i in range(a, e + 1):
-            op = ops[i]
-            if step is not None and op[0] == "iter":
-                op = ("iter", roll([op[1]])[0])
-            elif step is not None and op[0] == "tap":
-                t = op[1]
-                op = ("tap", Tap(t.kind, t.src, roll(t.axes), bounds(t.bounds)))
-            elif step is not None and op[0] == "mask":
-                op = ("mask", op[1], bounds(op[2]))
+            op = ops[i] if step is None else _roll_op(ops[i], it)
             body += self.ep_op(op, i, dep, lambda j, t: f"ch{t}" if j == a - 1 else name(j, t))
         del self.rng["r"]
         return body + [f"ch{t} = {name(e, t)};" for t in range(self.em.tile)]
@@ -1120,7 +1347,7 @@ class _GroupEmitter:
         lg, kg = self.lg, self.kg
         bh = kg.bh
         sync = "__syncthreads();"
-        out: List[str] = []
+        out: List[str] = self.staging() if self.staged else []
         if kg.rings:
             # rotate the carried halo (or warm up at the first step), then
             # land the steady block; a band's first step after step 0 lands
@@ -1168,32 +1395,185 @@ class _GroupEmitter:
         """The output stage's panel (a grid reduction's chunks summed in
         order), stored where it lies inside the output's extents."""
         lg, kg = self.lg, self.kg
-        bh, bw = kg.bh, kg.bw
         out_sp = kg.output
-        ext = out_sp.nstage.pure_extents
-        if lg.lane_blocked(out_sp):
-            nd = len(ext)
-            idx = [f"i0 * {bh} + p0"] + [f"p{d}" for d in range(1, nd - 1)]
-            idx.append(f"j * {bw} + p{nd - 1}")
-            cond = f"i0 * {bh} + p0 < {kg.e0} && j * {bw} + p{nd - 1} < {kg.e1}"
-            target = f"out[{_horner(idx, ext)}]"
-        elif lg.streamed(out_sp):
-            cond = f"i0 * {bh} + p0 < {kg.e0}"
-            target = f"out[i0 * {bh * math.prod(ext[1:])} + e]"
-        else:
-            cond, target = None, "out[e]"
 
         def store(_shape, v):
-            return [f"if ({cond}) {target} = {v};" if cond else f"{target} = {v};"]
+            return self.out_store([], {}, "e", v)
         rg = kg.red_grid
         if rg is None:
+            if self.tile is not None:
+                return self.tiled_output()
             return self.loop(*self.panel(out_sp, 0, 0, store))
+        self.prng = self.block_ranges(lg.panel_shape(out_sp))
         init, iv = self.program(lg.init_program)
         chunk, cv = self.program(lg.programs[(out_sp.name, 0, 0)])
         body = ["float acc;", "{"] + _indent(init) + [f"  acc = {iv};", "}"]
         body.append(f"for (int k = 0; k < {rg.steps}; ++k) {{")
         body += _indent(chunk) + [f"  acc = {cv};", "}"]
         return self.loop(lg.panel_shape(out_sp), body + store(None, "acc"))
+
+    def out_store(self, conds: List[str], sub: Mapping[str, str], e: str, v: str) -> List[str]:
+        """Store ``v`` at the output panel's element ``e`` (flat index;
+        coordinates ``p<q>`` renamed by ``sub``) where it lies inside the
+        output's extents and ``conds`` hold."""
+        kg = self.kg
+        bh, bw = kg.bh, kg.bw
+        out_sp = kg.output
+        ext = out_sp.nstage.pure_extents
+        p = [sub.get(f"p{d}", f"p{d}") for d in range(len(ext))]
+        conds = list(conds)
+        if self.lg.lane_blocked(out_sp):
+            nd = len(ext)
+            idx = [f"i0 * {bh} + {p[0]}"] + p[1:nd - 1] + [f"j * {bw} + {p[nd - 1]}"]
+            conds += [f"i0 * {bh} + {p[0]} < {kg.e0}", f"j * {bw} + {p[nd - 1]} < {kg.e1}"]
+            target = f"out[{_horner(idx, ext)}]"
+        elif self.lg.streamed(out_sp):
+            conds.append(f"i0 * {bh} + {p[0]} < {kg.e0}")
+            target = f"out[i0 * {bh * math.prod(ext[1:])} + {e}]"
+        else:
+            target = f"out[{e}]"
+        st = f"{target} = {v};"
+        return [f"if ({' && '.join(conds)}) {st}" if conds else st]
+
+    def tiled_output(self) -> List[str]:
+        """The output panel in register tiles (``output_tile``): each
+        thread's ``rows`` x ``cols`` programs interleaved statement by
+        statement, an op evaluated once for the elements it does not vary
+        across.  A reduction's accumulation chain keeps each element's sum
+        in ``ch<t>_<u>``, and each run of at least ``ROLL_MIN`` terms that
+        differ only in constants advancing by the same step is one loop
+        over ``r``, unrolled ``ROLL_UNROLL`` times (written out, nvcc
+        hoisted a whole chain's loads into registers: one block an SM)."""
+        lg, ot = self.lg, self.tile
+        out_sp = self.kg.output
+        shape = lg.panel_shape(out_sp)
+        n = len(shape)
+        ops = lg.programs[(out_sp.name, 0, 0)]
+        last = f"p{n - 1}"
+        outer = [f"p{q}" for q in range(n - 1)]
+
+        def dep_of(axes) -> Tuple[bool, bool]:
+            axes = list(axes)
+            return (any(_uses(ax, v) for ax in axes for v in outer),
+                    any(_uses(ax, last) for ax in axes))
+
+        dep: List[Tuple[bool, bool]] = []
+        for op in ops:
+            kind = op[0]
+            if kind == "iter":
+                d = dep_of([op[1]])
+            elif kind == "tap":
+                d = dep_of(list(op[1].axes) + [ax for ax, _l in op[1].bounds])
+            elif kind == "mask":
+                r, c = dep_of(ax for ax, _l in op[2])
+                d = (r or dep[op[1]][0], c or dep[op[1]][1])
+            elif kind in ("bin", "sel"):
+                xs = _operands(op)
+                d = (any(dep[x][0] for x in xs), any(dep[x][1] for x in xs))
+            else:
+                d = (False, False)
+            dep.append(d)
+        tiles = [(t, u) for t in range(ot.rows) for u in range(ot.cols)]
+
+        def name(k: int, t: int, u: int) -> str:
+            r, c = dep[k]
+            return f"v{k}" + (f"_{t}" if r else "") + (f"_c{u}" if c else "")
+
+        def sub(t: int, u: int) -> Dict[str, str]:
+            out = {v: f"{v}_{t}" for v in outer}
+            out[last] = f"{last}_{u}"
+            return out
+
+        def emit(k: int, op: Op, ref: Callable[[int, int, int], str]) -> List[str]:
+            """Op ``k`` for each element it depends on; ``ref(j, t, u)``
+            names op ``j``'s value for element ``(t, u)``."""
+            r, c = dep[k]
+            lines = []
+            for t in range(ot.rows) if r else (0,):
+                for u in range(ot.cols) if c else (0,):
+                    s = sub(t, u)
+                    rhs = _rhs(op, lambda j: ref(j, t, u), lambda ax: self.index(ax, s),
+                               lambda tp: self.tap(tp, s), lambda b: self.bounds(b, s))
+                    lines.append(f"const float {name(k, t, u)} = {rhs};")
+            return lines
+
+        rag_o = ot.outer % (ot.groups * ot.rows) != 0
+        rag_i = ot.inner % (ot.lanes * ot.cols) != 0
+        body: List[str] = []
+        for t in range(ot.rows):
+            body.append(f"const int o{t} = ob + {ot.groups * t};")
+            oc = f"min(o{t}, {ot.outer - 1})" if rag_o else f"o{t}"
+            inner_ext = 1
+            for q in range(n - 2, -1, -1):
+                div = f"{oc} / {inner_ext}" if inner_ext > 1 else oc
+                if shape[q] == 1:
+                    val = "0"
+                elif q == 0:
+                    val = div
+                else:
+                    val = f"({div}) % {shape[q]}"
+                body.append(f"const int p{q}_{t} = {val};")
+                inner_ext *= shape[q]
+        for u in range(ot.cols):
+            body.append(f"const int c{u} = cb + {ot.lanes * u};")
+            body.append(f"const int {last}_{u} = "
+                        + (f"min(c{u}, {ot.inner - 1});" if rag_i else f"c{u};"))
+        self.prng = self.block_ranges(shape)
+        chain = _chain(ops)
+        if chain is None:
+            for k, op in enumerate(ops):
+                body += emit(k, op, name)
+            vals = {(t, u): name(len(ops) - 1, t, u) for t, u in tiles}
+        else:
+            head, ends = chain
+            for k in range(head):
+                body += emit(k, ops[k], name)
+            body.append("float " + ", ".join(
+                f"ch{t}_{u} = {name(head - 1, t, u)}" for t, u in tiles) + ";")
+            starts = [head] + [e + 1 for e in ends[:-1]]
+            sigs = [_term_signature(ops, a, e, head, self.tile_checks) for a, e in zip(starts, ends)]
+            for s0, cnt, step in _runs(sigs):
+                rolled = cnt >= ROLL_MIN
+                for j in range(1 if rolled else cnt):
+                    a, e = starts[s0 + j], ends[s0 + j]
+                    it = iter(step if rolled else ())
+                    self.prng["r"] = (0, cnt - 1)
+
+                    def ref(x, t, u, a=a):
+                        return f"ch{t}_{u}" if x == a - 1 else name(x, t, u)
+                    term = []
+                    for k in range(a, e + 1):
+                        term += emit(k, _roll_op(ops[k], it) if rolled else ops[k], ref)
+                    term += [f"ch{t}_{u} = {name(e, t, u)};" for t, u in tiles]
+                    del self.prng["r"]
+                    if rolled:
+                        body += [f"#pragma unroll {ROLL_UNROLL}",
+                                 f"for (int r = 0; r < {cnt}; ++r) {{"]
+                    else:
+                        body.append("{")
+                    body += _indent(term) + ["}"]
+            vals = {(t, u): f"ch{t}_{u}" for t, u in tiles}
+        for t, u in tiles:
+            conds = ([f"o{t} < {ot.outer}"] if rag_o else []) + (
+                [f"c{u} < {ot.inner}"] if rag_i else [])
+            body += self.out_store(conds, sub(t, u), f"o{t} * {ot.inner} + c{u}", vals[(t, u)])
+        loops = [
+            f"for (int ob = threadIdx.x / {ot.lanes}; ob < {ot.outer}; "
+            f"ob += {ot.groups * ot.rows}) {{",
+            f"  for (int cb = threadIdx.x % {ot.lanes}; cb < {ot.inner}; "
+            f"cb += {ot.lanes * ot.cols}) {{",
+        ] + _indent(_indent(body)) + ["  }", "}"]
+        if ot.groups * ot.lanes < self.nt:
+            return [f"if (threadIdx.x < {ot.groups * ot.lanes}) {{"] + _indent(loops) + ["}"]
+        return loops
+
+    def tile_checks(self, op: Op) -> List[bool]:
+        """Which bounds of a staged load some element of the panel can
+        fail (a global load and a mask keep all theirs)."""
+        if op[0] == "tap" and op[1].kind == "view" and \
+                self.lg.slot_of[self.kg.groups[op[1].src].buffer] in self.staged:
+            return [_span(ax, self.prng)[1] >= lim for ax, lim in op[1].bounds]
+        return []
 
     def source(self) -> str:
         lg, kg = self.lg, self.kg
@@ -1214,6 +1594,13 @@ class _GroupEmitter:
                 f"// element-parallel: thread axis {em.thread_axis}, tile {em.tile} along "
                 f"{em.tile_axis}, work axes {list(em.axes)}, {em.work} work items in "
                 f"{em.blocks} blocks of {em.threads} per slot"
+            )
+        if self.tile is not None or self.staged:
+            ot = self.tile
+            lines.append(
+                f"// carries nothing: staged {[(st.buffer, st.strides) for st in self.staged.values()]}"
+                + (f", output tile {ot.rows} x {ot.cols} a thread, {ot.lanes} lanes along the "
+                   f"innermost axis, {ot.groups} groups" if ot is not None else "")
             )
         lines += [
             f"struct UbParams{t} {{",
@@ -1240,6 +1627,9 @@ class _GroupEmitter:
             lines.append(f"  float* const s{si} = ub_smem + {off};  // {self.s_shapes[si]}")
         for r, off in enumerate(self.r_off):
             lines.append(f"  float* const r{r} = ub_smem + {off};  // {self.r_shapes[r]}")
+        for b, st in self.staged.items():
+            lines.append(f"  float* const w{b} = ub_smem + {st.offset};  // {st.buffer} "
+                         f"{st.extents}, strides {st.strides}")
         em = self.em
         if em is not None:
             lines.append(
@@ -1439,8 +1829,11 @@ class CudaKernel:
 __all__ = [
     "CudaKernel",
     "ElementMap",
+    "OutputTile",
     "REPLACES",
+    "StagedInput",
     "block_threads",
+    "carries_nothing",
     "element_map",
     "emit_kernel",
     "emit_library",
@@ -1448,7 +1841,10 @@ __all__ = [
     "lane_layout",
     "launch_dims",
     "output_shape",
+    "output_tile",
     "row_bands",
+    "shared_bytes",
     "shift_panels",
     "smem_layout",
+    "staged_inputs",
 ]

@@ -2,7 +2,7 @@
 // for sm_90a.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention.py:29
-// (_flash_kernel) for bf16 inputs with head dims up to 128 that are
+// (_flash_kernel) for bf16 inputs with head dims up to 256 that are
 // multiples of 8; f32 and other head dims stay on the SIMT kernel
 // (flash_attention.cu).  q: (B, Sq, D), k and v: (B, Skv, D) with batch x
 // heads folded into B; scores scaled by 1/sqrt(D); under `causal` (Sq == Skv)
@@ -12,61 +12,125 @@
 //
 // Bound: operations (4 D flops per kept score on the bf16 tensor cores).
 // The TPU kernel walks a sequential KV grid axis with its statistics in VMEM
-// scratch.  Here one block owns 128 query rows of one (batch, head): two
-// consumer warpgroups of 64 rows each, and one producer warp that issues the
-// TMA loads: Q once, then K and V tiles of 128 rows through a ring of two
-// stages, heavy (late) query tiles of a head first under `causal`.  Q, K and V
-// land with the 128-byte swizzle in boxes of 64 columns (one box for D <= 64,
-// two for D <= 128); columns past D are zeros and never stored, rows past
-// Sq or Skv are zeros (a 3-D tensor map per head) and are masked.
+// scratch.  Here one block owns BQ query rows of one (batch, head): a
+// consumer warpgroup for each 64 of them, and one producer warp that issues
+// the TMA loads: Q once, then K and V tiles of BKV rows through a ring of
+// two stages, heavy (late) query tiles of a head first under `causal`.  Q, K
+// and V land with the 128-byte swizzle in boxes of 64 columns (DMAX / 64
+// boxes); columns past D are zeros and never stored, rows past Sq or Skv
+// are zeros (a 3-D tensor map per head) and are masked.
 //
-// Per KV tile a warpgroup computes S = Q K^T with wgmma m64n128k16 (both
+// Per KV tile a warpgroup computes S = Q K^T with wgmma m64nBKVk16 (both
 // operands K-major in shared memory), runs the online softmax on the
-// accumulator registers (a row's 128 scores sit in one quad of threads:
+// accumulator registers (a row's BKV scores sit in one quad of threads:
 // max and sum over shuffles 1 and 2; exp2 of scores prescaled by
-// log2(e) / sqrt(D)), and adds P V with wgmma m64nDk16 taking P from
+// log2(e) / sqrt(D)), and adds P V with wgmma m64nDMAXk16 taking P from
 // registers: the S accumulator's layout is the register A operand's, so P is
 // the f32 scores rounded to bf16 pairs (as FlashAttention-3 does; the JAX
 // body keeps P in f32, a relative change of at most 2^-9 per term), and V,
 // row-major (Skv, D), is MN-major (transposed B).  l sums the f32 P.
+//
+// The tile (Tile<DMAX>) is settled by three limits of the card:
+// - Registers.  O is DMAX / 2 f32 a thread and S BKV / 2.  Up to D 128,
+//   128-row KV tiles and two consumer warpgroups (288 threads).  At D 256,
+//   O alone is 128, so KV tiles are 64 rows (S 32 registers, P 16; P V one
+//   m64n256k16 a 16-row step of V) and a block has one consumer
+//   warpgroup: 160 threads may take 255 registers.  With two consumer
+//   warpgroups at D 256 ptxas kept too few registers a thread, spilled and
+//   serialized the wgmma (C7512), however setmaxnreg split the registers
+//   between producer and consumers.
+// - Shared memory.  smem_bytes<DMAX>(), checked against the 227 KB a block
+//   may use by a host compiler: at D 256 Q is 64 rows x 512 B = 32 KB and
+//   two stages of 64-row K and V 128 KB, one block an SM.
+// - Filling the card.  128-row query tiles would give gemma3-1b's 4 heads
+//   of 2048 rows at D 256 only 64 blocks for 132 SMs; 64-row tiles give
+//   128, each a busy warpgroup.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include <stdint.h>
 
 #include "sm90.cuh"
+
+// Tiles and shared-memory layouts: plain constexpr, so a host compiler
+// checks them.
+namespace fa_wgmma {
+
+constexpr int SMEM_PER_BLOCK = 232448;    // the H100's 227 KB a block may use
+constexpr int STAGES = 2;
+
+template <int DMAX>
+struct Tile {
+  static constexpr int BQ = DMAX <= 128 ? 128 : 64;   // query rows a block
+  static constexpr int BKV = BQ;                      // KV rows a tile
+  static constexpr int CONSUMERS = BQ / 64;           // warpgroups, 64 query rows each
+  static constexpr int NT = 128 * CONSUMERS + 32;     // and one producer warp
+  static constexpr int BOX_Q = BQ * 128;              // bytes of one 64-column box of Q
+  static constexpr int BOX_KV = BKV * 128;            // of K or V
+};
+
+template <int DMAX>
+constexpr int smem_bytes() {
+  using T = Tile<DMAX>;
+  return (DMAX / 64) * (T::BOX_Q + 2 * STAGES * T::BOX_KV) + (1 + 3 * STAGES) * 8 + 1024;
+}
+
+static_assert(smem_bytes<128>() <= SMEM_PER_BLOCK, "D 128 shared memory");
+static_assert(smem_bytes<256>() <= SMEM_PER_BLOCK, "D 256 shared memory");
+
+template <int DMAX>
+void describe(int* out) {
+  using T = Tile<DMAX>;
+  out[0] = DMAX;
+  out[1] = T::BQ;
+  out[2] = T::BKV;
+  out[3] = T::CONSUMERS;
+  out[4] = T::NT;
+  out[5] = smem_bytes<DMAX>();
+}
+
+}  // namespace fa_wgmma
+
+// the instantiation a head dim of d (1 to 256) launches: out = {DMAX, BQ,
+// BKV, CONSUMERS, threads a block, shared bytes a block}
+extern "C" int flash_attention_wgmma_tile(int d, int* out) {
+  if (d < 1 || d > 256) return 1;  // cudaErrorInvalidValue
+  if (d <= 64) fa_wgmma::describe<64>(out);
+  else if (d <= 128) fa_wgmma::describe<128>(out);
+  else fa_wgmma::describe<256>(out);
+  return 0;
+}
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
 
 namespace {
 
 using namespace sm90;
+using namespace fa_wgmma;
 
-constexpr int BQ = 128, BKV = 128, STAGES = 2;
-constexpr int CONSUMERS = 2;                   // warpgroups, 64 query rows each
-constexpr int NT = 128 * CONSUMERS + 32;       // and one producer warp
-constexpr int BOX_Q = BQ * 128;                // bytes of one 64-column box of Q
-constexpr int BOX_KV = BKV * 128;              // of K or V
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-
-template <int DMAX>
-constexpr int smem_bytes() {
-  return (DMAX / 64) * (BOX_Q + 2 * STAGES * BOX_KV) + (1 + 3 * STAGES) * 8 + 1024;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// S (64 x 128 of this warpgroup) = Q K^T over DMAX / 16 steps of 16 columns
+// S (64 x BKV of this warpgroup) = Q K^T over DMAX / 16 steps of 16 columns
 template <int DMAX>
-__device__ __forceinline__ void scores(float (&s)[64], uint32_t q0, uint32_t k0) {
+__device__ __forceinline__ void scores(float (&s)[Tile<DMAX>::BKV / 2], uint32_t q0, uint32_t k0) {
+  using T = Tile<DMAX>;
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < DMAX / 16; ++ks) {
     const uint32_t box = ks / 4, off = (ks % 4) * 32;
-    wgmma_ss_m64n128k16<0>(s, smem_desc(q0 + box * BOX_Q + off, 16, 1024),
-                           smem_desc(k0 + box * BOX_KV + off, 16, 1024), ks > 0);
+    const uint64_t qd = smem_desc(q0 + box * T::BOX_Q + off, 16, 1024);
+    const uint64_t kd = smem_desc(k0 + box * T::BOX_KV + off, 16, 1024);
+    if constexpr (T::BKV == 128)
+      wgmma_ss_m64n128k16<0>(s, qd, kd, ks > 0);
+    else
+      wgmma_ss_m64n64k16<0>(s, qd, kd, ks > 0);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -76,17 +140,20 @@ __device__ __forceinline__ void scores(float (&s)[64], uint32_t q0, uint32_t k0)
 // acc (64 x DMAX) += P V: P from registers, V MN-major (the next 64 columns
 // of D one box, LBO, further)
 template <int DMAX>
-__device__ __forceinline__ void add_pv(float (&acc)[DMAX / 2], const uint32_t (&p)[BKV / 16][4],
-                                       uint32_t v0) {
+__device__ __forceinline__ void add_pv(float (&acc)[DMAX / 2],
+                                       const uint32_t (&p)[Tile<DMAX>::BKV / 16][4], uint32_t v0) {
+  using T = Tile<DMAX>;
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk) {
-    const uint64_t desc = smem_desc(v0 + kk * 16 * 128, BOX_KV, 1024);
+  for (int kk = 0; kk < T::BKV / 16; ++kk) {
+    const uint64_t desc = smem_desc(v0 + kk * 16 * 128, T::BOX_KV, 1024);
     if constexpr (DMAX == 64)
       wgmma_rs_m64n64k16<1>(acc, p[kk], desc, 1);
-    else
+    else if constexpr (DMAX == 128)
       wgmma_rs_m64n128k16<1>(acc, p[kk], desc, 1);
+    else
+      wgmma_rs_m64n256k16<1>(acc, p[kk], desc, 1);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -94,10 +161,13 @@ __device__ __forceinline__ void add_pv(float (&acc)[DMAX / 2], const uint32_t (&
 }
 
 template <int DMAX>
-__global__ void __launch_bounds__(NT, 1) flash_wgmma_kernel(
+__global__ void __launch_bounds__(Tile<DMAX>::NT, 1) flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int sq, int skv,
     int d, float scale_log2, int causal) {
+  using T = Tile<DMAX>;
+  constexpr int BQ = T::BQ, BKV = T::BKV, CONSUMERS = T::CONSUMERS;
+  constexpr int BOX_Q = T::BOX_Q, BOX_KV = T::BOX_KV;
   constexpr int NBOX = DMAX / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = align1024(smem_raw);              // NBOX boxes of BQ rows
@@ -162,21 +232,23 @@ __global__ void __launch_bounds__(NT, 1) flash_wgmma_kernel(
     const int s = t % STAGES, k0 = t * BKV;
     const uint32_t parity = (t / STAGES) & 1;
     mbar_wait(&k_full[s], parity);
-    float sc[64];
+    float sc[BKV / 2];
     scores<DMAX>(sc, q_addr, smem_addr(ks + s * NBOX * BOX_KV));
 
-    // scale into the exp2 domain; mask where the tile crosses this
-    // warpgroup's diagonal or the end of the keys
+    // scale into the exp2 domain; where the tile crosses this warpgroup's
+    // diagonal or the end of the keys, column k0 + cq + c of row h is kept
+    // while c is below lim[h]: one bound a row, no column index formed
     const bool masked = (causal && k0 + BKV - 1 > q0 + wg * 64) || k0 + BKV > skv;
+    int lim[2];
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int h = 0; h < 2; ++h)
+      lim[h] = (causal ? min(skv, row0 + 8 * h + 1) : skv) - k0 - cq;
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = sc[4 * j + e] * scale_log2;
-        if (masked) {
-          const int col = k0 + 8 * j + cq + (e & 1), row = row0 + 8 * (e >> 1);
-          if (col >= skv || (causal && col > row)) x = NEG_INF;
-        }
+        if (masked && 8 * j + (e & 1) >= lim[e >> 1]) x = NEG_INF;
         sc[4 * j + e] = x;
       }
 
@@ -186,7 +258,8 @@ __global__ void __launch_bounds__(NT, 1) flash_wgmma_kernel(
     for (int h = 0; h < 2; ++h) {
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+      for (int j = 0; j < BKV / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m_run[h], mx);
@@ -194,7 +267,7 @@ __global__ void __launch_bounds__(NT, 1) flash_wgmma_kernel(
       m_run[h] = m_new;
       float sum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float p = exp2f(sc[4 * j + 2 * h + e] - m_new);
@@ -248,6 +321,7 @@ __global__ void __launch_bounds__(NT, 1) flash_wgmma_kernel(
 template <int DMAX>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv, int d,
            float scale, int causal, cudaStream_t stream) {
+  using T = Tile<DMAX>;
   CUtensorMap tq, tk, tv;
   // (B, S, D) as 3-D maps, innermost first, so a box never reads into the
   // next head: rows past S come back as zeros
@@ -255,7 +329,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
   const uint64_t q_strides[2] = {(uint64_t)d * 2, (uint64_t)sq * d * 2};
   const uint64_t kv_dims[3] = {(uint64_t)d, (uint64_t)skv, (uint64_t)b};
   const uint64_t kv_strides[2] = {(uint64_t)d * 2, (uint64_t)skv * d * 2};
-  const uint32_t q_box[3] = {64, BQ, 1}, kv_box[3] = {64, BKV, 1};
+  const uint32_t q_box[3] = {64, T::BQ, 1}, kv_box[3] = {64, T::BKV, 1};
   cudaError_t err = bf16_tensor_map(&tq, q, 3, q_dims, q_strides, q_box);
   if (err == cudaSuccess) err = bf16_tensor_map(&tk, k, 3, kv_dims, kv_strides, kv_box);
   if (err == cudaSuccess) err = bf16_tensor_map(&tv, v, 3, kv_dims, kv_strides, kv_box);
@@ -264,10 +338,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
     err = cudaFuncSetAttribute(flash_wgmma_kernel<DMAX>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned nq = (sq + BQ - 1) / BQ;
-  flash_wgmma_kernel<DMAX><<<nq * (unsigned)b, NT, smem, stream>>>(
+  const unsigned nq = (sq + T::BQ - 1) / T::BQ;
+  flash_wgmma_kernel<DMAX><<<nq * (unsigned)b, T::NT, smem, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, sq, skv, d, scale * LOG2E, causal);
   return (int)cudaGetLastError();
+}
+
+template <int DMAX>
+int occupancy(int* blocks_per_sm) {
+  constexpr int smem = smem_bytes<DMAX>();
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<DMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, flash_wgmma_kernel<DMAX>,
+                                                        Tile<DMAX>::NT, smem);
+  return (int)err;
 }
 
 }  // namespace
@@ -277,11 +362,22 @@ extern "C" const char* kernel_error_string(int err) {
 }
 
 // q, o: (b, sq, d); k, v: (b, skv, d); all bf16, 16-byte aligned; d a
-// multiple of 8 and at most 128.
+// multiple of 8 and at most 256.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                                             int b, int sq, int skv, int d, float scale,
                                             int causal, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (d <= 64) return launch<64>(q, k, v, o, b, sq, skv, d, scale, causal, s);
-  return launch<128>(q, k, v, o, b, sq, skv, d, scale, causal, s);
+  if (d <= 128) return launch<128>(q, k, v, o, b, sq, skv, d, scale, causal, s);
+  if (d <= 256) return launch<256>(q, k, v, o, b, sq, skv, d, scale, causal, s);
+  return (int)cudaErrorInvalidValue;
 }
+
+// the blocks an SM of the current card holds at once of the instantiation
+// a head dim of d launches
+extern "C" int flash_attention_wgmma_occupancy(int d, int* blocks_per_sm) {
+  if (d <= 64) return occupancy<64>(blocks_per_sm);
+  if (d <= 128) return occupancy<128>(blocks_per_sm);
+  return occupancy<256>(blocks_per_sm);
+}
+#endif  // __CUDACC__

@@ -13,12 +13,14 @@ the diagonal, with the statistics one float per row and the masked scores
 - ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 inputs with a head
   dim that is a multiple of 8 (so that TMA can read their rows; an input
   whose data does not start on a 16-byte boundary is copied to one that
-  does) and at most 128.  128 query rows a block, K and V
-  tiles of 128 rows by TMA, Q Kᵀ and P V on the tensor cores (``wgmma``),
-  P rounded to bf16 for its product.
-- ``"simt"`` (``csrc/flash_attention.cu``): every other call, f32 among
-  them, and bf16 head dims above 128 (gemma3-1b's 256) or not a multiple
-  of 8.  64 query rows a block, 64-row KV tiles in shared memory as f32;
+  does) and at most 256.  K and V tiles by TMA, Q Kᵀ and P V on the tensor
+  cores (``wgmma``), P rounded to bf16 for its product.  Up to D 128, 128
+  query rows a block (a warpgroup of 64 each) and KV tiles of 128 rows;
+  above it (gemma3-1b's 256), 64 query rows a block, one warpgroup, and
+  KV tiles of 64 rows (``wgmma_plan``).
+- ``"simt"`` (``csrc/flash_attention.cu``): every other call: f32, and
+  bf16 head dims that are not a multiple of 8.  64 query rows a block,
+  64-row KV tiles in shared memory as f32;
   each thread a register tile of 8 (D ≤ 64 by ``cp.async``, 128 threads)
   or 4 rows (256 threads) by 4 score columns, and the same rows of the
   output, read as float4s, every product an explicit fused multiply-add, the
@@ -44,7 +46,6 @@ from ._cuda import DTYPE_CODE, CudaLauncher, check_dtypes, require_cuda, tma_ali
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-WGMMA_MAX_HEAD_DIM = 128
 SIMT_BLOCK = 64   # query rows of a SIMT block, and KV rows of its tiles
 
 KERNEL = CudaLauncher(
@@ -86,18 +87,45 @@ def _check(
 def _route(q: torch.Tensor) -> str:
     """The route of checked inputs."""
     d = q.shape[2]
-    tma = d % 8 == 0 and d <= WGMMA_MAX_HEAD_DIM
+    tma = d % 8 == 0 and d <= MAX_HEAD_DIM
     return "wgmma" if q.dtype == torch.bfloat16 and tma else "simt"
 
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel ``flash_attention(q, k, v)`` launches: ``"wgmma"`` for
     bf16 inputs with a head dim that is a multiple of 8 (TMA's rule for
-    row strides) and at most 128, else ``"simt"``.  CUDA tensors only, as
+    row strides) and at most 256, else ``"simt"``.  CUDA tensors only, as
     ``flash_attention``."""
     _check(q, k, v, False, None, None)
     require_cuda("flash_attention", q, k, v)
     return _route(q)
+
+
+def wgmma_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """How the tensor-core kernel takes bf16 inputs of this shape, as its
+    library reports it (``csrc/flash_attention_wgmma.cu``'s ``Tile<DMAX>``,
+    through ``flash_attention_wgmma_tile``): the head dim it is compiled
+    for (``dmax``), its tile (``block_q`` query rows by ``block_kv`` KV
+    rows), the consumer warpgroups of a block (64 query rows each), its
+    threads (a producer warp among them), each block's shared memory
+    (``smem_bytes``), its blocks and, from the card, the blocks an SM holds
+    (``blocks_per_sm``).  CUDA tensors only."""
+    dev = require_cuda("flash_attention", q, k, v)
+    b, sq, d = q.shape
+    tile = (ctypes.c_int * 6)()
+    per_sm = ctypes.c_int()
+    arg = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    rc = WGMMA.symbol("flash_attention_wgmma_tile", arg)(d, tile)
+    if rc == 0:
+        with torch.cuda.device(dev):
+            rc = WGMMA.symbol("flash_attention_wgmma_occupancy", arg)(d, ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: tile or occupancy query failed (cudaError {rc})")
+    keys = ("dmax", "block_q", "block_kv", "consumers", "threads", "smem_bytes")
+    plan = dict(zip(keys, tile))
+    plan["blocks"] = -(-sq // plan["block_q"]) * b
+    plan["blocks_per_sm"] = per_sm.value
+    return plan
 
 
 def simt_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
@@ -187,6 +215,6 @@ def flash_attention_plain(
 
 
 __all__ = [
-    "KERNEL", "MAX_HEAD_DIM", "NEG_INF", "SIMT_BLOCK", "WGMMA", "WGMMA_MAX_HEAD_DIM",
-    "flash_attention", "flash_attention_plain", "route", "simt_plan",
+    "KERNEL", "MAX_HEAD_DIM", "NEG_INF", "SIMT_BLOCK", "WGMMA",
+    "flash_attention", "flash_attention_plain", "route", "simt_plan", "wgmma_plan",
 ]

@@ -35,7 +35,8 @@ from repro_torch.apps import make_app
 from repro_torch.backend import cuda_codegen
 from repro_torch.backend.build import CSRC
 from repro_torch.backend.cuda_codegen import (
-    element_map, emit_library, lane_layout, launch_dims, output_shape, row_bands, shift_panels,
+    carries_nothing, element_map, emit_library, lane_layout, launch_dims, output_shape,
+    output_tile, row_bands, shared_bytes, shift_panels, smem_layout, staged_inputs,
 )
 from repro_torch.backend.eager import EagerKernel, LoweredGroup
 from repro_torch.backend.plan import build_pipeline_plan
@@ -84,6 +85,21 @@ CASES = [
     ("harris-lane-batched", "harris", {"schedule": "sch3", "size": 21},
      {"block_w": 6, "block_h": 5, "line_buffer": True, "batch": 3, "batch_capacity": 4},
      False, None),
+    # mobilenet's full-size plan at small widths: one row a block, nothing
+    # carried, both weight buffers staged in shared memory; 40 output
+    # channels, which the register tile (32 lanes x 2 columns) does not divide
+    ("mobilenet-bh1", "mobilenet", {"img": 6, "cin": 4, "cout": 40}, {"block_h": 1}, False, None),
+    # three rows a block, padded (10 = 4 x 3 - 2); 11 channels, so 23
+    # groups of 11 lanes and a ragged last pass over the 30 pixels
+    ("mobilenet-padded", "mobilenet", {"img": 10, "cin": 8, "cout": 11},
+     {"block_h": 3, "line_buffer": False}, False, None),
+    # batch slots, the last padded: each block stages its own slot's weights
+    ("mobilenet-batched", "mobilenet", {"img": 5, "cin": 4, "cout": 36},
+     {"block_h": 1, "batch": 3, "batch_capacity": 4}, False, None),
+    # an odd input width (its pointwise rows need no padding) and 33 output
+    # channels: the tile's second column holds one channel, 31 lanes idle
+    ("mobilenet-odd", "mobilenet", {"img": 7, "cin": 7, "cout": 33},
+     {"block_h": 2, "line_buffer": False}, False, None),
 ]
 # row-carried groups, their sweep cut into bands of 1, 2 and 3 row steps:
 # every band after the first warms its rings and line buffers up itself
@@ -351,3 +367,63 @@ def test_harris_2048_lane_layout():
     assert (kg.bh, kg.bw, lg.steps, lg.lane_steps) == (5, 256, 409, 8)
     assert kg.scratch_bytes == 72320
     assert lane_layout(lg) == (39168, 4)
+
+
+@pytest.mark.parametrize("cid", ["mobilenet-bh1", "mobilenet-padded", "mobilenet-batched",
+                                 "mobilenet-odd"])
+def test_mobilenet_cases_take_the_staged_tiled_path(libraries, cid):
+    """The mobilenet cases carry nothing, stage both weight buffers whole
+    over their required extents, each extent after the first padded to an
+    odd count, and evaluate their output panel in register tiles."""
+    lowered, _lib = libraries[cid]
+    (lg,) = lowered
+    assert carries_nothing(lg)
+    staged = staged_inputs(lg)
+    req = lg.kg.required_extents()
+    assert [(st.buffer, st.extents) for st in staged] == [
+        (b, tuple(req[b])) for b in ("dw_weights", "pw_weights")]
+    for st in staged:
+        assert all(s % 2 for s in st.strides[:-1])
+    assert output_tile(lg) is not None
+
+
+def test_mobilenet_full_size_stages_its_weights():
+    """chip_smoke.py's mobilenet group (112 x 112, 32 -> 64 channels, batch
+    8): both weight buffers staged, 1,152 and 8,192 bytes a slot (8,448 with
+    the pointwise rows padded to 33 floats), beside 14,336 bytes of scratch,
+    within the H100's 227 KiB; a 7 x 2 register tile a thread, one output
+    row a block in two passes."""
+    (kg,) = _plan("mobilenet", {"img": 112, "cin": 32, "cout": 64},
+                  {"batch": 8, "batch_capacity": 8}).kernels
+    lg = LoweredGroup(kg)
+    assert kg.bh == 1 and carries_nothing(lg)
+    dw, pw = staged_inputs(lg)
+    assert (dw.buffer, dw.extents, dw.strides, dw.nbytes, dw.smem_bytes) == (
+        "dw_weights", (32, 3, 3), (9, 3, 1), 1152, 1152)
+    assert (pw.buffer, pw.extents, pw.strides, pw.nbytes, pw.smem_bytes) == (
+        "pw_weights", (64, 32), (33, 1), 8192, 8448)
+    assert smem_layout(kg)[2] == 14336
+    assert shared_bytes(lg) == 14336 + 1152 + 8448 <= H100_SMEM_PER_BLOCK
+    ot = output_tile(lg)
+    assert (ot.lanes, ot.cols, ot.groups, ot.rows, ot.outer, ot.inner) == (32, 2, 8, 7, 112, 64)
+
+
+@pytest.mark.parametrize("name,kw,ckw", [
+    ("gaussian", {"size": 1082, "width": 1922}, {}),
+    ("harris", {"schedule": "sch3", "size": 1024}, {}),
+    ("unsharp", {"size": 1024}, {}),
+    ("camera", {"size": 512}, {}),
+    ("harris", {"schedule": "sch3", "size": 2048}, {}),
+    ("gaussian", {"size": 26}, {"block_w": 9, "line_buffer": True}),
+], ids=["gaussian", "harris", "unsharp", "camera", "harris2048", "gaussian-lane"])
+def test_stencil_groups_stage_nothing(name, kw, ckw):
+    """The served stencils' groups at full size (row-carried, and camera's
+    second group, which carries nothing but reads no weight), harris 2048
+    and a lane-carried gaussian stage no input and have no output tile:
+    they emit what they emitted before."""
+    plan = _plan(name, kw, {"batch": 8, "batch_capacity": 8, **ckw})
+    for kg in plan.kernels:
+        lg = LoweredGroup(kg)
+        assert lg.row_carried or lg.lane_carried or kg.name == "camera"
+        assert staged_inputs(lg) == [] and output_tile(lg) is None
+        assert shared_bytes(lg) == smem_layout(kg)[2]

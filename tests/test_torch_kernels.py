@@ -17,6 +17,7 @@ The one test that builds and launches the CUDA kernels is marked ``gpu``
 and skips here.
 """
 
+import contextlib
 import ctypes
 import shutil
 import subprocess
@@ -386,17 +387,80 @@ def test_matmul_route(a, b, want, monkeypatch):
     ((2, 64, 128), torch.bfloat16, 0, "wgmma"),
     ((1, 256, 32), torch.bfloat16, 0, "wgmma"),
     ((2, 128, 64), torch.float32, 0, "simt"),
-    ((2, 64, 136), torch.bfloat16, 0, "simt"),              # D above 128
+    ((2, 64, 136), torch.bfloat16, 0, "wgmma"),             # D above 128: the D 256 kernel
     ((2, 64, 60), torch.bfloat16, 0, "simt"),               # D not a multiple of 8
-    ((2, 64, 256), torch.bfloat16, 0, "simt"),
+    ((2, 64, 256), torch.bfloat16, 0, "wgmma"),
     ((2, 64, 64), torch.bfloat16, 3, "wgmma"),              # 6 bytes off 16: copied
-], ids=["d64", "d128", "d32", "f32", "d136", "d60", "d256", "unaligned"])
+    ((2, 64, 30), torch.bfloat16, 0, "simt"),
+    ((2, 64, 256), torch.float32, 0, "simt"),
+    ((2, 64, 264), torch.bfloat16, 0, "simt"),              # above 256: refused by both
+], ids=["d64", "d128", "d32", "f32", "d136", "d60", "d256", "unaligned", "d30", "f32-d256",
+        "d264"])
 def test_flash_attention_route(shape, dtype, offset, want, monkeypatch):
     monkeypatch.setattr(fa_mod, "require_cuda", lambda *a: torch.device("cpu"))
     q = _bf16(*shape, offset=offset).to(dtype)  # a no-op for bf16: the offset stays
     k, v = _bf16(*shape).to(dtype), _bf16(*shape).to(dtype)
     assert fa_mod.route(q, k, v) == want
     assert fa_mod.route(k, q, v) == want and fa_mod.route(k, v, q) == want
+
+
+@pytest.fixture(scope="module")
+def host_wgmma_tile(tmp_path_factory):
+    """``csrc/flash_attention_wgmma.cu``'s host part compiled by g++ (its
+    CUDA part is nvcc's alone): the tiles, shared-memory layouts and the
+    ``flash_attention_wgmma_tile`` entry, with an occupancy entry that
+    stands in for the card's and reports 7 blocks an SM."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not on PATH: the layouts cannot be compiled on the host")
+    root = tmp_path_factory.mktemp("wgmma_tile")
+    (root / "layout.cpp").write_text(
+        "#define __host__\n#define __device__\n"
+        '#include "flash_attention_wgmma.cu"\n'
+        'extern "C" int flash_attention_wgmma_occupancy(int, int* n) { *n = 7; return 0; }\n')
+    so = root / "liblayout.so"
+    run = subprocess.run([gxx, "-std=c++17", "-shared", "-fPIC", "-I", str(_cuda.CSRC),
+                          "-o", str(so), str(root / "layout.cpp")], capture_output=True, text=True)
+    assert run.returncode == 0, run.stderr
+    return ctypes.CDLL(str(so))
+
+
+def _wgmma_tile(lib, d):
+    out = (ctypes.c_int * 6)()
+    assert lib.flash_attention_wgmma_tile(d, out) == 0
+    return tuple(out)
+
+
+@pytest.mark.parametrize("d,tile", [
+    (64, (64, 128, 128, 2, 288)), (128, (128, 128, 128, 2, 288)),
+    (136, (256, 64, 64, 1, 160)), (256, (256, 64, 64, 1, 160)),
+])
+def test_wgmma_plan_tiles(host_wgmma_tile, d, tile, monkeypatch):
+    """The tensor-core attention's plan by head dim, read from
+    ``flash_attention_wgmma.cu``'s ``Tile<DMAX>`` through its library's
+    tile entry (here the host build, with ``require_cuda`` and the device
+    context patched): 128 query rows and two consumer warpgroups up to
+    D 128, 64 rows and one warpgroup above; blocks are query tiles times
+    heads."""
+    lib = host_wgmma_tile
+
+    class Library:
+        @staticmethod
+        def symbol(name, argtypes, restype=ctypes.c_int):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = list(argtypes), restype
+            return fn
+
+    monkeypatch.setattr(fa_mod, "WGMMA", Library)
+    monkeypatch.setattr(fa_mod, "require_cuda", lambda *a: torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    q = _bf16(3, 200, d)
+    plan = fa_mod.wgmma_plan(q, q, q)
+    assert (plan["dmax"], plan["block_q"], plan["block_kv"], plan["consumers"],
+            plan["threads"]) == tile
+    assert plan["smem_bytes"] == _wgmma_tile(lib, d)[5]
+    assert plan["blocks"] == 3 * -(-200 // tile[1])
+    assert plan["blocks_per_sm"] == 7
 
 
 def test_tma_aligned_copies_only_unaligned_data():
@@ -507,6 +571,24 @@ def test_wgmma_descriptor_bit_fields(tmp_path):
         got = fn(addr, lbo, sbo)
         assert got == fields(addr, lbo, sbo), (hex(got), hex(fields(addr, lbo, sbo)))
         assert (got >> 49) & 0x7 == 0 and got >> 62 == 1
+
+
+def test_flash_attention_wgmma_shared_memory(host_wgmma_tile):
+    """``csrc/flash_attention_wgmma.cu``'s tiles compiled by g++, read
+    through its tile entry: at D 256 a block is one consumer warpgroup and a
+    producer warp on 64 query rows, whose Q, two stages of 64-row K and V,
+    7 barriers and 1024 bytes of alignment fit the 227 KB a block may use;
+    D 64 and D 128 keep their 128-row tiles, two consumer warpgroups and
+    their sizes; a head dim past 256 is refused."""
+    lib = host_wgmma_tile
+    limit = 232448  # fa_wgmma::SMEM_PER_BLOCK
+    d64, d128, d256 = (_wgmma_tile(lib, d) for d in (64, 128, 256))
+    assert d256 == (256, 64, 64, 1, 160, 64 * 512 + 2 * 2 * 64 * 512 + 7 * 8 + 1024)
+    assert d256[5] == 164920 <= limit
+    assert d64 == (64, 128, 128, 2, 288, 16384 + 4 * 16384 + 7 * 8 + 1024)
+    assert d128 == (128, 128, 128, 2, 288, 2 * (16384 + 4 * 16384) + 7 * 8 + 1024)
+    assert _wgmma_tile(lib, 65) == d128 and _wgmma_tile(lib, 136) == d256
+    assert lib.flash_attention_wgmma_tile(264, (ctypes.c_int * 6)()) != 0
 
 
 @pytest.mark.parametrize("name,shapes,dtype,chunk,bound_ms,by", [
@@ -1015,9 +1097,19 @@ def test_cuda_kernels_match_plain_version_on_card():
          tuple(t(1, 256, 32, dtype=bf16) for _ in range(3)), {"causal": True}, 3e-2),
         ("flash_attention_wgmma", flash_attention, flash_attention_plain,
          tuple(off16(t(2, 128, 64, dtype=bf16)) for _ in range(3)), {"causal": True}, 3e-2),
-        # a head dim above 128: bf16 on the SIMT kernel
-        ("flash_attention", flash_attention, flash_attention_plain,
+        # head dims above 128: bf16 on the D 256 tensor-core kernel, its
+        # 64-row query and KV tiles cut (S 96; Skv 192 non-causal)
+        ("flash_attention_wgmma", flash_attention, flash_attention_plain,
          tuple(t(2, 64, 136, dtype=bf16) for _ in range(3)), {"causal": True}, 3e-2),
+        ("flash_attention_wgmma", flash_attention, flash_attention_plain,
+         tuple(t(2, 96, 256, dtype=bf16) for _ in range(3)),
+         {"causal": True, "block_q": 32, "block_kv": 32}, 3e-2),
+        ("flash_attention_wgmma", flash_attention, flash_attention_plain,
+         (t(2, 64, 256, dtype=bf16), t(2, 192, 256, dtype=bf16), t(2, 192, 256, dtype=bf16)),
+         {"causal": False, "block_q": 32, "block_kv": 32}, 3e-2),
+        # D not a multiple of 8: bf16 on the SIMT kernel
+        ("flash_attention", flash_attention, flash_attention_plain,
+         tuple(t(2, 64, 60, dtype=bf16) for _ in range(3)), {"causal": True}, 3e-2),
         ("ssd_gram", ssd_gram, ssd_gram_plain, (ssd_in[3], ssd_in[4], 32), {}, 1e-4),
         ("ssd_scan", ssd_scan, ssd_scan_plain, ssd_in, {"chunk": 32}, 1e-3),
         # mamba2-like: P 64, N 128, the default chunk of 256, two chunks
