@@ -57,7 +57,9 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    in ``kernels/csrc/``, built in phase 2) at the shapes of the JAX
    package's kernel tests, each held against its plain version and its
    oracle at the JAX tolerances (stencil also bit for bit against its
-   plain version; SSD also invariant to the chunk length).  Each matmul
+   plain version, f32 and bf16, also on ragged shapes and on inputs whose
+   data starts off 16 bytes (``STENCIL_CASES``); SSD also invariant to the
+   chunk length).  Each matmul
    and attention call must launch the expected kernel and no other (read
    from the launch counts): bf16 ``matmul`` and
    ``flash_attention`` take the tensor cores (``matmul_wgmma``,
@@ -70,14 +72,14 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    D 30, and the SSD op at N 20 and at P 40, N 18.  The
    tensor-core matmul's operand layout is checked first: the identity
    times a 64×64 B of distinct residues must give B bit for bit.
-7. hand-written kernels at model widths: a 1080p gaussian, tinyllama-1.1b's
+7. hand-written kernels at model widths: a 1080p gaussian (f32 and bf16), tinyllama-1.1b's
    MLP up-projection (bf16 and f32) and prefill attention (bf16 and f32),
    qwen3-14b's prefill attention, gemma3-1b's global-layer prefill
    attention (bf16, D 256, on the tensor cores),
    mamba2-2.7b's SSD prefill and the matmul tile of phase 4.  Each configuration is driven once through its
    ``repro_torch.kernels.ops`` entry point with every launch count zeroed
    just before and read just after; then each kernel is held against its
-   plain version, its oracle and, for the gaussian and the matmul tile,
+   plain version, its oracle and, for the f32 gaussian and the matmul tile,
    the generated kernel on the same input (bit for bit), and timed with
    CUDA events (median of 10 calls, and per call over 50 replays of a CUDA
    graph of one call behind an L2-evicting write, which leaves out the host
@@ -86,7 +88,9 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    there is one, timed both ways.  Each configuration names the kernels its
    call must launch, and no other may launch: the bf16 MLP up-projection
    ``matmul_wgmma``, the tinyllama, qwen3-14b and gemma3-1b bf16 prefills
-   ``flash_attention_wgmma``, the f32 calls the SIMT kernels.  A tensor-core row also launches the SIMT kernel
+   ``flash_attention_wgmma``, the f32 calls the SIMT kernels.  A stencil
+   row prints ``stencil.plan`` (threads, outputs a thread, band rows,
+   strips, bands, blocks) and, from the CUDA runtime, its blocks an SM.  A tensor-core row also launches the SIMT kernel
    on the same call (directly, into a buffer of its own, after the launch
    counts were read), holds its output against the same plain version and
    oracle at the same tolerance, and times it.
@@ -166,6 +170,13 @@ FULL = [
     # a 2K stencil: lane grid, column rings and lane line buffers
     ("harris2048", "harris", {"schedule": "sch3", "size": 2048}, False),
 ]
+# the stencil's ragged and misaligned shapes (phase 6): (H, W, bytes its
+# input's data starts past a 16-byte boundary, 1 for one element): odd W
+# with H not a multiple of a band, W + 2 a multiple of neither 4 nor 8, one
+# output, 16-byte output rows, a view off 16 by an element pair (pair
+# loads) and by one element (single loads), W past one strip
+STENCIL_CASES = [(13, 37, 0), (16, 20, 0), (1, 1, 0), (9, 24, 0), (12, 30, 8), (12, 30, 1),
+                 (6, 1030, 0)]
 BATCH = 8
 N_REQUESTS = 20
 SEED = 20261016
@@ -604,13 +615,26 @@ def kernels_small() -> None:
         tag = f"[kernels-small] matmul {(m, n, k)} {dtype} ({want})"
         held(tag, launched(tag, want, lambda: matmul(a, b, **kw)), matmul_plain(a, b, **kw),
              kref.matmul_ref(a, b), tol)
+    def off16(t, off):
+        """``t``'s values in a view whose data starts ``off`` bytes past a
+        16-byte boundary (``off`` 1: one element)."""
+        size = t.element_size()
+        flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+        lead = (-flat.data_ptr() % 16) // size + (1 if off == 1 else off // size)
+        return flat[lead:lead + t.numel()].view(t.shape).copy_(t)
+
     wts = ops.to_tensor(np.array(GAUSS_W, np.float32) / 16)
-    for h, w in [(16, 16), (32, 64), (64, 62)]:
-        x = rand((h + 2, w + 2))
-        got, plain = stencil3x3(x, wts, block_h=8), stencil3x3_plain(x, wts, block_h=8)
-        held(f"[kernels-small] stencil3x3 {(h, w)}", got, plain, kref.stencil3x3_ref(x, wts), 1e-5)
+    st_cases = [(h, w, 0, f32) for h, w in [(16, 16), (32, 64), (64, 62)]]
+    st_cases += [(h, w, off, dtype) for h, w, off in STENCIL_CASES for dtype in (f32, bf16)]
+    for h, w, off, dtype in st_cases:
+        x = off16(rand((h + 2, w + 2), dtype), off)
+        tag = f"[kernels-small] stencil3x3 {(h, w)} {dtype} data {x.data_ptr() % 16} B past 16"
+        got = launched(tag, "stencil3x3", lambda: stencil3x3(x, wts, block_h=8))
+        plain = stencil3x3_plain(x, wts, block_h=8)
+        # the oracle's f32 sums cast once to x's dtype, as the kernel stores them
+        held(tag, got, plain, kref.stencil3x3_ref(x, wts).to(dtype), 1e-5)
         if not torch.equal(got, plain):
-            raise AssertionError(f"stencil3x3 {(h, w)}: not bit-equal to the plain version")
+            raise AssertionError(f"{tag}: not bit-equal to the plain version")
     # (batch, Sq, Skv, D): the JAX package's shapes, query and KV extents
     # that cut the tensor cores' 128-row tiles, and bf16 head dims above 128,
     # which the D 256 tensor-core kernel takes, its 64-row tiles cut too
@@ -691,6 +715,7 @@ def kernels_full(full_apps, rows) -> None:
         ssd_chunk_out, ssd_chunk_out_plain, ssd_chunk_state, ssd_chunk_state_plain, ssd_gram,
         ssd_gram_plain, ssd_scan_plain, ssd_state_pass, ssd_state_pass_plain,
     )
+    from repro_torch.kernels import stencil
     from repro_torch.kernels.stencil import stencil3x3_plain
 
     dev = torch.device("cuda")
@@ -720,7 +745,9 @@ def kernels_full(full_apps, rows) -> None:
         return x, dt, a, randn((s, n), f32), randn((s, n), f32)
 
     entry = {
-        "stencil3x3": (ops.stencil3x3_op, stencil3x3_plain, kref.stencil3x3_ref, {}),
+        # the oracle's f32 sums cast once to x's dtype, as the kernel stores them
+        "stencil3x3": (ops.stencil3x3_op, stencil3x3_plain,
+                       lambda x, w: kref.stencil3x3_ref(x, w).to(x.dtype), {}),
         "matmul": (ops.matmul_op, matmul_plain, kref.matmul_ref, {}),
         "flash_attention": (ops.attention_op, flash_attention_plain, kref.attention_ref,
                             {"causal": True}),
@@ -748,7 +775,7 @@ def kernels_full(full_apps, rows) -> None:
         return F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True)[0]
 
     def conv(x, w):
-        return F.conv2d(x[None, None], w[None, None])[0, 0]
+        return F.conv2d(x[None, None], w[None, None].to(x.dtype))[0, 0]
 
     # bf16 attention: one bf16 ulp (2**-7 of the value at most) apart from
     # the f32 plain version and oracle, each rounded once; the row check
@@ -762,6 +789,12 @@ def kernels_full(full_apps, rows) -> None:
          lambda: (randint(0, 256, (1082, 1922), f32),
                   torch.tensor(GAUSS_W, dtype=f32, device=dev) / 16),
          dict(tol=None), ("F.conv2d", conv, (1e-5, 1e-3)), ("gaussian", ("input",))),
+        # the same image in bf16 (integers below 256 are exact in it, the
+        # weights / 16 dyadic); F.conv2d on bf16 operands within one bf16 ulp
+        ("gaussian-1080p", "stencil3x3",
+         lambda: (randint(0, 256, (1082, 1922), bf16),
+                  torch.tensor(GAUSS_W, dtype=f32, device=dev) / 16),
+         dict(tol=None), ("F.conv2d", conv, (7.8e-3, 0.0)), None),
         ("tinyllama-mlp-up", "matmul_wgmma",
          lambda: (randint(-8, 8, (2048, 2048), bf16), randint(-8, 8, (2048, 5632), bf16)),
          dict(tol=None), ("torch.matmul", torch.matmul, None), None),
@@ -939,6 +972,15 @@ def kernels_full(full_apps, rows) -> None:
                     f"{plan['threads']} threads, {plan['blocks']} blocks, "
                     f"{plan['blocks_per_sm']} a SM ({plan['smem_bytes']} B of shared memory "
                     f"each), K and V by {plan['copy']}")
+            if kname == "stencil3x3":
+                x = args[0]
+                row["plan"] = plan = dict(stencil.plan(x.shape[0] - 2, x.shape[1] - 2, x.dtype),
+                                          blocks_per_sm=stencil.blocks_per_sm(x))
+                log(f"[kernels-full] {label} {kname} {dname}: plan {plan['threads']} threads x "
+                    f"{plan['v']} outputs a thread, bands of {plan['rows']} rows, "
+                    f"{plan['strips']} strips x "
+                    f"{plan['bands']} bands = {plan['blocks']} blocks, "
+                    f"{plan['blocks_per_sm']} a SM")
             if kname == "flash_attention_wgmma":
                 row["wgmma_plan"] = plan = fa.wgmma_plan(*args)
                 log(f"[kernels-full] {label} {kname} {dname}: tensor-core plan "

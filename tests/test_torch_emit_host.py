@@ -140,6 +140,8 @@ struct dim3 {
   constexpr dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;

@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.backend import build
 from repro_torch.kernels import KERNELS, _cuda, flash_attention as fa_mod, matmul as mm_mod, ops, ref
-from repro_torch.kernels import ssd as ssd_mod
+from repro_torch.kernels import ssd as ssd_mod, stencil as st_mod
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.matmul import matmul, matmul_plain
 from repro_torch.kernels.ssd import (
@@ -104,18 +104,33 @@ def test_matmul_matches_jax(m, n, k, dtype, jaxk):
     close(matmul_plain(ta, tb, block_m=16, block_n=16, block_k=16), want, tol)
 
 
-@pytest.mark.parametrize("h,w", [(16, 16), (32, 64), (64, 62)])
-def test_stencil_matches_jax(h, w, jaxk):
+STENCIL_JAX = [(16, 16, "f32"), (32, 64, "f32"), (64, 62, "f32"),
+               (16, 16, "bf16"), (32, 64, "bf16"), (64, 62, "bf16")]
+
+
+@pytest.mark.parametrize("h,w,dtype", STENCIL_JAX,
+                         ids=[f"{h}-{w}" + ("" if d == "f32" else f"-{d}") for h, w, d in STENCIL_JAX])
+def test_stencil_matches_jax(h, w, dtype, jaxk):
+    """The plain version and the oracle against the JAX kernel, f32 and
+    bf16 x (the weights f32): the f32 sums cast once to x's dtype."""
     rng = np.random.default_rng(1)
-    jx, tx = jaxk.both(rng.standard_normal((h + 2, w + 2)))
+    jx, tx = jaxk.both(rng.standard_normal((h + 2, w + 2)), dtype)
     jw, tw = jaxk.both(GAUSS)
-    want = jaxk.stencil(jx, jw, block_h=8, interpret=True)
-    close(ops.stencil3x3_op(tx, tw, kernels="eager"), want, 1e-5)
-    close(stencil3x3_plain(tx, tw, block_h=8), want, 1e-5)
-    # integer inputs, gaussian weights: every product and sum is exact
-    jx, tx = jaxk.both(rng.integers(0, 256, (h + 2, w + 2)))
-    want = np.asarray(jaxk.stencil(jx, jw, block_h=8, interpret=True))
-    assert np.array_equal(ops.stencil3x3_op(tx, tw, kernels="eager").numpy(), want)
+    want = np.asarray(jaxk.stencil(jx, jw, block_h=8, interpret=True).astype(jaxk.jnp.float32))
+    # f32: the JAX tolerance; bf16: one rounding to bf16 apart at most, one
+    # bf16 ulp (2**-7 of the value)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "f32" else dict(rtol=2 ** -7, atol=0)
+    for got in (ops.stencil3x3_op(tx, tw, kernels="eager"), stencil3x3_plain(tx, tw, block_h=8),
+                ref.stencil3x3_ref(tx, tw).to(DTYPES[dtype])):
+        assert got.dtype == DTYPES[dtype]
+        np.testing.assert_allclose(got.float().numpy(), want, **tol)
+    # integer inputs, gaussian weights: every product and sum is exact, so
+    # the one rounding to x's dtype is the same on both sides
+    jx, tx = jaxk.both(rng.integers(0, 256, (h + 2, w + 2)), dtype)
+    want = np.asarray(jaxk.stencil(jx, jw, block_h=8, interpret=True).astype(jaxk.jnp.float32))
+    for got in (ops.stencil3x3_op(tx, tw, kernels="eager"), stencil3x3_plain(tx, tw, block_h=8),
+                ref.stencil3x3_ref(tx, tw).to(DTYPES[dtype])):
+        assert np.array_equal(got.float().numpy(), want)
 
 
 def test_stencil_matches_paper_gaussian_app(jaxk):
@@ -593,6 +608,8 @@ def test_flash_attention_wgmma_shared_memory(host_wgmma_tile):
 
 @pytest.mark.parametrize("name,shapes,dtype,chunk,bound_ms,by", [
     ("stencil3x3", [(1082, 1922), (3, 3)], torch.float32, None, 0.0050, "bytes"),
+    # the same image in bf16, the weights f32: 8,306,444 B
+    ("stencil3x3", [(1082, 1922), (3, 3)], torch.bfloat16, None, 0.0025, "bytes"),
     ("matmul", [(2048, 2048), (2048, 5632)], torch.bfloat16, None, 0.048, "operations"),
     ("matmul", [(2048, 2048), (2048, 5632)], torch.float32, None, 0.705, "operations"),
     ("matmul", [(256, 1000), (1000, 256)], torch.float32, None, 0.00196, "operations"),
@@ -623,7 +640,9 @@ def test_chip_smoke_bounds(name, shapes, dtype, chunk, bound_ms, by):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    args = [torch.empty(sh, dtype=dtype if i == 0 or not name.startswith("ssd_") else torch.float32,
+    # the stencil's weights and the SSD operands after x are f32 whatever x's dtype
+    f32_after_x = name.startswith(("ssd_", "stencil"))
+    args = [torch.empty(sh, dtype=dtype if i == 0 or not f32_after_x else torch.float32,
                         device="meta") for i, sh in enumerate(shapes)]
     if name == "matmul_reduce":
         out_shape = shapes[0][1:]
@@ -1041,6 +1060,121 @@ def test_ssd_chunk_out_on_host_takes_states_off_16_bytes(host_simt, monkeypatch)
 
 
 # ---------------------------------------------------------------------------
+# the stencil under g++, through its wrapper
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def host_stencil(tmp_path_factory):
+    """``csrc/stencil3x3.cu`` compiled by g++ against the shim of
+    ``tests/test_torch_emit_host.py`` (a host thread per CUDA thread, the
+    blocks in turn) and its bf16 stand-in."""
+    from test_torch_emit_host import SHIM, host_source
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not on PATH: the kernel cannot be built on the host")
+    root = tmp_path_factory.mktemp("stencil_host")
+    for name, text in (("cuda_runtime.h", SHIM), ("cuda_bf16.h", BF16_SHIM),
+                       ("cp_async.cuh", CP_ASYNC_SHIM)):
+        (root / name).write_text(text)
+    src = root / "stencil3x3.cpp"
+    # the shim's copy counter, which ``_HostLauncher`` reads (the kernel
+    # issues no cp.async: it stays 0)
+    src.write_text('#include "cp_async.cuh"\n' + host_source(st_mod.KERNEL.source()))
+    so = root / "libstencil3x3.so"
+    run = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread", "-w",
+         "-I", str(root), "-o", str(so), str(src)],
+        capture_output=True, text=True)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return ctypes.CDLL(str(so))
+
+
+# (H, W, bytes the input's data starts past a 16-byte boundary): odd W with
+# H not a multiple of a band; W + 2 a multiple of neither 4 nor 8; one
+# output; 16-byte output rows (f32 and bf16); input rows of element pairs
+# (8 B f32, 4 B bf16) on a view off 16 bytes, and of single elements on a
+# view off by one element; W past one strip of 256 threads (f32: 3 strips
+# of 96)
+HOST_STENCILS = [(13, 37, 0), (16, 20, 0), (1, 1, 0), (9, 24, 0), (12, 30, 8), (12, 30, 1),
+                 (6, 1030, 0)]
+
+
+def _stencil_input(h, w, dtype, off, values, rng, device="cpu"):
+    """An (H + 2, W + 2) input of ``dtype`` on ``device`` whose data starts
+    ``off`` bytes past a 16-byte boundary (``off`` 1: one element)."""
+    if values == "integer":
+        arr = rng.integers(0, 256, (h + 2, w + 2)).astype(np.float32)
+    else:
+        arr = rng.standard_normal((h + 2, w + 2)).astype(np.float32)
+    size = torch.empty((), dtype=dtype).element_size()
+    skip = 1 if off == 1 else off // size
+    flat = torch.empty((h + 2) * (w + 2) + 16, dtype=dtype, device=device)
+    lead = (-flat.data_ptr() % 16) // size + skip
+    x = flat[lead:lead + (h + 2) * (w + 2)].view(h + 2, w + 2)
+    x.copy_(ops.to_tensor(arr, dtype, device))
+    assert x.data_ptr() % 16 == (size if off == 1 else off)
+    return x
+
+
+@pytest.mark.parametrize("h,w,off", HOST_STENCILS,
+                         ids=[f"{h}x{w}-off{o}" for h, w, o in HOST_STENCILS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("values", ["integer", "normal"])
+def test_stencil3x3_on_host_matches_plain_version(host_stencil, h, w, off, dtype, values,
+                                                  monkeypatch):
+    """The stencil's source run on the CPU through ``stencil3x3`` (its
+    device check lifted, its launcher built for the host, the output NaN
+    first), one launch a call: integer inputs bit for bit against ``stencil3x3_plain``, normal ones
+    within 1e-5 (bf16: one bf16 rounding, 2**-8 relative)."""
+    # the output (h, wd) of dtype code `dt`
+    kernel = _HostLauncher(host_stencil, st_mod.KERNEL,
+                           (2, lambda x, w_, o, h_, wd, dt, t: h_ * wd * (4 - 2 * dt)))
+    monkeypatch.setattr(st_mod, "require_cuda", lambda *a: torch.device("cpu"))
+    monkeypatch.setattr(st_mod, "KERNEL", kernel)
+    rng = np.random.default_rng(h * w + off)
+    x = _stencil_input(h, w, dtype, off, values, rng)
+    wts = torch.from_numpy(GAUSS)
+    got = stencil3x3(x, wts)
+    assert kernel.launches == 1
+    assert got.dtype == dtype and got.shape == (h, w)
+    want = stencil3x3_plain(x, wts)
+    if values == "integer":
+        assert torch.equal(got, want)
+    else:
+        tol = 1e-5 if dtype == torch.float32 else 2 ** -8
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("h,w", [(h, w) for h, w, _ in HOST_STENCILS] + [(1080, 1920)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_stencil_plan_covers_every_output_once(h, w, dtype):
+    """``stencil.plan`` from shape and dtype alone: whole warps, at most 256
+    threads, the band height the kernel is compiled for; its strips and
+    bands cover every output once (the last of each ragged at most)."""
+    p = st_mod.plan(h, w, dtype)
+    assert p["v"] == (4 if dtype == torch.float32 else 8)
+    assert p["threads"] % 32 == 0 and 32 <= p["threads"] <= 256
+    src = st_mod.KERNEL.path.read_text()
+    assert p["rows"] == st_mod.ROWS and f"constexpr int ROWS = {st_mod.ROWS};" in src
+    cols = p["threads"] * p["v"]
+    assert (p["strips"] - 1) * cols < w <= p["strips"] * cols
+    assert (p["bands"] - 1) * p["rows"] < h <= p["bands"] * p["rows"]
+    assert p["blocks"] == p["strips"] * p["bands"]
+    covered = torch.zeros(p["bands"] * p["rows"], p["strips"] * cols, dtype=torch.int32)
+    for band in range(p["bands"]):
+        for strip in range(p["strips"]):
+            covered[band * p["rows"]:(band + 1) * p["rows"], strip * cols:(strip + 1) * cols] += 1
+    assert torch.equal(covered[:h, :w], torch.ones(h, w, dtype=torch.int32))
+    if (h, w) == (1080, 1920):
+        # 1080p: 3 strips of 160 threads (f32), one strip of 256 (bf16), 270
+        # bands of 4 rows
+        want = (160, 810) if dtype == torch.float32 else (256, 270)
+        assert (p["threads"], p["blocks"]) == want
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -1048,7 +1182,8 @@ def test_ssd_chunk_out_on_host_takes_states_off_16_bytes(host_simt, monkeypatch)
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_version_on_card():
     """Build and launch the ten kernels on small shapes; hold each against
-    its plain version (stencil, integer matmuls and grams bit for bit), one launch
+    its plain version (stencil, f32 and bf16, ragged and off 16 bytes,
+    integer matmuls and grams bit for bit), one launch
     per call of the kernel its route names (the SSD op: one of each of its
     four kernels; a SIMT matmul that splits K: one of the kernel and one of
     ``matmul_reduce``)."""
@@ -1116,6 +1251,14 @@ def test_cuda_kernels_match_plain_version_on_card():
         ("ssd_scan", ssd_scan, ssd_scan_plain,
          tuple(ops.to_tensor(a) for a in ssd_arrays(rng, 512, 4, 64, 128)), {}, 1e-3),
     ]
+    # the stencil's host cases on the card, f32 and bf16, integer and normal
+    # inputs, each bit for bit
+    for h, w, off in HOST_STENCILS:
+        for dtype in (torch.float32, bf16):
+            for values in ("integer", "normal"):
+                cases.append(("stencil3x3", stencil3x3, stencil3x3_plain,
+                              (_stencil_input(h, w, dtype, off, values, rng, "cuda"),
+                               ops.to_tensor(GAUSS)), {}, 0.0))
     # the SIMT matmul's host cases on the card: random at the JAX
     # tolerances, integers bit for bit
     for m, n, k, dtype in HOST_MATMULS:
