@@ -112,6 +112,26 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    carries its library's registers and spills as ``ptxas -v`` reported
    them.
 
+8. compiler: the port's backend demo (``repro_torch.backend.demo``, every
+   app of ``DEMO_APPS`` on its generated CUDA kernels: plan shapes and
+   line-buffer decisions against the golden tables, every buffer against
+   the reference interpreter, two launches a kernel, the plan cache hit on
+   a re-compile; one row per app with its shared memory, compile, cold and
+   warm µs), ``compile_stage`` on the 1080p gaussian's stage (bit for bit
+   with its plain version and the pipeline's kernel), the port's
+   quickstart (``repro_torch.quickstart``: the paper's schedule, unified
+   buffers, mapping and simulation on the host, then ``stencil3x3`` on the
+   card, one launch, bit for bit with its plain version), and seeded fault
+   injection (``repro_torch.backend.faults``) on the gaussian 1082×1922
+   and resnet 56² 64→64 servers, batch 8, 20 requests: a marked tile's
+   outputs poisoned (it fails closed with ``PoisonedTileError``, the other
+   19 bit for bit with the per-tile pipeline), a kernel raise at dispatch
+   2 and a poisoned plan-cache entry (both recover by a recompile, all 20
+   bit for bit), a NaN tile (refused at submit with
+   ``NonFiniteInputError``), a dispatch slower than one request's deadline
+   (``DeadlineExceededError``); each case prints its ``fault_counters``,
+   wall seconds and launches.
+
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line.
@@ -1073,6 +1093,186 @@ def kernels_full(full_apps, rows) -> None:
         torch.cuda.empty_cache()
 
 
+# phase 8's fault cases: (label of a FULL configuration)
+FAULT_CONFIGS = ["gaussian", "resnet"]
+
+
+def stage_of(pipe):
+    """A one-stage pipeline's normalized stage and its buffer shapes, the
+    arguments ``compile_stage`` takes."""
+    from repro_torch.frontend.lower import normalize_pipeline
+
+    (ns,) = normalize_pipeline(pipe)
+    return ns, {b: tuple(box.extents) for b, box in pipe.buffer_boxes.items()}
+
+
+def compiler_phase(full_apps, rng) -> None:
+    """Phase 8: the port's demo on the CUDA kernels, its quickstart on the
+    card, and seeded fault injection through ``PipelineServer`` at full
+    width.  Each part zeroes the launch counts it reads just before it
+    runs and reads them just after; any failure raises."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch import quickstart
+    from repro_torch.backend import (
+        DeadlineExceededError, DegradedModeWarning, NonFiniteInputError, PipelineServer,
+        PoisonedTileError, compile_pipeline, compile_stage, demo,
+    )
+    from repro_torch.backend.faults import (
+        FaultClock, kernel_raise, mark_poison, nan_input, poison_cache_entry, poison_output,
+        slow_dispatch,
+    )
+    from repro_torch.kernels import KERNELS
+
+    # (a) the demo, every app on its generated CUDA kernels (the demo
+    # compiles fresh pipelines, whose kernels start at 0 launches)
+    t0 = time.perf_counter()
+    rows = demo.run_demo(kernels="cuda")
+    log("[compiler] demo: app,stages,kernels,linebuf,rings,smem_kib,hbm_kib,compile_us,"
+        "run_us_cold,run_us_warm,launches,max_err,status")
+    for r in rows:
+        log(f"[compiler] demo: {r['app']},{r['stages']},{r['kernels']},{r['linebuf']},"
+            f"{r['rings']},{r['smem_kib']:.2f},{r['hbm_kib']},{r['compile_us']},"
+            f"{r['run_us_cold']},{r['run_us_warm']},{r['launches']},{r['max_err']!r},"
+            f"{'OK' if r['ok'] else 'MISMATCH ' + '; '.join(r['plan_notes'])}")
+        if not r["ok"]:
+            raise AssertionError(f"demo {r['app']}: {r['plan_notes']} max_err {r['max_err']}")
+        if not all(n == 2 for n in r["launches"].values()):
+            raise AssertionError(f"demo {r['app']}: launches {r['launches']}, 2 a kernel expected")
+    log(f"[compiler] demo: {len(rows)} apps ok on kernels='cuda', "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (a, continued) compile_stage: the 1080p gaussian's stage alone, against
+    # its plain version and the whole pipeline's kernel on the same input
+    app = full_apps["gaussian"]
+    ck = compile_stage(*stage_of(app.pipeline))
+    ins = inputs_for(app, rng)
+    bufs = {n: torch.from_numpy(a).cuda() for n, a in ins.items()}
+    got = ck(bufs)
+    launched = ck.launches
+    plain = ck.plain(bufs)
+    whole = compile_pipeline(app.pipeline).run(ins)[ck.name]
+    if launched != 1 or not (torch.equal(got, plain) and torch.equal(got, whole)):
+        raise AssertionError(f"compile_stage {ck.name}: launches {launched}, "
+                             f"max|cuda - plain| {float((got - plain).abs().max())!r}")
+    log(f"[compiler] compile_stage {ck.name} {tuple(got.shape)} grid={ck.grid} bh={ck.bh}: "
+        "bit for bit with its plain version and the pipeline's kernel, 1 launch")
+
+    # (b) the quickstart: steps 1-4 on the host, step 5 on the card
+    t0 = time.perf_counter()
+    stencil = KERNELS["stencil3x3"]
+    stencil.launches = 0
+    res = quickstart.run("cuda", out=lambda line: log(f"[compiler] quickstart: {line}"))
+    launched = stencil.launches
+    if res["problems"] or res["kernels"] != "cuda" or res["plain_err"] != 0.0 or launched != 1:
+        raise AssertionError(f"quickstart: {res['problems']}, stencil3x3 launches {launched}")
+    log(f"[compiler] quickstart: ok, stencil3x3 launches {launched}, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (c) fault injection at full width, batch 8, 20 seeded requests
+    for label in FAULT_CONFIGS:
+        name = next(n for lab, n, _kw, _i in FULL if lab == label)
+        integer = next(i for lab, _n, _kw, i in FULL if lab == label)
+        app = full_apps[label]
+        tiles = [inputs_for(app, rng, integer=integer) for _ in range(N_REQUESTS)]
+        tile_pp = compile_pipeline(app.pipeline)
+        want = []
+        for t in tiles:
+            got = tile_pp.run(t)
+            want.append({k.name: got[k.name].cpu().numpy() for k in tile_pp.kernels})
+        out_names = [k.name for k in tile_pp.kernels]
+
+        def exact(req, i):
+            return req.ok and all(np.array_equal(req.outputs[k], want[i][k]) for k in out_names)
+
+        def case(title, body, **server_kw):
+            srv = PipelineServer(app.pipeline, batch_slots=BATCH, **server_kw)
+            first = srv.pipeline
+            for k in first.kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                detail = body(srv, [dict(t) for t in tiles])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            pps = [first] + ([srv.pipeline] if srv.pipeline is not first else [])
+            launches = {k.name: sum(p.stage(k.name).launches for p in pps)
+                        for k in first.kernels}
+            if not all(launches.values()):
+                raise AssertionError(f"faults {label} {title}: launches {launches}")
+            degraded = sum(issubclass(w.category, DegradedModeWarning) for w in caught)
+            log(f"[compiler] faults {label} {title}: {detail}; fault_counters "
+                f"{srv.fault_counters}; DegradedModeWarning x{degraded}; wall {wall:.4f} s; "
+                f"launches {launches}")
+            return srv
+
+        def poisoned(srv, reqs):
+            bad = int(rng.integers(N_REQUESTS))
+            mark_poison(reqs[bad])
+            with poison_output(srv):
+                done = srv.run(reqs)
+            if not isinstance(done[bad].error, PoisonedTileError):
+                raise AssertionError(f"faults {label}: marked tile {bad} got {done[bad].error!r}")
+            if not all(exact(r, i) for i, r in enumerate(done) if i != bad):
+                raise AssertionError(f"faults {label}: a healthy tile differs under poison_output")
+            return f"tile {bad} failed closed ({done[bad].error.code}), 19 bit for bit"
+
+        def transient(srv, reqs):
+            with kernel_raise(srv, at_dispatch=2):
+                done = srv.run(reqs)
+            if not all(exact(r, i) for i, r in enumerate(done)):
+                raise AssertionError(f"faults {label}: kernel_raise did not recover bit for bit")
+            return "dispatch 2 raised, recovered, 20 bit for bit"
+
+        def nonfinite(srv, reqs):
+            (bad,) = nan_input(reqs, frac=1 / N_REQUESTS, seed=int(rng.integers(1 << 16)))
+            done = []
+            for i, r in enumerate(reqs):
+                try:
+                    done.append((i, srv.submit(r)))
+                except NonFiniteInputError as e:
+                    if i != bad:
+                        raise AssertionError(f"faults {label}: tile {i} refused: {e}")
+                    code = e.code
+            while srv.pending:
+                srv.step()
+            if len(done) != N_REQUESTS - 1 or not all(exact(r, i) for i, r in done):
+                raise AssertionError(f"faults {label}: nan_input neighbours not bit for bit")
+            return f"tile {bad} refused at submit ({code}), 19 bit for bit"
+
+        def slow(srv, reqs):
+            tight = srv.submit(reqs[0], deadline=5.0)
+            rest = [srv.submit(r, deadline=1000.0) for r in reqs[1:]]
+            with slow_dispatch(srv, srv._clock, dispatch_s=10.0):
+                while srv.pending:
+                    srv.step()
+            if not isinstance(tight.error, DeadlineExceededError):
+                raise AssertionError(f"faults {label}: slow dispatch gave {tight.error!r}")
+            if not all(exact(r, i + 1) for i, r in enumerate(rest)):
+                raise AssertionError(f"faults {label}: a roomy tile differs under slow_dispatch")
+            return f"tile 0 failed closed ({tight.error.code}), 19 bit for bit"
+
+        def cache_poison(srv, reqs):
+            broken = srv.pipeline
+            with poison_cache_entry(broken):
+                done = srv.run(reqs)
+            if srv.pipeline is broken or not all(exact(r, i) for i, r in enumerate(done)):
+                raise AssertionError(f"faults {label}: poisoned cache entry did not recover")
+            return "poisoned entry dropped and recompiled, 20 bit for bit"
+
+        case("poison_output", poisoned)
+        case("kernel_raise(at_dispatch=2)", transient)
+        case("nan_input", nonfinite)
+        case("slow_dispatch", slow, clock=FaultClock())
+        case("poison_cache_entry", cache_poison)
+        del want
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script", file=sys.stderr)
@@ -1087,9 +1287,10 @@ def main() -> int:
 
     from repro_torch.apps import make_app
     from repro_torch.backend import (
-        PipelineServer, compile_pipeline, reference_arrays,
+        PipelineServer, compile_pipeline, compile_stage, reference_arrays,
     )
     from repro_torch.backend.build import build_many, digest, ptxas_usage
+    from repro_torch.backend.demo import DEMO_APPS, make_demo_app
     from repro_torch.backend.cuda_codegen import (
         REPLACES, block_threads, element_map, emit_library, grid_x, lane_layout, output_tile,
         row_bands, shared_bytes, staged_inputs,
@@ -1118,10 +1319,16 @@ def main() -> int:
         full_apps[label] = app
         configs.append((app.pipeline, {"batch": BATCH, "batch_capacity": BATCH}))
         configs.append((app.pipeline, {}))
+    # the demo's apps (phase 8), planned as the demo compiles them
+    for name, kw in DEMO_APPS:
+        configs.append((make_demo_app(name, kw).pipeline, {}))
     sources = []
     for pipe, ckw in configs:
         plan = build_pipeline_plan(pipe, vmem_budget=H100_SMEM_PER_BLOCK, **ckw)
         sources.append(emit_library([LoweredGroup(kg) for kg in plan.kernels]))
+    # phase 8's compile_stage group (planned here; its plain version lowers it)
+    staged = compile_stage(*stage_of(full_apps["gaussian"].pipeline), device="cpu", kernels="eager")
+    sources.append(emit_library([staged.lg]))
     # the hand-written kernels' sources join the same parallel build
     sources += list(dict.fromkeys(k.source() for k in KERNELS.values()))
     t0 = time.perf_counter()
@@ -1352,6 +1559,11 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels_full(full_apps, rows)
     log(f"[kernels-full] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # -- 8. compiler: the demo, the quickstart, fault injection ------------------
+    t0 = time.perf_counter()
+    compiler_phase(full_apps, rng)
+    log(f"[compiler] phase wall {time.perf_counter() - t0:.1f} s")
 
     # every variant of the generated kernel, with the configurations that
     # launched it at full size and its largest difference from the plain version

@@ -5,17 +5,18 @@ group), with a plain PyTorch version of every kernel beside it.
 The planner (``plan``), the verifier (``verify``), the access decomposition
 and the error taxonomy are the JAX package's, kept as copies so that the
 port imports nothing of it; ``eager``, ``cuda_codegen``, ``build``,
-``runner`` and ``serve_bridge`` are the port's own.
+``runner``, ``serve_bridge``, ``demo`` and ``faults`` are the port's own.
 """
 
 from .access import AxisAccess, LoadAccess, UnsupportedAccessError, decompose_stage
-from .eager import EagerKernel, LoweredGroup
+from .eager import EagerKernel, GroupKernel, LoweredGroup, eval_trace
 from .errors import (
     BackendError,
     BackendWarning,
     DeadlineExceededError,
     DegradedModeWarning,
     EmitError,
+    LaneCarryDegradeWarning,
     MissingInputError,
     NonFiniteInputError,
     PlanError,
@@ -35,21 +36,26 @@ from .plan import (
     StagePlan,
     ViewGroup,
     build_pipeline_plan,
+    scheduler_cost,
 )
 from .runner import (
     TUNABLE_KEYS,
     TorchPipeline,
     clear_pipeline_cache,
     compile_pipeline,
+    compile_stage,
     drop_pipeline_cache_entry,
     inputs_to_torch,
     max_abs_error,
+    pipeline_cache_size,
     pipeline_cache_stats,
     plan_cache_key,
     reference_arrays,
 )
 from .serve_bridge import PipelineServer, TileRequest
-from .verify import PlanVerificationError, PlanViolation, assert_plan_verified, verify_plan
+from .verify import (
+    RULES, PlanVerificationError, PlanViolation, assert_plan_verified, verify_plan,
+)
 
 __all__ = [
     "AxisAccess",
@@ -57,12 +63,15 @@ __all__ = [
     "UnsupportedAccessError",
     "decompose_stage",
     "EagerKernel",
+    "GroupKernel",
     "LoweredGroup",
+    "eval_trace",
     "BackendError",
     "BackendWarning",
     "DeadlineExceededError",
     "DegradedModeWarning",
     "EmitError",
+    "LaneCarryDegradeWarning",
     "MissingInputError",
     "NonFiniteInputError",
     "PlanError",
@@ -80,18 +89,22 @@ __all__ = [
     "StagePlan",
     "ViewGroup",
     "build_pipeline_plan",
+    "scheduler_cost",
     "TUNABLE_KEYS",
     "TorchPipeline",
     "clear_pipeline_cache",
     "compile_pipeline",
+    "compile_stage",
     "drop_pipeline_cache_entry",
     "inputs_to_torch",
     "max_abs_error",
+    "pipeline_cache_size",
     "pipeline_cache_stats",
     "plan_cache_key",
     "reference_arrays",
     "PipelineServer",
     "TileRequest",
+    "RULES",
     "PlanVerificationError",
     "PlanViolation",
     "assert_plan_verified",

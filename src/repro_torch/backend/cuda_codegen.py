@@ -119,7 +119,10 @@ import torch
 
 from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
 
-from .eager import AxisIndex, Bounds, EagerKernel, LoweredGroup, Op, Tap, _resized, block_tap
+from .eager import (
+    AxisIndex, Bounds, EagerKernel, GroupKernel, LoweredGroup, Op, Tap, _resized, block_tap,
+    record_eval_sites,
+)
 from .errors import EmitError
 from .plan import KernelGroup, StagePlan
 
@@ -1742,7 +1745,7 @@ def launch_dims(lg: LoweredGroup, ts: Sequence[torch.Tensor]) -> List[int]:
     return dims
 
 
-class CudaKernel:
+class CudaKernel(GroupKernel):
     """The wrapper of one generated CUDA kernel.
 
     It takes CUDA tensors only: it launches the kernel on the current
@@ -1753,8 +1756,7 @@ class CudaKernel:
     CPU ask for by name, ``kernels="eager"``)."""
 
     def __init__(self, lg: LoweredGroup, lib: ctypes.CDLL, tag: str):
-        self.lg = lg
-        self.kg = lg.kg
+        super().__init__(lg)
         self.plain = EagerKernel(lg)
         self.launches = 0
         fn = getattr(lib, f"ub_launch_{tag}")
@@ -1768,14 +1770,6 @@ class CudaKernel:
         self._err = lib.ub_error_string
         self._err.argtypes = [ctypes.c_int]
         self._err.restype = ctypes.c_char_p
-
-    @property
-    def name(self) -> str:
-        return self.kg.name
-
-    @property
-    def stage_names(self) -> List[str]:
-        return self.kg.stage_names
 
     def blocks_per_sm(self) -> int:
         """The blocks of this kernel an SM of the current card holds at
@@ -1793,6 +1787,7 @@ class CudaKernel:
 
     def __call__(self, buffers: Mapping[str, torch.Tensor]) -> torch.Tensor:
         lg, kg = self.lg, self.kg
+        kg.validate_buffers(buffers)
         ts = [buffers[b] for b in lg.buffer_order]
         devs = {t.device for t in ts}
         if len(devs) != 1:
@@ -1809,7 +1804,7 @@ class CudaKernel:
                     f"kernel {kg.name!r}: buffer {b!r} must be a contiguous "
                     f"float32 tensor, got {t.dtype} contiguous={t.is_contiguous()}"
                 )
-        kg.validate_buffers(buffers)
+        record_eval_sites(self)
         dims = launch_dims(lg, ts)
         out = torch.empty(output_shape(kg), dtype=torch.float32, device=dev)
         ptrs = (ctypes.c_void_p * max(len(ts), 1))(*[t.data_ptr() for t in ts])

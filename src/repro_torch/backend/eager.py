@@ -18,14 +18,17 @@ versions: :class:`LoweredGroup` turns every load of every fused stage into a
 coordinates and the grid position) and every stage panel into a
 straight-line program of f32 operations in the Pallas kernel's order.  The
 CUDA emitter prints the same programs as C, so the two versions run the same
-f32 operations in the same order.
+f32 operations in the same order.  The eval counter (:func:`eval_trace`)
+records each group's panel evaluation sites from the same lowering, for
+both versions.
 """
 
 from __future__ import annotations
 
 import itertools
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,6 +37,49 @@ from repro_torch.frontend.expr import BinOp, Const, Expr, FuncRef, IterVal, Sele
 from .access import UnsupportedAccessError
 from .errors import EmitError
 from .plan import KernelGroup, StagePlan
+
+# ---------------------------------------------------------------------------
+# Eval counter (shared by both versions of a kernel)
+# ---------------------------------------------------------------------------
+
+# one list per open ``eval_trace()`` scope, innermost last
+_EVAL_TRACE_STACK: List[List[Dict]] = []
+
+
+@contextmanager
+def eval_trace() -> Iterator[List[Dict]]:
+    """Collect the eval-site records of kernels *first run* inside the
+    scope, the counter behind the computed-exactly-once properties::
+
+        with eval_trace() as trace:
+            pp.run(inputs)
+        assert trace  # [{kernel, stage, shift, lane_shift, rows, when}, ...]
+
+    A record is one panel evaluation site of a kernel group, as the JAX
+    package's ``codegen.eval_trace`` records it: ``when`` is ``"step0"``
+    for a row line buffer's warm-up (``rows`` halo rows, once a row sweep),
+    ``"lane0"`` for a lane line buffer's warm-up, and ``"every"`` for a
+    panel evaluated at every grid step.  The JAX package records at
+    jit-trace time, so on a kernel's first run; here a kernel (CUDA or
+    eager) records its group's sites (:meth:`LoweredGroup.eval_sites`) on
+    its first run inside a scope, once, and outside every scope a run
+    only checks that no scope is open.  Scopes nest: records go to the
+    innermost open scope."""
+    trace: List[Dict] = []
+    _EVAL_TRACE_STACK.append(trace)
+    try:
+        yield trace
+    finally:
+        _EVAL_TRACE_STACK.remove(trace)
+
+
+def record_eval_sites(kernel) -> None:
+    """Record ``kernel``'s eval sites into the innermost open scope on its
+    first run inside one (the kernel wrappers call this on every run)."""
+    if _EVAL_TRACE_STACK and not kernel.eval_recorded:
+        kernel.eval_recorded = True
+        _EVAL_TRACE_STACK[-1].extend(kernel.lg.eval_sites())
+
 
 # ---------------------------------------------------------------------------
 # Resolved address arithmetic (shared with cuda_codegen)
@@ -199,6 +245,36 @@ class LoweredGroup:
         else:
             self.init_program = self._lower_init(out)
             self.programs[(out.name, 0, 0)] = self._lower_chunk(out)
+
+    def eval_sites(self) -> List[Dict]:
+        """Every panel evaluation site of the group, in the order and with
+        the records of the JAX kernel body (``codegen.py`` 905-1003): each
+        scratch entry in topological order (a line buffer's warm-up before
+        its steady panel), then the output panel unless a grid reduction
+        accumulates it."""
+        kg = self.kg
+        out: List[Dict] = []
+
+        def site(sp: StagePlan, shift: int, lshift: int, rows: int, when: str) -> None:
+            out.append({"kernel": kg.name, "stage": sp.name, "shift": shift,
+                        "lane_shift": lshift, "rows": rows, "when": when})
+
+        for sp, key in self.entries:
+            lb = sp.line_buffer
+            rows = self.panel_shape(sp)[0]
+            if key is None:
+                site(sp, lb.lo, 0, lb.halo, "step0")
+                site(sp, lb.hi, 0, rows, "every")
+            elif isinstance(key, tuple) and key[1] is None:
+                site(sp, key[0], lb.lo, rows, "lane0")
+                site(sp, key[0], lb.hi, rows, "every")
+            elif isinstance(key, tuple):
+                site(sp, key[0], key[1], rows, "every")
+            else:
+                site(sp, key, 0, rows, "every")
+        if kg.red_grid is None:
+            site(kg.output, 0, 0, self.panel_shape(kg.output)[0], "every")
+        return out
 
     def streamed(self, sp: StagePlan) -> bool:
         return self.kg.streamed and sp.streamed
@@ -596,15 +672,18 @@ class _Env:
         return vals[-1]
 
 
-class EagerKernel:
-    """Plain-PyTorch execution of one lowered kernel group.  Call with a
-    mapping of buffer name -> f32 tensor (leading batch dim of
-    ``batch_steps`` slots when the group is batched); returns the group's
-    output tensor."""
+class GroupKernel:
+    """What both versions of a generated kernel share: the lowered group
+    and the plan passthroughs the JAX package's ``CompiledKernel`` exposes
+    (its output stage ``name``, ``stage_names``, ``bh``, ``grid``,
+    ``groups``, ``rings``, the padded and reduction grids, the
+    unified-buffer ``plan``), and whether its eval sites were recorded
+    (:func:`eval_trace`)."""
 
     def __init__(self, lowered: LoweredGroup):
         self.lg = lowered
         self.kg = lowered.kg
+        self.eval_recorded = False
 
     @property
     def name(self) -> str:
@@ -613,6 +692,57 @@ class EagerKernel:
     @property
     def stage_names(self) -> List[str]:
         return self.kg.stage_names
+
+    @property
+    def plan(self):
+        return self.kg.ub_plan()
+
+    @property
+    def fused(self) -> bool:
+        return self.kg.fused
+
+    @property
+    def groups(self):
+        return self.kg.groups
+
+    @property
+    def bh(self) -> int:
+        return self.kg.bh
+
+    @property
+    def grid(self) -> Tuple[int, ...]:
+        return self.kg.grid
+
+    @property
+    def streamed(self) -> bool:
+        return self.kg.streamed
+
+    @property
+    def red_grid(self):
+        return self.kg.red_grid
+
+    @property
+    def padded_grid(self):
+        return self.kg.padded_grid
+
+    @property
+    def rings(self):
+        return self.kg.rings
+
+    @property
+    def line_buffered(self) -> Tuple[str, ...]:
+        return self.kg.line_buffered
+
+    @property
+    def block(self) -> Tuple[int, ...]:
+        return self.kg.output.panel_shape(self.kg.bh)
+
+
+class EagerKernel(GroupKernel):
+    """Plain-PyTorch execution of one lowered kernel group.  Call with a
+    mapping of buffer name -> f32 tensor (leading batch dim of
+    ``batch_steps`` slots when the group is batched); returns the group's
+    output tensor."""
 
     def _panel(
         self, env: _Env, sp: StagePlan, shift: int, lshift: int,
@@ -674,6 +804,8 @@ class EagerKernel:
 
     def __call__(self, buffers: Mapping[str, torch.Tensor]) -> torch.Tensor:
         kg, lg = self.kg, self.lg
+        kg.validate_buffers(buffers)
+        record_eval_sites(self)
         batched = kg.batch_grid is not None
         srcs = [
             buffers[b] if batched else buffers[b].unsqueeze(0)
@@ -729,8 +861,11 @@ class EagerKernel:
 __all__ = [
     "AxisIndex",
     "EagerKernel",
+    "GroupKernel",
     "LoweredGroup",
     "Tap",
     "block_tap",
     "check_supported",
+    "eval_trace",
+    "record_eval_sites",
 ]

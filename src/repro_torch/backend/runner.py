@@ -29,19 +29,25 @@ import hashlib
 import warnings
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
-from repro_torch.frontend.lower import Pipeline, execute_pipeline, normalize_pipeline
+from repro_torch.frontend.expr import refs_in
+from repro_torch.frontend.lower import (
+    NormalizedStage, Pipeline, execute_pipeline, normalize_pipeline,
+)
 
+from .access import UnsupportedAccessError, decompose_stage
 from .build import load_library
 from .cuda_codegen import CudaKernel, emit_library
-from .eager import EagerKernel, LoweredGroup
+from .eager import EagerKernel, GroupKernel, LoweredGroup
 from .errors import LaneCarryDegradeWarning
-from .plan import PipelinePlan, RED_GRID_THRESHOLD, build_pipeline_plan
+from .plan import (
+    PipelinePlan, RED_GRID_THRESHOLD, _build_kernel_group, _stream_ok, build_pipeline_plan,
+)
 from .verify import assert_plan_verified
 
 KERNEL_CHOICES = ("cuda", "eager")
@@ -148,11 +154,30 @@ class TorchPipeline:
     order (``CudaKernel``s or ``EagerKernel``s, per ``kernels``)."""
 
     pipeline: Pipeline
-    kernels: List[object]
+    kernels: List[GroupKernel]
     plan: PipelinePlan
     device: torch.device
     kernel_choice: str = "cuda"
     cache_key: Optional[str] = None
+
+    @property
+    def stages(self) -> List[GroupKernel]:
+        """The kernels (the JAX package's name; one kernel may cover
+        several fused stages)."""
+        return self.kernels
+
+    def stage(self, name: str) -> GroupKernel:
+        """The kernel writing buffer ``name``, or the one that fuses stage
+        ``name``."""
+        for k in self.kernels:
+            if k.name == name:
+                return k
+        for k in self.kernels:
+            if name in k.stage_names:
+                return k
+        raise KeyError(name)
+
+    kernel = stage
 
     def run(self, inputs: Mapping[str, object]) -> Dict[str, torch.Tensor]:
         """Execute every kernel; returns every *materialized* buffer
@@ -269,9 +294,78 @@ def drop_pipeline_cache_entry(key: Optional[str]) -> bool:
     return _PIPELINE_CACHE.pop(key, None) is not None
 
 
+def pipeline_cache_size() -> int:
+    """The number of live cache entries."""
+    return len(_PIPELINE_CACHE)
+
+
 def pipeline_cache_stats() -> Dict[str, int]:
     """Hit/miss/eviction counters plus the live entry count."""
     return {**_CACHE_STATS, "entries": len(_PIPELINE_CACHE)}
+
+
+def _kernels(groups, kernels: str) -> List[GroupKernel]:
+    """One kernel of the chosen version per planned group; the CUDA kernels
+    of one call share one library."""
+    lowered = [LoweredGroup(kg) for kg in groups]
+    if kernels == "eager":
+        return [EagerKernel(lg) for lg in lowered]
+    lib = load_library(emit_library(lowered))
+    return [CudaKernel(lg, lib, str(i)) for i, lg in enumerate(lowered)]
+
+
+def _check_contract(device, kernels: str) -> torch.device:
+    if kernels not in KERNEL_CHOICES:
+        raise ValueError(f"kernels must be one of {KERNEL_CHOICES}: {kernels!r}")
+    dev = resolve_device(device)
+    if kernels == "cuda" and dev.type != "cuda":
+        raise ValueError(
+            "kernels='cuda' needs device='cuda'; use kernels='eager' for "
+            "the plain version on the CPU"
+        )
+    return dev
+
+
+def compile_stage(
+    nstage: NormalizedStage,
+    buffer_shapes: Mapping[str, Tuple[int, ...]],
+    *,
+    device: Union[str, torch.device] = "cuda",
+    kernels: str = "cuda",
+    block_h: Optional[int] = None,
+    block_w: Optional[int] = None,
+    vmem_budget: int = H100_SMEM_PER_BLOCK,
+    grid_reduction: bool = False,
+    red_grid_threshold: int = RED_GRID_THRESHOLD,
+    cost_model: str = "scheduler",
+    line_buffer: object = "auto",
+    red_resident: bool = True,
+) -> GroupKernel:
+    """Plan one normalized stage as a kernel group of its own and compile
+    it to one kernel of the chosen version (the JAX package's
+    ``codegen.compile_stage``, with the execution contract of
+    :func:`compile_pipeline`).  A reduction init that reads buffers is
+    refused, as the JAX package refuses it."""
+    if nstage.init is not None and refs_in(nstage.init):
+        raise UnsupportedAccessError(
+            f"{nstage.name}: reduction init with buffer reads is not supported"
+        )
+    _check_contract(device, kernels)
+    accesses = decompose_stage(nstage)
+    streamed = _stream_ok(accesses, nstage.pure_dims[0])
+    kg = _build_kernel_group(
+        [(nstage, accesses, streamed)],
+        buffer_shapes,
+        block_h=block_h,
+        block_w=block_w,
+        vmem_budget=vmem_budget,
+        cost_model=cost_model,
+        grid_reduction=grid_reduction,
+        red_grid_threshold=red_grid_threshold,
+        line_buffer=line_buffer,
+        red_resident=red_resident,
+    )
+    return _kernels([kg], kernels)[0]
 
 
 def compile_pipeline(
@@ -303,16 +397,9 @@ def compile_pipeline(
     ``kernels`` are the execution contract of the module docstring;
     ``verify`` gates static plan certification (``"auto"``: fresh plans
     only, ``True``: cache hits too, ``False``: never)."""
-    if kernels not in KERNEL_CHOICES:
-        raise ValueError(f"kernels must be one of {KERNEL_CHOICES}: {kernels!r}")
     if verify not in (True, False, "auto"):
         raise ValueError(f"verify must be True, False, or 'auto': {verify!r}")
-    dev = resolve_device(device)
-    if kernels == "cuda" and dev.type != "cuda":
-        raise ValueError(
-            "kernels='cuda' needs device='cuda'; use kernels='eager' for "
-            "the plain version on the CPU"
-        )
+    dev = _check_contract(device, kernels)
     plan_kwargs = dict(
         block_h=block_h,
         block_w=block_w,
@@ -346,15 +433,7 @@ def compile_pipeline(
         _warn_lane_carry_degrades(plan)
     if verify is not False:
         assert_plan_verified(plan)
-    lowered = [LoweredGroup(kg) for kg in plan.kernels]
-    if kernels == "cuda":
-        lib = load_library(emit_library(lowered))
-        ks: List[object] = [
-            CudaKernel(lg, lib, str(i)) for i, lg in enumerate(lowered)
-        ]
-    else:
-        ks = [EagerKernel(lg) for lg in lowered]
-    pp = TorchPipeline(pipe, ks, plan, dev, kernels, cache_key=key)
+    pp = TorchPipeline(pipe, _kernels(plan.kernels, kernels), plan, dev, kernels, cache_key=key)
     if cache:
         _PIPELINE_CACHE[key] = pp
         while len(_PIPELINE_CACHE) > _PIPELINE_CACHE_MAX:
@@ -417,9 +496,11 @@ __all__ = [
     "TorchPipeline",
     "clear_pipeline_cache",
     "compile_pipeline",
+    "compile_stage",
     "drop_pipeline_cache_entry",
     "inputs_to_torch",
     "max_abs_error",
+    "pipeline_cache_size",
     "pipeline_cache_stats",
     "plan_cache_key",
     "reference_arrays",

@@ -1,0 +1,468 @@
+"""Seeded fault injection on the port's serving stack, on the CPU.
+
+Replays ``tests/test_faults.py`` on ``repro_torch.backend.faults`` with
+``device="cpu", kernels="eager"``: every injected fault — NaN/Inf inputs, a
+marked tile whose outputs are poisoned, a kernel raise at dispatch N or on
+a marked tile, a poisoned plan-cache entry, a slow dispatch, a full queue —
+either fully recovers (every healthy request bit-equal to the per-tile
+pipeline) or fails closed with its named class from ``backend.errors``,
+across the serving compositions of the JAX suite (batched, ragged final
+dispatch, lane grids, carried line buffers, lane x carry).  The schedule
+database cases (``corrupt_schedule_db``, the ``tune=`` keyword) wait for
+the port's autotuner.  One case poisons a tile on the card (``gpu``).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import SWEEP_SEED, sweep_inputs
+from repro_torch.apps import make_app
+from repro_torch.backend import (
+    DeadlineExceededError,
+    DegradedModeWarning,
+    LaneCarryDegradeWarning,
+    MissingInputError,
+    NonFiniteInputError,
+    PipelineServer,
+    PoisonedTileError,
+    QueueFullError,
+    RequestError,
+    clear_pipeline_cache,
+    compile_pipeline,
+    drop_pipeline_cache_entry,
+    pipeline_cache_stats,
+)
+from repro_torch.backend import runner
+from repro_torch.backend.faults import (
+    POISON_MARKER,
+    FaultClock,
+    InjectedFault,
+    _marked_slots,
+    kernel_raise,
+    mark_poison,
+    nan_input,
+    poison_cache_entry,
+    poison_output,
+    slow_dispatch,
+)
+
+pytestmark = pytest.mark.torch
+
+CPU = dict(device="cpu", kernels="eager")
+
+
+def _tiles(app, n, seed=SWEEP_SEED):
+    return [sweep_inputs(app, seed + i, "u4") for i in range(n)]
+
+
+def _assert_bit_exact(req, tile, ref_pp, out_name):
+    assert req.ok, f"expected ok, got error: {req.error}"
+    assert np.array_equal(req.outputs[out_name], ref_pp.run(tile)[out_name].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# Admission validation
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf"])
+def test_nonfinite_input_rejected_at_submit(kind):
+    app = make_app("gaussian", size=13)
+    srv = PipelineServer(app.pipeline, batch_slots=4, block_h=4, **CPU)
+    tiles = _tiles(app, 8)
+    bad = nan_input(tiles, frac=0.25, seed=3, kind=kind)
+    assert bad, "injector must poison at least one tile"
+    accepted, rejected = [], []
+    for i, t in enumerate(tiles):
+        try:
+            accepted.append((i, srv.submit(t)))
+        except NonFiniteInputError as e:
+            assert e.code == "REQ-NONFINITE"
+            assert "[REQ-NONFINITE]" in str(e) and "first at" in str(e)
+            assert isinstance(e, ValueError)
+            rejected.append(i)
+    assert rejected == bad
+    while srv.pending:
+        srv.step()
+    ref = compile_pipeline(app.pipeline, block_h=4, **CPU)
+    out = app.pipeline.output
+    for i, req in accepted:
+        _assert_bit_exact(req, tiles[i], ref, out)
+    s = srv.stats()
+    assert s["validation_rejects"] == len(bad)
+    assert s["poisoned_tiles"] == 0 and s["quarantine_dispatches"] == 0
+
+
+def test_submit_rejects_bad_dtype_by_name():
+    app = make_app("gaussian", size=13)
+    srv = PipelineServer(app.pipeline, batch_slots=2, block_h=4, **CPU)
+    shape = tuple(app.pipeline.buffer_boxes["input"].extents)
+    for bad in (
+        np.full(shape, "x", dtype="<U4"),
+        np.zeros(shape, np.complex64),
+        np.zeros(shape, "datetime64[s]"),
+    ):
+        with pytest.raises(RequestError, match="expected float32") as ei:
+            srv.submit({"input": bad})
+        assert ei.value.code == "REQ"
+        assert str(bad.dtype) in str(ei.value)
+        assert isinstance(ei.value, ValueError)
+    with pytest.raises(MissingInputError, match="missing input") as ei:
+        srv.submit({})
+    assert ei.value.code == "REQ-MISSING"
+    assert isinstance(ei.value, KeyError)
+    assert srv.stats()["validation_rejects"] == 4
+    assert srv.stats()["pending"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Quarantine bisection
+# ---------------------------------------------------------------------------
+
+QUARANTINE_CASES = [
+    pytest.param(("gaussian", dict(size=13)), dict(block_h=4), 4, 6, [1], id="batched"),
+    pytest.param(("gaussian", dict(size=13)), dict(block_h=4), 4, 6, [5],
+                 id="ragged-final-dispatch"),
+    pytest.param(("gaussian", dict(size=21)), dict(block_w=8), 3, 4, [0], id="lane-blocked"),
+    pytest.param(("unsharp", dict(size=15)), dict(fuse=True, block_h=5, line_buffer=True),
+                 3, 5, [2], id="carried-line-buffer"),
+    pytest.param(("harris", dict(schedule="sch3", size=20)), dict(block_w=8, line_buffer=True),
+                 3, 4, [1, 3], id="lane-carry-rings-two-poisoned"),
+]
+
+
+@pytest.mark.parametrize("mk, ckw, slots, n, marks", QUARANTINE_CASES)
+def test_quarantine_isolates_poison_bit_exact(mk, ckw, slots, n, marks):
+    name, kwargs = mk
+    app = make_app(name, **kwargs)
+    srv = PipelineServer(app.pipeline, batch_slots=slots, **CPU, **ckw)
+    tiles = _tiles(app, n)
+    for i in marks:
+        mark_poison(tiles[i])
+    with poison_output(srv):
+        done = srv.run(tiles)
+    assert "_run_pipeline" not in srv.__dict__
+    ref = compile_pipeline(app.pipeline, **CPU, **ckw)
+    out = app.pipeline.output
+    for i, (req, tile) in enumerate(zip(done, tiles)):
+        if i in marks:
+            assert req.done and not req.ok and req.outputs is None
+            assert isinstance(req.error, PoisonedTileError)
+            assert req.error.code == "REQ-POISONED"
+            assert "dispatched alone" in str(req.error)
+        else:
+            _assert_bit_exact(req, tile, ref, out)
+    s = srv.stats()
+    assert s["poisoned_tiles"] == len(marks)
+    assert s["quarantine_dispatches"] >= 1
+    assert s["failed"] == len(marks)
+    redo = srv.run([tiles[i] for i in marks])
+    for i, req in zip(marks, redo):
+        _assert_bit_exact(req, tiles[i], ref, out)
+
+
+def test_poison_output_splats_marked_slots_of_a_clone():
+    """The injector finds the marked slots where the inputs lie and splats
+    NaN (or Inf) over those slots of a clone of each output: the real
+    output is untouched and every other slot keeps its bytes."""
+    app = make_app("camera", size=6)
+    srv = PipelineServer(app.pipeline, batch_slots=3, **CPU)
+    tiles = _tiles(app, 3)
+    mark_poison(tiles[1])
+    ins = {n: torch.from_numpy(np.stack([t[n] for t in tiles])) for n in app.pipeline.inputs}
+    assert _marked_slots(ins) == [1]
+    real = srv.pipeline.run(ins)
+    kept = {k.name: real[k.name].clone() for k in srv.pipeline.kernels}
+    for kind, val in (("nan", np.nan), ("inf", np.inf)):
+        with poison_output(srv, kind=kind):
+            got = srv._run_pipeline(srv.pipeline, ins)
+        for k in srv.pipeline.kernels:
+            g = got[k.name].numpy()
+            assert np.array_equal(g[1], np.full_like(g[1], val), equal_nan=True)
+            assert np.array_equal(g[[0, 2]], kept[k.name].numpy()[[0, 2]])
+            assert torch.equal(real[k.name], kept[k.name])
+    assert POISON_MARKER == np.float32(2.0 ** 60)
+
+
+def test_nan_admitted_under_shape_validation_is_quarantined():
+    app = make_app("gaussian", size=13)
+    srv = PipelineServer(app.pipeline, batch_slots=4, block_h=4, validate="shape", **CPU)
+    tiles = _tiles(app, 4)
+    bad = nan_input(tiles, frac=0.3, seed=7)
+    done = srv.run(tiles)
+    ref = compile_pipeline(app.pipeline, block_h=4, **CPU)
+    out = app.pipeline.output
+    for i, (req, tile) in enumerate(zip(done, tiles)):
+        if i in bad:
+            assert isinstance(req.error, PoisonedTileError)
+            assert "non-finite" in str(req.error)
+        else:
+            _assert_bit_exact(req, tile, ref, out)
+    assert srv.stats()["validation_rejects"] == 0
+    assert srv.stats()["poisoned_tiles"] == len(bad)
+
+
+# ---------------------------------------------------------------------------
+# Retry-with-recompile ladder
+# ---------------------------------------------------------------------------
+
+
+def test_transient_kernel_raise_recovers_bit_exact():
+    app = make_app("gaussian", size=13)
+    ckw = dict(block_h=4)
+    srv = PipelineServer(app.pipeline, batch_slots=4, **CPU, **ckw)
+    tiles = _tiles(app, 6)
+    with kernel_raise(srv, at_dispatch=1):
+        with pytest.warns(DegradedModeWarning, match="recovered"):
+            done = srv.run(tiles)
+    assert "_run_pipeline" not in srv.__dict__
+    ref = compile_pipeline(app.pipeline, **CPU, **ckw)
+    out = app.pipeline.output
+    for req, tile in zip(done, tiles):
+        _assert_bit_exact(req, tile, ref, out)
+    s = srv.stats()
+    assert s["dispatch_failures"] == 1
+    assert s["recompiles"] == 1
+    assert s["degraded_dispatches"] == 1
+    assert s["quarantine_dispatches"] == 0 and s["poisoned_tiles"] == 0
+
+
+def test_kernel_raise_takes_exactly_one_trigger():
+    app = make_app("gaussian", size=13)
+    srv = PipelineServer(app.pipeline, batch_slots=2, block_h=4, **CPU)
+    for kw in ({}, {"at_dispatch": 1, "on_marker": True}):
+        with pytest.raises(ValueError, match="exactly one"):
+            with kernel_raise(srv, **kw):
+                pass
+    assert "_run_pipeline" not in srv.__dict__
+
+
+def test_recovery_ladder_reaches_heuristic_schedule():
+    app = make_app("matmul", m=16, n=16, k=16)
+    srv = PipelineServer(app.pipeline, batch_slots=2, block_h=4, **CPU)
+    tiles = _tiles(app, 2)
+    real = srv._run_pipeline
+    calls = {"n": 0}
+
+    def flaky(pp, ins):
+        calls["n"] += 1
+        if calls["n"] <= 2:
+            raise InjectedFault(f"flaky dispatch {calls['n']}")
+        return real(pp, ins)
+
+    srv._run_pipeline = flaky
+    try:
+        with pytest.warns(DegradedModeWarning, match="heuristic"):
+            done = srv.run(tiles)
+    finally:
+        del srv.__dict__["_run_pipeline"]
+    s = srv.stats()
+    assert s["dispatch_failures"] == 1 and s["recompiles"] == 2
+    assert s["degraded_dispatches"] == 1
+    for req, tile in zip(done, tiles):
+        assert req.ok
+        want = tile["A"].astype(np.float64) @ tile["B"].astype(np.float64)
+        assert np.array_equal(req.outputs["matmul"].astype(np.float64), want)
+
+
+def test_poisoned_cache_entry_recovers():
+    app = make_app("gaussian", size=13)
+    ckw = dict(block_h=4)
+    srv = PipelineServer(app.pipeline, batch_slots=3, **CPU, **ckw)
+    broken = srv.pipeline
+    tiles = _tiles(app, 5)
+    with poison_cache_entry(broken):
+        with pytest.raises(InjectedFault):
+            broken.run(tiles[0])
+        with pytest.warns(DegradedModeWarning, match="recovered"):
+            done = srv.run(tiles)
+    assert "run" not in broken.__dict__
+    assert srv.pipeline is not broken
+    assert srv.stats()["recompiles"] >= 1
+    ref = compile_pipeline(app.pipeline, **CPU, **ckw)
+    out = app.pipeline.output
+    for req, tile in zip(done, tiles):
+        _assert_bit_exact(req, tile, ref, out)
+
+
+def test_marker_raise_isolated_by_bisection():
+    app = make_app("gaussian", size=13)
+    srv = PipelineServer(app.pipeline, batch_slots=4, block_h=4, **CPU)
+    tiles = _tiles(app, 4)
+    mark_poison(tiles[2])
+    with kernel_raise(srv, on_marker=True):
+        done = srv.run(tiles)
+    ref = compile_pipeline(app.pipeline, block_h=4, **CPU)
+    out = app.pipeline.output
+    for i, (req, tile) in enumerate(zip(done, tiles)):
+        if i == 2:
+            assert isinstance(req.error, PoisonedTileError)
+            assert "dispatched alone" in str(req.error)
+        else:
+            _assert_bit_exact(req, tile, ref, out)
+    s = srv.stats()
+    assert s["dispatch_failures"] == 1 and s["recompiles"] == 2
+    assert s["degraded_dispatches"] == 0
+    assert s["poisoned_tiles"] == 1 and s["quarantine_dispatches"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# Deadlines and backpressure
+# ---------------------------------------------------------------------------
+
+
+def test_deadline_expires_in_queue():
+    app = make_app("gaussian", size=13)
+    clock = FaultClock()
+    srv = PipelineServer(app.pipeline, batch_slots=2, block_h=4, clock=clock, **CPU)
+    tiles = _tiles(app, 3)
+    late = srv.submit(tiles[0], deadline=5.0)
+    ok1 = srv.submit(tiles[1], deadline=50.0)
+    ok2 = srv.submit(tiles[2])
+    clock.advance(10.0)
+    finished = srv.step()
+    assert late in finished and late.outputs is None
+    assert isinstance(late.error, DeadlineExceededError)
+    assert late.error.code == "REQ-DEADLINE"
+    assert "expired in queue" in str(late.error)
+    while srv.pending:
+        srv.step()
+    assert ok1.ok and ok2.ok
+    assert srv.stats()["deadline_misses"] == 1
+
+
+def test_slow_dispatch_discards_late_results():
+    app = make_app("gaussian", size=13)
+    clock = FaultClock()
+    srv = PipelineServer(app.pipeline, batch_slots=2, block_h=4, clock=clock,
+                         default_deadline=5.0, **CPU)
+    tiles = _tiles(app, 2)
+    tight = srv.submit(tiles[0])
+    roomy = srv.submit(tiles[1], deadline=100.0)
+    with slow_dispatch(srv, clock, dispatch_s=10.0):
+        srv.step()
+    assert tight.done and not tight.ok and tight.outputs is None
+    assert isinstance(tight.error, DeadlineExceededError)
+    assert "late results are discarded" in str(tight.error)
+    assert roomy.ok
+    assert srv.stats()["deadline_misses"] == 1
+
+
+def test_backpressure_reject_and_block():
+    app = make_app("gaussian", size=13)
+    tiles = _tiles(app, 4)
+    srv = PipelineServer(app.pipeline, batch_slots=2, block_h=4, max_pending=2,
+                         admission="reject", **CPU)
+    srv.submit(tiles[0])
+    srv.submit(tiles[1])
+    with pytest.raises(QueueFullError, match="max_pending=2") as ei:
+        srv.submit(tiles[2])
+    assert ei.value.code == "SERVE-QUEUE-FULL"
+    assert ei.value.witness == (2, 2)
+    assert srv.stats()["backpressure_rejects"] == 1
+    srv.step()
+    srv.submit(tiles[2])
+
+    blk = PipelineServer(app.pipeline, batch_slots=2, block_h=4, max_pending=2,
+                         admission="block", **CPU)
+    reqs = [blk.submit(t) for t in tiles]
+    assert len(blk.pending) <= 2
+    while blk.pending:
+        blk.step()
+    assert all(r.ok for r in reqs)
+    assert blk.stats()["backpressure_rejects"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Every named warning points at the caller
+# ---------------------------------------------------------------------------
+
+
+def _only(record, category):
+    msgs = [w for w in record if issubclass(w.category, category)]
+    assert msgs, f"no {category.__name__} raised"
+    return msgs
+
+
+def test_warning_stacklevels_point_at_caller():
+    """The port's named warnings (those without a schedule database) name
+    this file, the caller's, not a frame inside the backend."""
+    me = os.path.basename(__file__)
+    app = make_app("gaussian", size=13)
+    wide = make_app("gaussian", size=24, width=40)
+    with pytest.warns(LaneCarryDegradeWarning) as rec:  # stacklevel=3
+        compile_pipeline(wide.pipeline, block_w=1, line_buffer=True, **CPU)
+    assert all(os.path.basename(w.filename) == me for w in _only(rec, LaneCarryDegradeWarning))
+
+    srv = PipelineServer(app.pipeline, batch_slots=2, block_h=4, **CPU)
+    with kernel_raise(srv, at_dispatch=1):
+        with pytest.warns(DegradedModeWarning) as rec:  # stacklevel=4
+            srv.run(_tiles(app, 2))
+    assert all(os.path.basename(w.filename) == me for w in _only(rec, DegradedModeWarning))
+
+
+# ---------------------------------------------------------------------------
+# Cache-stats counters under eviction and clear with live servers
+# ---------------------------------------------------------------------------
+
+
+def test_cache_stats_across_eviction_and_clear(monkeypatch):
+    clear_pipeline_cache(reset_stats=True)
+    app = make_app("gaussian", size=13)
+    srv = PipelineServer(app.pipeline, batch_slots=2, block_h=4, **CPU)
+    assert pipeline_cache_stats() == {"hits": 0, "misses": 1, "evictions": 0, "entries": 1}
+
+    monkeypatch.setattr(runner, "_PIPELINE_CACHE_MAX", 1)
+    compile_pipeline(app.pipeline, block_h=2, cache=True, **CPU)
+    compile_pipeline(app.pipeline, block_h=8, cache=True, **CPU)
+    assert pipeline_cache_stats() == {"hits": 0, "misses": 3, "evictions": 2, "entries": 1}
+    assert drop_pipeline_cache_entry(srv.pipeline.cache_key) is False
+    assert pipeline_cache_stats()["evictions"] == 2
+
+    tiles = _tiles(app, 3)
+    done = srv.run(tiles)
+    ref = compile_pipeline(app.pipeline, block_h=4, **CPU)
+    out = app.pipeline.output
+    for req, tile in zip(done, tiles):
+        _assert_bit_exact(req, tile, ref, out)
+    s2 = pipeline_cache_stats()
+    assert s2["misses"] == 3 and s2["hits"] == 0
+
+    clear_pipeline_cache(reset_stats=False)
+    assert pipeline_cache_stats() == {"hits": 0, "misses": 3, "evictions": 2, "entries": 0}
+    done2 = srv.run(_tiles(app, 2, seed=SWEEP_SEED + 9))
+    assert all(r.ok for r in done2)
+    assert pipeline_cache_stats()["misses"] == 3
+    clear_pipeline_cache(reset_stats=True)
+    assert pipeline_cache_stats() == {"hits": 0, "misses": 0, "evictions": 0, "entries": 0}
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_poisoned_tile_quarantined_on_card():
+    """The marked tile's outputs are poisoned on the device by the CUDA
+    kernels' own server; bisection fails it closed and every other tile is
+    bit for bit the per-tile pipeline's, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; run on the GPU machine")
+    app = make_app("gaussian", size=13)
+    srv = PipelineServer(app.pipeline, batch_slots=4, block_h=4)
+    tiles = _tiles(app, 6)
+    mark_poison(tiles[2])
+    with poison_output(srv):
+        done = srv.run(tiles)
+    ref = compile_pipeline(app.pipeline, block_h=4)
+    out = app.pipeline.output
+    for i, (req, tile) in enumerate(zip(done, tiles)):
+        if i == 2:
+            assert isinstance(req.error, PoisonedTileError)
+        else:
+            _assert_bit_exact(req, tile, ref, out)
+    assert srv.stats()["poisoned_tiles"] == 1

@@ -39,7 +39,9 @@ def test_no_jax_or_repro_imports(path):
 def test_port_backend_import_leaves_jax_unloaded():
     code = (
         "import sys, repro_torch.backend, repro_torch.apps, repro_torch.serve, "
-        "repro_torch.kernels, repro_torch.kernels.ops; "
+        "repro_torch.kernels, repro_torch.kernels.ops, repro_torch.quickstart, "
+        "repro_torch.backend.demo, repro_torch.backend.faults, repro_torch.core.simulator, "
+        "repro_torch.core.hwmodel; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"
     )
