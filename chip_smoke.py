@@ -132,6 +132,30 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    (``DeadlineExceededError``); each case prints its ``fault_counters``,
    wall seconds and launches.
 
+9. tune: the autotuner (``repro_torch.backend.autotune.search``) on the
+   gaussian 1082×1922 and harris sch3 1024² configurations, batch 8, at
+   most 32 candidates, 8 measured, 5 timed runs each: every certified
+   survivor's library built in one parallel nvcc batch, each candidate's
+   ``pp.run`` timed by CUDA events on inputs resident on the card, one
+   line per candidate (schedule, modeled cycles, µs a run, launches a
+   run) and per rejection (the verifier's rules); the winner stored in a
+   database under a temporary directory, then served through
+   ``compile_pipeline(tune=db)`` (the winner's plan) bit for bit with the
+   heuristic plan on integer inputs.
+10. models: ``repro_torch.models`` at full width and depth, random weights
+   from a seeded generator on the card, B 1, S 2048: tinyllama-1.1b bf16
+   and f32, gemma3-1b bf16, mamba2-2.7b bf16.  Each ``forward_prefill``
+   runs with every launch count zeroed just before and read just after:
+   22 ``flash_attention_wgmma`` (tinyllama bf16), 22 ``flash_attention``
+   (f32), 4 ``flash_attention_wgmma`` and 22 windowed layers (gemma3), 64
+   of each SSD kernel (mamba2), no other kernel.  Its logits are held
+   against ``kernels="eager"`` on the same weights (``MODEL_TOL``) and,
+   in bf16, both routes against the f32 eager route; it is timed (CUDA
+   events, median of 5) beside 2 × non-embedding parameters × tokens over
+   the peak.  Then 16 greedy ``decode_step``s of tinyllama bf16 from an
+   empty cache, ms a token beside the weight-byte bound, the last step
+   held against an eager prefill of the same tokens.
+
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line.
@@ -1273,6 +1297,236 @@ def compiler_phase(full_apps, rng) -> None:
         torch.cuda.empty_cache()
 
 
+# phase 9's searches: (label of a FULL configuration), batch 8
+TUNE_CONFIGS = ["gaussian", "harris"]
+TUNE_SEARCH = dict(max_candidates=32, measure_top=8, reps=5)
+
+
+def tune_phase(full_apps, rng) -> None:
+    """Phase 9: the verifier-gated autotuner on the card.  For each
+    configuration, ``autotune.search`` at full size and batch 8 builds every
+    certified survivor's library in one parallel nvcc batch, times each
+    candidate's ``pp.run`` by CUDA events (median of 5 after a warm-up)
+    and stores the winner in a database under a temporary directory; then
+    ``compile_pipeline(tune=db)`` must serve the winner's plan, and its
+    output must equal the heuristic plan's bit for bit on integer inputs."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.backend import compile_pipeline
+    from repro_torch.backend.autotune import _plan_fingerprint, search
+
+    fixed = {"batch": BATCH, "batch_capacity": BATCH}
+    with tempfile.TemporaryDirectory() as tmp:
+        db = str(Path(tmp) / "schedule_db_torch.json")
+        for label in TUNE_CONFIGS:
+            app = full_apps[label]
+            t0 = time.perf_counter()
+            r = search(app.pipeline, label=label, db=db, plan_kwargs=fixed, seed=SEED,
+                       log=lambda msg: log(f"[tune] {msg}"), **TUNE_SEARCH)
+            wall = time.perf_counter() - t0
+            for c in r.measured:
+                log(f"[tune] {label} {c.schedule or '{heuristic}'}: model_cycles "
+                    f"{c.model_cycles}, {c.warm_us:.1f} us a run (median of "
+                    f"{TUNE_SEARCH['reps']}, CUDA events; first run {c.cold_us:.0f} us), "
+                    f"launches a run {c.launches}")
+            for c in r.rejected:
+                log(f"[tune] {label} {c.schedule}: rejected by {list(c.rules)}")
+            winner = next(c for c in r.measured if c.schedule == r.schedule)
+            log(f"[tune] {label}: winner {r.schedule or '{heuristic}'} {r.warm_us:.1f} us, "
+                f"heuristic {r.heuristic_warm_us:.1f} us, speedup {r.heuristic_warm_us / r.warm_us:.3f}; "
+                f"{len(r.candidates)} candidates, {len(r.measured)} measured, "
+                f"{len(r.rejected)} rejected; nvcc batch build {r.build_s:.1f} s; "
+                f"search wall {wall:.1f} s")
+            tuned = compile_pipeline(app.pipeline, tune=db, **fixed)
+            heur = compile_pipeline(app.pipeline, **fixed)
+            if _plan_fingerprint(tuned.plan) != _plan_fingerprint(winner.plan):
+                raise AssertionError(f"[tune] {label}: compile_pipeline(tune=db) does not "
+                                     f"serve the stored winner {r.schedule}")
+            ins = {n: torch.from_numpy(a).cuda()
+                   for n, a in inputs_for(app, rng, batch=BATCH, integer=True).items()}
+            for k in tuned.kernels:
+                k.launches = 0
+            got = tuned.run(ins)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in tuned.kernels}
+            want = heur.run(ins)
+            same = all(torch.equal(got[k.name], want[k.name]) for k in heur.kernels)
+            log(f"[tune] {label}: compile_pipeline(tune=db) serves {r.schedule or '{heuristic}'} "
+                f"(bh {[k.bh for k in tuned.kernels]}, grid {[k.grid for k in tuned.kernels]}), "
+                f"launches {launches}; bit for bit with the heuristic plan on integer inputs: "
+                f"{'ok' if same else 'FAIL'}")
+            if not same or not all(launches.values()):
+                raise AssertionError(f"[tune] {label}: the tuned plan differs from the heuristic's")
+
+
+# phase 10's models: (label, arch, dtype name, the kernels one prefill must
+# launch and how often, the windowed layers), B 1, S 2048, full width and depth
+MODEL_CASES = [
+    ("tinyllama-1.1b", "tinyllama_1_1b", "bf16", {"flash_attention_wgmma": 22}, 0),
+    ("tinyllama-1.1b", "tinyllama_1_1b", "f32", {"flash_attention": 22}, 0),
+    ("gemma3-1b", "gemma3_1b", "bf16", {"flash_attention_wgmma": 4}, 22),
+    ("mamba2-2.7b", "mamba2_2_7b", "bf16",
+     dict.fromkeys(("ssd_gram", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out"), 64), 0),
+]
+# the rows of phase 7 whose kernels and shapes each model's prefill runs
+MODEL_ROWS = {
+    ("tinyllama-1.1b", "bf16"): ["flash_attention_wgmma/tinyllama-prefill/bf16"],
+    ("tinyllama-1.1b", "f32"): ["flash_attention/tinyllama-prefill/f32"],
+    ("gemma3-1b", "bf16"): ["flash_attention_wgmma/gemma3-1b-prefill/bf16"],
+    ("mamba2-2.7b", "bf16"): [f"{k}/mamba2-2.7b-prefill/f32" for k in (
+        "ssd_gram", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")],
+}
+PROMPT = 2048
+DECODE_TOKENS = 16
+# logits of the kernel route against the eager route on the card, relative
+# to the largest eager logit
+MODEL_TOL = {"f32": 1e-3, "bf16": 5e-2}
+# mamba2-2.7b in bf16: the eager route alone lies 9.4e-2 x max|logit| from
+# the f32 eager route of the same weights (64 layers of bf16 rounding; the
+# kernel route 1.05e-1, and 8.2e-2 from the eager route), so two bf16
+# routes cannot agree within 5e-2 there
+MODEL_TOL_BF16 = {"mamba2-2.7b": 1e-1}
+# a bf16 kernel route must be no less accurate than the eager route: its
+# distance from the f32 eager route at most this many times the eager's
+BF16_ACCURACY_RATIO = 1.25
+
+
+def models_phase(rows) -> None:
+    """Phase 10: the port's model package on the card.  Each model at full
+    width and depth, random weights from a seeded generator on the card,
+    one prompt of 2048 tokens: ``forward_prefill`` through the hand-written
+    kernels with every launch count zeroed just before and read just after
+    (the expected kernels exactly as often as the route rule says, no
+    other), held against the same weights with ``kernels="eager"`` and
+    timed (CUDA events, median of 5) beside its FLOP bound; then 16 greedy
+    ``decode_step``s of tinyllama-1.1b bf16 from an empty cache, timed per
+    token beside the weight-byte bound and held against an eager prefill of
+    the same 16 tokens."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import decode_step, forward_prefill, init_kv_cache, init_params
+    from repro_torch.models.layers import ROUTES
+    from repro_torch.models.model import _leaves, _map, param_count
+
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    weights = {}
+    for label, arch, dname, expect, windowed in MODEL_CASES:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if (arch, "bf16") in weights and dname == "f32":
+            # the same weights in f32
+            params = _map(lambda t: t.float(), weights[(arch, "bf16")])
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            params = init_params(cfg, gen, dtypes[dname], "cuda")
+        if arch == "tinyllama_1_1b":
+            weights[(arch, dname)] = params
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (1, PROMPT), generator=gen, device="cuda")}
+        with torch.no_grad():
+            for k in KERNELS.values():
+                k.launches = 0
+            ROUTES.clear()
+            got = forward_prefill(cfg, params, batch)
+            torch.cuda.synchronize()
+            launches = {name: k.launches for name, k in KERNELS.items() if k.launches}
+            routes = dict(ROUTES)
+            if launches != expect or routes.get("windowed", 0) != windowed:
+                raise AssertionError(f"[models] {label} {dname}: prefill launched {launches} "
+                                     f"with routes {routes}; expected {expect} and {windowed} "
+                                     "windowed layers")
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            want = forward_prefill(cfg, params, batch, kernels="eager")
+            b.record()
+            b.synchronize()
+            eager_ms = a.elapsed_time(b)
+            ms = time_ms(lambda: forward_prefill(cfg, params, batch), 5)
+        if not (torch.isfinite(got).all() and got.shape == (1, cfg.vocab)):
+            raise AssertionError(f"[models] {label} {dname}: bad logits {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        tol = MODEL_TOL_BF16.get(label, MODEL_TOL[dname]) if dname == "bf16" else MODEL_TOL[dname]
+        same_argmax = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+        ok = err <= tol * scale and (dname == "f32" or same_argmax)
+        accuracy = ""
+        if dname == "bf16":
+            # both bf16 routes against the f32 eager route of the same weights
+            with torch.no_grad():
+                truth = forward_prefill(cfg, _map(lambda t: t.float(), params), batch,
+                                        kernels="eager")
+            e_kernel = float((got - truth).abs().max())
+            e_eager = float((want - truth).abs().max())
+            # random weights give near-uniform logits: where the f32 top-2 gap
+            # is below bf16's own error, an argmax among the near-ties is as
+            # good as the eager route's
+            near_tie = float(truth.max() - truth[0, got.argmax(-1)]) <= e_eager
+            ok = (err <= tol * scale and e_kernel <= BF16_ACCURACY_RATIO * e_eager
+                  and (same_argmax or near_tie))
+            accuracy = (f"; against the f32 eager route: kernel {e_kernel!r}, eager {e_eager!r} "
+                        f"(limit {BF16_ACCURACY_RATIO} x eager's), the kernel's argmax "
+                        f"{float(truth.max() - truth[0, got.argmax(-1)])!r} below the f32 max "
+                        f"({'a near-tie within the eager error' if near_tie else 'not a near-tie'})")
+            del truth
+        n_body = param_count(params) - cfg.vocab * cfg.d_model
+        flops = 2 * n_body * PROMPT
+        peak = PEAK_BF16_FLOPS if dname == "bf16" else PEAK_F32_FLOPS
+        bound = 1e3 * flops / peak
+        log(f"[models] {label} {dname} prefill B 1 S {PROMPT}: {ms:.2f} ms (median of 5, CUDA "
+            f"events), eager {eager_ms:.2f} ms; FLOP bound {bound:.3f} ms (2 x {n_body} "
+            f"non-embedding parameters x {PROMPT} tokens over {peak / 1e12:g} TFLOP/s), "
+            f"{ms / bound:.1f}x it; launches {launches}, routes {routes}; max|cuda - eager| "
+            f"= {err!r} (limit {tol} x max|logit| {scale!r}), argmax "
+            f"{'equal' if same_argmax else 'differs'}{accuracy} {'ok' if ok else 'FAIL'}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not ok:
+            raise AssertionError(f"[models] {label} {dname}: the kernel route disagrees with eager")
+        for key in MODEL_ROWS[(label, dname)]:
+            kname = key.split("/")[0]
+            rows[key].setdefault("model_launches", {})[f"{label} {dname} prefill"] = launches[kname]
+            rows[key].setdefault("model_prefill_ms", {})[f"{label} {dname} prefill"] = ms
+        del got, want, params
+        torch.cuda.empty_cache()
+
+    # -- decode: tinyllama-1.1b bf16, greedy from an empty cache
+    cfg = get_config("tinyllama_1_1b")
+    params = weights[("tinyllama_1_1b", "bf16")]
+    weights.clear()
+    cache = init_kv_cache(cfg, 1, DECODE_TOKENS, torch.bfloat16, "cuda")
+    tok = torch.ones((1,), dtype=torch.long, device="cuda")
+    seq, steps = [], []
+    with torch.no_grad():
+        for pos in range(DECODE_TOKENS):
+            seq.append(tok)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            logits, cache = decode_step(cfg, params, cache, tok, pos)
+            b.record()
+            b.synchronize()
+            steps.append(a.elapsed_time(b))
+            tok = logits.argmax(-1)
+        ref = forward_prefill(cfg, params, {"tokens": torch.stack(seq, 1)}, kernels="eager")
+    err = float((logits - ref).abs().max())
+    ok = bool(torch.isfinite(logits).all()) and err <= MODEL_TOL["bf16"] * float(ref.abs().max())
+    # every weight is read once a token: the layers', and the embedding for the logits
+    nbytes = sum(t.numel() * t.element_size() for _, t in _leaves(params))
+    bound = 1e3 * nbytes / PEAK_BYTES_PER_S
+    tok_ms = statistics.median(steps[1:])
+    log(f"[models] tinyllama-1.1b bf16 decode, {DECODE_TOKENS} greedy steps from an empty cache: "
+        f"{tok_ms:.2f} ms a token (median of steps 2-{DECODE_TOKENS}, CUDA events; the first "
+        f"{steps[0]:.2f}); weight-byte bound {bound:.3f} ms ({nbytes} B over 3.35 TB/s), "
+        f"{tok_ms / bound:.1f}x it; last step's logits against an eager prefill of the same "
+        f"{DECODE_TOKENS} tokens: max|diff| = {err!r} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[models] tinyllama-1.1b decode disagrees with its prefill")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script", file=sys.stderr)
@@ -1564,6 +1818,16 @@ def main() -> int:
     t0 = time.perf_counter()
     compiler_phase(full_apps, rng)
     log(f"[compiler] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # -- 9. tune: the autotuner's searches, served through tune=... -------------
+    t0 = time.perf_counter()
+    tune_phase(full_apps, rng)
+    log(f"[tune] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # -- 10. models: prefill through the kernels, decode --------------------------
+    t0 = time.perf_counter()
+    models_phase(rows)
+    log(f"[models] phase wall {time.perf_counter() - t0:.1f} s")
 
     # every variant of the generated kernel, with the configurations that
     # launched it at full size and its largest difference from the plain version

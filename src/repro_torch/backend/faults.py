@@ -1,9 +1,9 @@
 """Deterministic seeded fault injection for the port's serving stack.
 
 The counterpart of the JAX package's ``backend/faults.py``: injectors for
-the fault classes of the serve path — a poisoned plan-cache entry, NaN/Inf
-in inputs or in a dispatch's outputs, a kernel raise at dispatch N, a slow
-dispatch blowing a deadline — each deterministic (seeded where randomness
+the fault classes of the serve path — a corrupt schedule database, a
+poisoned plan-cache entry, NaN/Inf in inputs or in a dispatch's outputs, a
+kernel raise at dispatch N, a slow dispatch blowing a deadline — each deterministic (seeded where randomness
 is involved) and each a context manager that restores the patched state on
 exit.  ``tests/test_torch_faults.py`` asserts that every injected fault
 either fully recovers or fails closed with its named error from
@@ -12,6 +12,9 @@ database and its corruption injector come with the autotuner.)
 
 Injection seams:
 
+* the **schedule database** is a JSON file read through the autotuner's
+  mtime-keyed load cache (``autotune._DB_CACHE``):
+  :func:`corrupt_schedule_db` rewrites its bytes and drops the cached load;
 * the **plan cache** hands out :class:`~repro_torch.backend.runner.TorchPipeline`
   objects: :func:`poison_cache_entry` shadows one pipeline's ``run`` with a
   raiser, on the object a server holds and so in its cache row;
@@ -33,6 +36,8 @@ as a data-dependent kernel fault would.
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 from typing import Dict, Iterator, List, Mapping, Optional
 
 import numpy as np
@@ -76,6 +81,56 @@ def _wrap_seam(server: PipelineServer, wrapped) -> Iterator[PipelineServer]:
     finally:
         if "_run_pipeline" in server.__dict__:
             del server.__dict__["_run_pipeline"]
+
+
+# ---------------------------------------------------------------------------
+# Schedule-db corruption
+# ---------------------------------------------------------------------------
+
+DB_CORRUPTIONS = ("truncate", "garbage", "bad-version", "bad-schema")
+
+
+@contextlib.contextmanager
+def corrupt_schedule_db(path: str, mode: str = "truncate") -> Iterator[str]:
+    """Corrupt the schedule database at ``path`` for the duration of the
+    block; original bytes (or absence) are restored on exit.
+
+    Modes: ``"truncate"`` cuts the JSON mid-document (the partial-write /
+    partial-copy failure), ``"garbage"`` replaces it with non-JSON bytes,
+    ``"bad-version"`` bumps the version field past ``DB_VERSION``,
+    ``"bad-schema"`` keeps valid JSON but drops the ``entries`` key."""
+    if mode not in DB_CORRUPTIONS:
+        raise ValueError(f"mode must be one of {DB_CORRUPTIONS}: {mode!r}")
+    existed = os.path.exists(path)
+    original = open(path, "rb").read() if existed else None
+    if mode == "truncate":
+        doc = original if original is not None else (
+            b'{"version": 1, "entries": {"k": {"schedule": {}}}}'
+        )
+        body = doc[: max(1, len(doc) // 2)]
+    elif mode == "garbage":
+        body = b"\x00\xffnot json at all\x17"
+    elif mode == "bad-version":
+        body = json.dumps({"version": 999, "entries": {}}).encode()
+    else:                                       # bad-schema
+        body = json.dumps({"version": 1, "rows": []}).encode()
+    try:
+        with open(path, "wb") as f:
+            f.write(body)
+        # drop the mtime-keyed load cache so the corruption is actually read
+        from .autotune import _DB_CACHE
+
+        _DB_CACHE.pop(path, None)
+        yield path
+    finally:
+        if existed:
+            with open(path, "wb") as f:
+                f.write(original)
+        elif os.path.exists(path):
+            os.remove(path)
+        from .autotune import _DB_CACHE
+
+        _DB_CACHE.pop(path, None)
 
 
 # ---------------------------------------------------------------------------
@@ -223,9 +278,11 @@ def slow_dispatch(
 
 
 __all__ = [
+    "DB_CORRUPTIONS",
     "FaultClock",
     "InjectedFault",
     "POISON_MARKER",
+    "corrupt_schedule_db",
     "kernel_raise",
     "mark_poison",
     "nan_input",

@@ -44,7 +44,7 @@ from .access import UnsupportedAccessError, decompose_stage
 from .build import load_library
 from .cuda_codegen import CudaKernel, emit_library
 from .eager import EagerKernel, GroupKernel, LoweredGroup
-from .errors import LaneCarryDegradeWarning
+from .errors import LaneCarryDegradeWarning, TunedModeMismatchWarning
 from .plan import (
     PipelinePlan, RED_GRID_THRESHOLD, _build_kernel_group, _stream_ok, build_pipeline_plan,
 )
@@ -279,6 +279,28 @@ def plan_cache_key(
     return h.hexdigest()
 
 
+def schedule_db_key(pipe: Pipeline, plan_kwargs: Mapping = ()) -> str:
+    """Key a pipeline into the autotuner's schedule database: the content
+    hash of :func:`plan_cache_key` minus the *tunable* keywords
+    (``TUNABLE_KEYS``, the schedule itself), the device and the kernel
+    choice.  Two compiles that pose the same planning problem — identical
+    lowered content, budget, batching — look up the same stored schedule
+    whatever schedule knobs, device or kernels they run with.  The prefix
+    is the port's own: keywords are normalized against the port's defaults
+    (``vmem_budget`` is the H100's), so the JAX package's key of the same
+    keywords poses another problem and must never name a port row."""
+    fixed = {
+        k: v for k, v in dict(plan_kwargs).items() if k not in TUNABLE_KEYS
+    }
+    h = hashlib.sha256()
+    h.update(b"repro_torch-schedule-db:")
+    h.update(repr(sorted(
+        _normalize_plan_kwargs(fixed).items(), key=lambda kv: kv[0]
+    )).encode())
+    _hash_pipeline_content(h, pipe)
+    return h.hexdigest()
+
+
 def clear_pipeline_cache(reset_stats: bool = False) -> None:
     """Evict every cached pipeline (counters kept unless ``reset_stats``)."""
     _PIPELINE_CACHE.clear()
@@ -390,13 +412,24 @@ def compile_pipeline(
     red_chunk: Optional[int] = None,
     lane_price: str = "joint",
     verify: object = "auto",
+    tune: object = False,
 ) -> TorchPipeline:
     """Plan, certify and emit ``pipe``.  The plan keywords are the JAX
     package's (``repro.backend.compile_pipeline``), with the H100's shared
     memory per block as the default ``vmem_budget``.  ``device`` and
     ``kernels`` are the execution contract of the module docstring;
     ``verify`` gates static plan certification (``"auto"``: fresh plans
-    only, ``True``: cache hits too, ``False``: never)."""
+    only, ``True``: cache hits too, ``False``: never).
+
+    ``tune`` consults the autotuner's schedule database
+    (``backend/autotune``) before planning: ``"auto"`` (or ``True``) the
+    default db, a path or a ``ScheduleDB`` that db, ``False`` (default) no
+    lookup.  A stored winner fills only the tunable keywords the caller
+    left at their defaults (an explicit ``block_h=...`` beats the db), and
+    the filled keywords enter the plan cache key.  A miss plans the
+    heuristic schedule silently; a row measured with other kernels or on
+    another device warns ``TunedModeMismatchWarning``; a corrupt db or row
+    degrades to the heuristic schedule with ``ScheduleDBCorruptWarning``."""
     if verify not in (True, False, "auto"):
         raise ValueError(f"verify must be True, False, or 'auto': {verify!r}")
     dev = _check_contract(device, kernels)
@@ -417,6 +450,33 @@ def compile_pipeline(
         red_chunk=red_chunk,
         lane_price=lane_price,
     )
+    if tune is not False and tune is not None:
+        from .autotune import lookup_schedule_entry
+
+        entry = lookup_schedule_entry(pipe, plan_kwargs, db=tune)
+        if entry:
+            here = {
+                "mode": kernels,
+                "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+            }
+            for field, value in here.items():
+                stored = entry.get(field)
+                if stored is not None and stored != value:
+                    warnings.warn(
+                        f"serving a schedule measured with {field} {stored!r} "
+                        f"to a compile with {field} {value!r}; its ranking may "
+                        f"not transfer — re-tune with kernels={kernels!r} on "
+                        f"this device",
+                        TunedModeMismatchWarning,
+                        stacklevel=2,
+                    )
+                    break
+            for k, v in entry.get("schedule", {}).items():
+                if (
+                    k in TUNABLE_KEYS
+                    and plan_kwargs[k] == _PLAN_KWARG_DEFAULTS[k]
+                ):
+                    plan_kwargs[k] = v
     key: Optional[str] = None
     if cache:
         key = plan_cache_key(pipe, dev, kernels, plan_kwargs)
@@ -505,4 +565,5 @@ __all__ = [
     "plan_cache_key",
     "reference_arrays",
     "resolve_device",
+    "schedule_db_key",
 ]

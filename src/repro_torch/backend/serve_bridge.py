@@ -403,14 +403,15 @@ class PipelineServer:
         """Recovery-ladder recompile: drop the (possibly poisoned) cache
         entry first so the fresh compile can never be handed the broken
         pipeline back as a cache hit.  ``heuristic=True`` strips every
-        tunable kwarg — the most conservative plan the heuristic planner
-        produces for this problem."""
+        tunable kwarg and disables the schedule db — the most conservative
+        plan the heuristic planner produces for this problem."""
         pipe, pp, ckw = self._table[key]
         drop_pipeline_cache_entry(pp.cache_key)
         kw = dict(ckw)
         if heuristic:
             for k in TUNABLE_KEYS:
                 kw.pop(k, None)
+            kw["tune"] = False
         self.fault_counters["recompiles"] += 1
         fresh = compile_pipeline(
             pipe,

@@ -57,7 +57,9 @@ def tma_aligned(t: torch.Tensor) -> torch.Tensor:
 
 def require_cuda(fn: str, *tensors: torch.Tensor) -> torch.device:
     """The one CUDA device ``tensors`` lie on; ``ValueError`` otherwise (the
-    plain version is asked for by name, ``kernels="eager"``)."""
+    plain version is asked for by name, ``kernels="eager"``).  A tensor
+    that needs a gradient raises too: the kernels have no backward, and
+    their outputs would cut the graph without a word."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{fn}: tensors on several devices {devs}")
@@ -66,6 +68,11 @@ def require_cuda(fn: str, *tensors: torch.Tensor) -> torch.device:
         raise ValueError(
             f"{fn}: the CUDA kernel takes CUDA tensors, got {dev}; use "
             "kernels='eager' for the plain version on the CPU"
+        )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{fn}: the CUDA kernel has no backward; run it under torch.no_grad() "
+            "or differentiate the plain version, kernels='eager'"
         )
     return dev
 

@@ -38,14 +38,24 @@ def stencil3x3_op(x: torch.Tensor, weights: torch.Tensor, kernels: str = "cuda")
 
 
 def attention_op(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, kernels: str = "cuda"
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, kernels: str = "cuda",
+    *, block_q: Optional[int] = None, block_kv: Optional[int] = None,
 ) -> torch.Tensor:
+    """``block_q`` / ``block_kv`` are the JAX kernel's blocks (each must
+    divide its sequence; the plan's by default); the oracle has none."""
     fn = _choose(kernels, flash_attention, flash_attention_plain, ref.attention_ref)
-    return fn(q, k, v, causal=causal)
+    if kernels == "ref":
+        return fn(q, k, v, causal=causal)
+    return fn(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv)
 
 
-def ssd_op(x, dt, a, b, c, kernels: str = "cuda") -> torch.Tensor:
-    return _choose(kernels, ssd_scan, ssd_scan_plain, ref.ssd_ref)(x, dt, a, b, c)
+def ssd_op(x, dt, a, b, c, kernels: str = "cuda", *, chunk: Optional[int] = None) -> torch.Tensor:
+    """``chunk`` is the JAX kernel's chunk length (it must divide S; the
+    plan's by default); the oracle's recurrence has none."""
+    fn = _choose(kernels, ssd_scan, ssd_scan_plain, ref.ssd_ref)
+    if kernels == "ref":
+        return fn(x, dt, a, b, c)
+    return fn(x, dt, a, b, c, chunk=chunk)
 
 
 def to_tensor(

@@ -1,0 +1,249 @@
+"""Transformer building blocks: RMSNorm, RoPE, chunked GQA attention, MLP,
+decode attention — the port of the JAX package's ``models/layers.py``.
+
+``chunked_gqa_attention`` is the plain blockwise running-softmax attention
+(only one KV chunk of scores live at a time), with the JAX function's
+causal mask, window and f32 statistics.  ``attention_block`` routes by the
+layer's window, which the model decides from its configuration: a layer
+with no window runs the hand-written attention kernel through
+``kernels.ops.attention_op`` (batch and heads folded, the KV heads repeated
+to the query heads); a windowed layer runs ``chunked_gqa_attention``, as
+the kernel has no window.  Each routed call is counted in ``ROUTES``.
+
+The JAX module's sharding hints (``distributed.context.hint``) have no
+counterpart: the port runs on one device.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+# attention score precision of the chunked path: f32 by default; bf16
+# halves the score traffic (the running max and sums stay f32)
+_SCORE_DTYPE = torch.float32
+
+# calls by route since the last ROUTES.clear(): "attention_op" (the kernel
+# route), "windowed" (chunked_gqa_attention with a window), "ssd_op" (one
+# per batch row of a mamba2 block)
+ROUTES: Counter = Counter()
+
+
+def set_score_dtype(dtype: torch.dtype) -> None:
+    global _SCORE_DTYPE
+    _SCORE_DTYPE = dtype
+
+
+def set_attention_impl(impl: str) -> None:
+    """``"xla"`` (the JAX package's name for the default path) is the only
+    implementation; ``"ring"`` is ring attention over a sharded sequence,
+    which comes with the port of ``distributed/`` (ROADMAP Queue 1 item 10)."""
+    if impl == "ring":
+        raise NotImplementedError(
+            "ring attention needs the port of distributed/ (ROADMAP Queue 1 "
+            "item 10); the port runs on one device"
+        )
+    if impl != "xla":
+        raise ValueError(f"unknown attention impl {impl!r}; the port has 'xla'")
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * (1.0 + w.float())).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) with D even; positions: (..., S)."""
+    half = x.shape[-1] // 2
+    idx = torch.arange(0, half, dtype=torch.float32, device=x.device)
+    freqs = 1.0 / (theta ** (idx / half))
+    ang = positions[..., None].float() * freqs                      # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                              # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def chunked_gqa_attention(
+    q: torch.Tensor,            # (B, Sq, Hq, D)
+    k: torch.Tensor,            # (B, Skv, Hkv, D)
+    v: torch.Tensor,            # (B, Skv, Hkv, D)
+    *,
+    q_offset: int = 0,          # global position of q[0]
+    window: Optional[int] = None,   # attend to (pos - window, pos]
+    kv_chunk: int = 512,
+) -> torch.Tensor:
+    """Causal blockwise attention with running softmax over KV chunks;
+    O(Sq * kv_chunk) score memory.  GQA by head grouping.  ``window`` of
+    None means full causal attention."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, d).float()
+    scale = 1.0 / (d ** 0.5)
+    n_chunks = max(1, skv // kv_chunk)
+    assert skv % n_chunks == 0
+    c = skv // n_chunks
+    dev = q.device
+    q_pos = q_offset + torch.arange(sq, device=dev)                 # (Sq,)
+
+    m = torch.full((b, sq, hkv, g), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, sq, hkv, g), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, sq, hkv, g, d), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        kc = k[:, ci * c : (ci + 1) * c].float()
+        vc = v[:, ci * c : (ci + 1) * c]
+        s = torch.einsum("bshgd,bchd->bshgc", qg, kc).to(_SCORE_DTYPE)
+        s = s * torch.tensor(scale, dtype=_SCORE_DTYPE, device=dev)     # (B,Sq,Hkv,G,c)
+        k_pos = ci * c + torch.arange(c, device=dev)
+        mask = k_pos[None, :] <= q_pos[:, None]                     # (Sq, c)
+        if window is not None:
+            mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+        s = torch.where(mask[None, :, None, None, :], s,
+                        torch.tensor(NEG_INF, dtype=s.dtype, device=dev))
+        m_new = torch.maximum(m, s.amax(dim=-1).float())
+        p = torch.exp(s - m_new[..., None].to(s.dtype))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, dtype=torch.float32)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bshgc,bchd->bshgd", p.to(vc.dtype).float(), vc.float()
+        )
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-20)
+    return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def _kernel_blocks(s: int) -> Optional[int]:
+    """The attention kernel's blocks for a sequence of ``s``: its own plan
+    where ``s`` is a power of two, else the largest power of two dividing
+    ``s`` (the plan's blocks must divide the sequence)."""
+    return None if s & (s - 1) == 0 else s & -s
+
+
+def kernel_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kernels: str
+) -> torch.Tensor:
+    """Causal attention of (B, S, Hq, D) queries over (B, S, Hkv, D) keys
+    and values through the hand-written kernel: batch and heads folded to
+    (B·Hq, S, D), each KV head repeated for its query group."""
+    b, s, hq, d = q.shape
+    g = hq // k.shape[2]
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(b * hq, s, d).contiguous()
+
+    blk = _kernel_blocks(s)
+    o = ops.attention_op(
+        fold(q), fold(k.repeat_interleave(g, dim=2)), fold(v.repeat_interleave(g, dim=2)),
+        causal=True, kernels=kernels, block_q=blk, block_kv=blk,
+    )
+    ROUTES["attention_op"] += 1
+    return o.reshape(b, hq, s, d).transpose(1, 2)
+
+
+def attention_block(
+    x: torch.Tensor,                 # (B, S, D)
+    p: dict,                         # attn params
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    qk_norm: bool,
+    norm_eps: float,
+    positions: torch.Tensor,         # (S,)
+    window: Optional[int] = None,
+    kv_chunk: int = 512,
+    kernels: str = "cuda",
+) -> torch.Tensor:
+    """Self-attention of a layer.  ``window=None`` (a layer with no window)
+    runs the attention kernel through ``ops.attention_op(kernels=...)``;
+    a window runs the plain ``chunked_gqa_attention``."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
+    k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
+    v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
+    if qk_norm:
+        q = rms_norm(q, p["q_norm"], norm_eps)
+        k = rms_norm(k, p["k_norm"], norm_eps)
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
+    if window is None:
+        o = kernel_attention(q, k, v, kernels)
+    else:
+        o = chunked_gqa_attention(q, k, v, window=window, kv_chunk=min(kv_chunk, s))
+        ROUTES["windowed"] += 1
+    return o.reshape(b, s, n_heads * head_dim) @ p["wo"]
+
+
+def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# decode-time attention against a KV cache
+# ---------------------------------------------------------------------------
+
+
+def decode_attention(
+    q: torch.Tensor,          # (B, 1, Hq, D)
+    k_cache: torch.Tensor,    # (B, Hkv, Smax, D) — holds positions < pos
+    v_cache: torch.Tensor,    # (B, Hkv, Smax, D)
+    pos: int,                 # index of the *current* token
+    *,
+    window: Optional[int] = None,
+    k_new: Optional[torch.Tensor] = None,   # (B, Hkv, 1, D): the current
+    v_new: Optional[torch.Tensor] = None,   # token's K/V, not yet in the cache
+) -> torch.Tensor:
+    """One query token against the cache, (B, H, S, D) layout; the current
+    token's own term is merged by explicit max/sum algebra when its K/V are
+    passed apart from the cache (the cache is written after all layers)."""
+    b, _, hq, d = q.shape
+    _, hkv, smax, _ = k_cache.shape
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, d).float()
+    scale = 1.0 / (d ** 0.5)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * scale   # (B,Hkv,G,Smax)
+    k_pos = torch.arange(smax, device=q.device)
+    mask = k_pos < pos if k_new is not None else k_pos <= pos
+    if window is not None:
+        mask = mask & (pos - k_pos < window)
+    s = torch.where(mask[None, None, None, :], s, torch.tensor(NEG_INF, device=q.device))
+    if k_new is None:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgs,bhsd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
+    else:
+        s_self = torch.einsum("bhgd,bhsd->bhgs", qg, k_new.float()) * scale   # (B,Hkv,G,1)
+        m = torch.maximum(s.amax(dim=-1, keepdim=True), s_self)
+        p = torch.exp(s - m)
+        p_self = torch.exp(s_self - m)
+        denom = p.sum(dim=-1, keepdim=True) + p_self
+        o = (
+            torch.einsum("bhgs,bhsd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
+            + p_self * v_new.float()
+        ) / denom
+    return o.reshape(b, 1, hq * d).to(q.dtype)
+
+
+__all__ = [
+    "NEG_INF",
+    "ROUTES",
+    "attention_block",
+    "chunked_gqa_attention",
+    "decode_attention",
+    "kernel_attention",
+    "rms_norm",
+    "rope",
+    "set_attention_impl",
+    "set_score_dtype",
+    "swiglu_mlp",
+]

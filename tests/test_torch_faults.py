@@ -8,11 +8,15 @@ either fully recovers (every healthy request bit-equal to the per-tile
 pipeline) or fails closed with its named class from ``backend.errors``,
 across the serving compositions of the JAX suite (batched, ragged final
 dispatch, lane grids, carried line buffers, lane x carry).  The schedule
-database cases (``corrupt_schedule_db``, the ``tune=`` keyword) wait for
-the port's autotuner.  One case poisons a tile on the card (``gpu``).
+database cases replay ``corrupt_schedule_db`` in its four modes, a
+truncated file on disk, malformed rows and the db warnings' stack levels
+through ``compile_pipeline(tune=...)``; the recovery ladder's heuristic
+rung compiles with the db off.  One case poisons a tile on the card
+(``gpu``).
 """
 
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -30,17 +34,23 @@ from repro_torch.backend import (
     PoisonedTileError,
     QueueFullError,
     RequestError,
+    ScheduleDBCorruptWarning,
+    TunedModeMismatchWarning,
     clear_pipeline_cache,
     compile_pipeline,
     drop_pipeline_cache_entry,
     pipeline_cache_stats,
 )
 from repro_torch.backend import runner
+from repro_torch.backend.autotune import ScheduleDB, lookup_schedule
+from repro_torch.backend.autotune import search as autotune_search
 from repro_torch.backend.faults import (
+    DB_CORRUPTIONS,
     POISON_MARKER,
     FaultClock,
     InjectedFault,
     _marked_slots,
+    corrupt_schedule_db,
     kernel_raise,
     mark_poison,
     nan_input,
@@ -48,6 +58,7 @@ from repro_torch.backend.faults import (
     poison_output,
     slow_dispatch,
 )
+from repro_torch.backend.runner import schedule_db_key
 
 pytestmark = pytest.mark.torch
 
@@ -402,6 +413,138 @@ def test_warning_stacklevels_point_at_caller():
         with pytest.warns(DegradedModeWarning) as rec:  # stacklevel=4
             srv.run(_tiles(app, 2))
     assert all(os.path.basename(w.filename) == me for w in _only(rec, DegradedModeWarning))
+
+
+def test_schedule_db_warning_stacklevels_point_at_caller(tmp_path):
+    """The schedule database's two warnings, replayed from the JAX
+    test_warning_stacklevels_point_at_caller: a corrupt db through
+    ``lookup_schedule`` and through ``compile_pipeline(tune=...)``, and a
+    row measured otherwise, each name this file."""
+    me = os.path.basename(__file__)
+    app = make_app("gaussian", size=13)
+    bad = str(tmp_path / "bad_db.json")
+    with open(bad, "w") as f:
+        f.write("not json")
+    with pytest.warns(ScheduleDBCorruptWarning) as rec:
+        lookup_schedule(app.pipeline, {}, db=bad)
+    assert all(os.path.basename(w.filename) == me for w in _only(rec, ScheduleDBCorruptWarning))
+    with pytest.warns(ScheduleDBCorruptWarning) as rec:
+        compile_pipeline(app.pipeline, tune=bad, **CPU)
+    assert all(os.path.basename(w.filename) == me for w in _only(rec, ScheduleDBCorruptWarning))
+
+    tuned = str(tmp_path / "mode_db.json")
+    ScheduleDB(
+        path=tuned,
+        entries={schedule_db_key(app.pipeline, {}): {"schedule": {}, "mode": "cuda"}},
+    ).save()
+    with pytest.warns(TunedModeMismatchWarning) as rec:
+        compile_pipeline(app.pipeline, tune=tuned, **CPU)
+    assert all(os.path.basename(w.filename) == me for w in _only(rec, TunedModeMismatchWarning))
+
+
+# ---------------------------------------------------------------------------
+# Schedule-db corruption: tune=... degrades, never raises
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", DB_CORRUPTIONS)
+def test_schedule_db_corruption_degrades_and_round_trips(tmp_path, mode):
+    """Every corruption mode: the tuned compile degrades to the heuristic
+    schedule with a named ``ScheduleDBCorruptWarning`` (bit for bit with a
+    plain heuristic compile), and once the bytes are restored the stored
+    winner serves again warning-free."""
+    app = make_app("gaussian", size=13)
+    path = str(tmp_path / "schedule_db.json")
+    res = autotune_search(app.pipeline, label="g13", db=path, measure=False, **CPU)
+    assert lookup_schedule(app.pipeline, {}, db=path) == res.schedule
+    ins = sweep_inputs(app, SWEEP_SEED)
+    out = app.pipeline.output
+    with corrupt_schedule_db(path, mode):
+        with pytest.warns(ScheduleDBCorruptWarning):
+            assert lookup_schedule(app.pipeline, {}, db=path) is None
+        with pytest.warns(ScheduleDBCorruptWarning, match="heuristic"):
+            pp = compile_pipeline(app.pipeline, tune=path, **CPU)
+        heur = compile_pipeline(app.pipeline, **CPU)
+        assert torch.equal(pp.run(ins)[out], heur.run(ins)[out])
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", ScheduleDBCorruptWarning)
+        assert lookup_schedule(app.pipeline, {}, db=path) == res.schedule
+        compile_pipeline(app.pipeline, tune=path, **CPU)
+
+
+def test_truncated_db_on_disk_round_trip(tmp_path):
+    """A truncated db loads strict as the original error, non-strict as an
+    empty db with the reason recorded, and a fresh ``search`` rewrites it
+    into a servable db again."""
+    app = make_app("gaussian", size=13)
+    path = str(tmp_path / "schedule_db.json")
+    autotune_search(app.pipeline, label="g13", db=path, measure=False, **CPU)
+    blob = open(path, "rb").read()
+    with open(path, "wb") as f:
+        f.write(blob[: len(blob) // 2])
+    with pytest.raises(ValueError):
+        ScheduleDB.load(path)
+    db = ScheduleDB.load(path, strict=False)
+    assert db.entries == {} and db.corrupt and "JSONDecodeError" in db.corrupt
+    with pytest.warns(ScheduleDBCorruptWarning, match="rewriting"):
+        res = autotune_search(app.pipeline, label="g13", db=path, measure=False, **CPU)
+    assert lookup_schedule(app.pipeline, {}, db=path) == res.schedule
+
+
+def test_malformed_rows_degrade_by_name(tmp_path):
+    """Unknown ``row_version``, non-tunable schedule keys, a row that is not
+    an object and a row without a schedule each degrade to a miss with the
+    reason in the warning."""
+    app = make_app("gaussian", size=13)
+    key = schedule_db_key(app.pipeline, {})
+    for row, reason in [
+        ({"schedule": {"block_h": 4}, "row_version": 99}, "row_version"),
+        ({"schedule": {"warp_speed": 9}}, "non-tunable"),
+        ("not an object", "not an object"),
+        ({"measurements": []}, "no 'schedule'"),
+    ]:
+        path = str(tmp_path / f"db_{reason[:4].strip()}.json")
+        ScheduleDB(path=path, entries={key: row}).save()
+        with pytest.warns(ScheduleDBCorruptWarning, match=reason):
+            assert lookup_schedule(app.pipeline, {}, db=path) is None
+
+
+def test_heuristic_rung_turns_the_db_off(tmp_path):
+    """A server compiled with a stored schedule (``tune=``) reaches the
+    ladder's heuristic rung: that recompile plans the heuristic schedule,
+    not the stored one, and warns nothing about the db."""
+    app = make_app("gaussian", size=13)
+    path = str(tmp_path / "db.json")
+    ScheduleDB(path=path, entries={
+        schedule_db_key(app.pipeline, {"batch": 2, "batch_capacity": 2}): {
+            "schedule": {"block_h": 2}, "mode": "eager", "device": "cpu",
+        },
+    }).save()
+    srv = PipelineServer(app.pipeline, batch_slots=2, tune=path, **CPU)
+    assert srv.pipeline.kernels[0].bh == 2
+    heur_bh = compile_pipeline(app.pipeline, batch=2, batch_capacity=2, **CPU).kernels[0].bh
+    assert heur_bh != 2
+    tiles = _tiles(app, 2)
+    real = srv._run_pipeline
+    calls = {"n": 0}
+
+    def flaky(pp, ins):
+        calls["n"] += 1
+        if calls["n"] <= 2:
+            raise InjectedFault(f"flaky dispatch {calls['n']}")
+        return real(pp, ins)
+
+    srv._run_pipeline = flaky
+    try:
+        with pytest.warns(DegradedModeWarning, match="heuristic"):
+            done = srv.run(tiles)
+    finally:
+        del srv.__dict__["_run_pipeline"]
+    assert srv.stats()["degraded_dispatches"] == 1
+    assert srv.pipeline.kernels[0].bh == heur_bh
+    ref = compile_pipeline(app.pipeline, **CPU)
+    for req, tile in zip(done, tiles):
+        _assert_bit_exact(req, tile, ref, app.pipeline.output)
 
 
 # ---------------------------------------------------------------------------

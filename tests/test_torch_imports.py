@@ -41,7 +41,9 @@ def test_port_backend_import_leaves_jax_unloaded():
         "import sys, repro_torch.backend, repro_torch.apps, repro_torch.serve, "
         "repro_torch.kernels, repro_torch.kernels.ops, repro_torch.quickstart, "
         "repro_torch.backend.demo, repro_torch.backend.faults, repro_torch.core.simulator, "
-        "repro_torch.core.hwmodel; "
+        "repro_torch.core.hwmodel, repro_torch.backend.autotune, repro_torch.models, "
+        "repro_torch.models.model, repro_torch.configs; "
+        "from repro_torch.configs import all_configs; all_configs(); "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"
     )
