@@ -155,6 +155,26 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    the peak.  Then 16 greedy ``decode_step``s of tinyllama bf16 from an
    empty cache, ms a token beside the weight-byte bound, the last step
    held against an eager prefill of the same tokens.
+11. train: ``repro_torch.launch.train.main`` on tinyllama-1.1b at full width
+   and depth in f32 (3 steps, B 2, S 1024, 2 microbatches, a checkpoint
+   after step 2); a step again through ``make_train_step`` with every
+   launch count zeroed just before and read just after (88
+   ``flash_attention``: 22 layers x 2 microbatches x the forward and
+   remat's recompute; the Functions' backward is the plain version's
+   gradient and launches nothing), timed by CUDA events beside 8 ×
+   non-embedding parameters × tokens over 67 TFLOP/s, split into each
+   microbatch's forward+backward and forward, the plain attention backward
+   and the optimizer (beside 7 × 4 B × parameters over 3.35 TB/s), peak
+   memory; each microbatch's loss and gradients held against
+   ``kernels="eager"`` (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_TOL``); the
+   launcher run again restores the step-2 checkpoint and must give step
+   3's loss and parameters (``RESUME_TOL``).  mamba2-2.7b at full width, 4
+   of its 64 layers: 2 steps, B 2, S 1024, 16 launches of each SSD kernel a
+   step (4 layers x 2 rows x 2), held against eager, the SSD plain
+   backward timed.  Then ``ServeEngine`` on the trained tinyllama (4
+   slots, prompts of 8, 8 new tokens): no hand-written launch; every
+   greedy token equals the eager prefill's argmax of its context, or is a
+   near-tie within the decode route's measured error.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -164,6 +184,7 @@ non-zero before that line.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1527,6 +1548,345 @@ def models_phase(rows) -> None:
         raise AssertionError("[models] tinyllama-1.1b decode disagrees with its prefill")
 
 
+
+# phase 11's training: tinyllama-1.1b at full width and depth through the
+# launcher, f32 (the JAX launcher's dtype), B 2, S 1024, 2 microbatches;
+# mamba2-2.7b at full width with 4 of its 64 layers (an earlier-path depth
+# cut), B 2, S 1024, 1 microbatch; then serving on the trained tinyllama
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 2, 1024, 2
+MAMBA_LAYERS = 4
+# the kernel route against the eager route, one state and one batch: the
+# loss relative to itself, each gradient leaf relative to its largest value
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+# the resumed step against the uninterrupted one, relative to each leaf's
+# largest value (0 expected: no kernel of the step uses atomics)
+RESUME_TOL = 1e-6
+SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 4, 8, 8
+
+
+def _events_ms(fn):
+    """(fn's result, its milliseconds between two CUDA events)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _worst_leaf(got, want):
+    """(path, largest |got - want| / max|want| over the leaves)."""
+    worst = ("", 0.0)
+    for (path, g), w in zip(got, want):
+        rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if rel > worst[1]:
+            worst = (path, rel)
+    return worst
+
+
+def _held_against_eager(label, cfg, params, batch, micro, kv_chunk):
+    """Each microbatch's loss and gradients on the kernel route against
+    ``kernels="eager"``; returns the split of a step's work in ms: each
+    microbatch's forward+backward (kernel route), its forward alone."""
+    import torch
+
+    from repro_torch.models import forward_train
+    from repro_torch.models.model import _leaves
+    from repro_torch.train.train_step import microbatch_grads
+
+    paths = [p for p, _ in _leaves(params)]
+    mbs = batch["tokens"].shape[0] // micro
+    split = {"fwd_bwd_ms": [], "fwd_ms": []}
+    for i in range(micro):
+        mb = {k: v[i * mbs : (i + 1) * mbs] for k, v in batch.items()}
+        (loss, grads), ms = _events_ms(lambda: microbatch_grads(cfg, params, mb, kv_chunk=kv_chunk))
+        split["fwd_bwd_ms"].append(ms)
+        with torch.no_grad():
+            _, ms = _events_ms(lambda: forward_train(cfg, params, mb, kv_chunk=kv_chunk))
+        split["fwd_ms"].append(ms)
+        (loss_e, grads_e), eager_ms = _events_ms(
+            lambda: microbatch_grads(cfg, params, mb, kv_chunk=kv_chunk, kernels="eager"))
+        loss_rel = abs(float(loss) - float(loss_e)) / abs(float(loss_e))
+        path, grad_rel = _worst_leaf(zip(paths, grads), grads_e)
+        ok = loss_rel <= TRAIN_LOSS_TOL and grad_rel <= TRAIN_GRAD_TOL and all(
+            bool(torch.isfinite(g).all()) for g in grads)
+        log(f"[train] {label} microbatch {i}: kernel route against eager: loss {float(loss)!r} "
+            f"vs {float(loss_e)!r}, relative {loss_rel!r} (limit {TRAIN_LOSS_TOL}); worst "
+            f"gradient leaf {path}: max|cuda - eager| / max|eager| = {grad_rel!r} (limit "
+            f"{TRAIN_GRAD_TOL}); eager forward+backward {eager_ms:.1f} ms "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[train] {label}: the kernel route's gradient disagrees with eager")
+        del grads, grads_e
+    return split
+
+
+def _plain_backward_ms(plain, shapes, kw, reps=3):
+    """(ms, peak MiB above the inputs) of one backward of a kernel's
+    Function: the plain version's forward and ``autograd.grad`` on seeded
+    inputs of ``shapes``, as ``kernels.grad`` runs it."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ins = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    if len(ins) == 5:                                         # SSD: dt > 0, a < 0
+        ins[1] = ins[1].abs() * 0.1 + 0.01
+        ins[2] = -ins[2].abs() - 0.1
+    cot = torch.randn(shapes[0], generator=gen, device="cuda")
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in ins]
+        return torch.autograd.grad(plain(*leaves, **kw), leaves, cot)
+
+    run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = statistics.median(_events_ms(run)[1] for _ in range(reps))
+    return ms, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def train_phase(rows) -> None:
+    """Phase 11: the training path on the card.  tinyllama-1.1b at full
+    width and depth in f32 through ``launch.train.main`` (3 steps, B 2, S
+    1024, 2 microbatches, a checkpoint after step 2), a step taken again
+    through ``make_train_step`` with every launch count zeroed just before
+    and read just after (``flash_attention`` twice a layer and microbatch:
+    the forward and remat's recompute; the backward is the plain version's
+    gradient and launches nothing), timed by CUDA events and split, held
+    against the eager route microbatch by microbatch; the launcher run
+    again resumes from the step-2 checkpoint and must give step 3's loss
+    and parameters.  mamba2-2.7b at full width, 4 layers: two steps, each
+    SSD kernel twice a layer and batch row, held against eager.  Then
+    ``ServeEngine`` on the trained tinyllama: no hand-written kernel, each
+    greedy token checked against an eager prefill of the same context."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ssd import ssd_scan_plain
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import decode_step, forward_prefill, init_kv_cache, init_params
+    from repro_torch.models.model import _leaves, param_count
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train import (
+        AdamWConfig, DataPipeline, TrainState, adamw_init, adamw_update, make_train_step,
+    )
+    from repro_torch.train.train_step import batch_grads
+
+    def zero_counts():
+        for k in KERNELS.values():
+            k.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {name: k.launches for name, k in KERNELS.items() if k.launches}
+
+    # -- tinyllama-1.1b through the launcher ---------------------------------
+    t0 = time.perf_counter()
+    cfg = get_config("tinyllama_1_1b")
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    argv = ["--arch", "tinyllama-1.1b", "--steps", "3", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--ckpt-dir", ckpt,
+            "--ckpt-every", "2", "--log-every", "1"]
+    try:
+        t1 = time.perf_counter()
+        state, hist = train_launch.main(argv)
+        launcher_s = time.perf_counter() - t1
+        for h in hist:
+            log(f"[train] tinyllama-1.1b f32 launcher step {h['step']}: loss {h['loss']!r}, "
+                f"grad norm {h['grad_norm']!r}, {1e3 * h['s']:.1f} ms (host clock to the loss's "
+                "read, which waits for the step)")
+        if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
+            raise AssertionError("[train] tinyllama-1.1b: a loss or grad norm is not finite")
+
+        # one step again, from the launcher's state and the next batch
+        n_params = param_count(state.params)
+        n_body = n_params - cfg.vocab * cfg.d_model
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        data = DataPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0, start_step=3)
+        batch = train_launch.to_device(next(data), torch.device("cuda"))
+        data.close()
+        opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=20)          # the launcher's
+        kv_chunk = min(128, TRAIN_SEQ)
+        step = make_train_step(cfg, opt_cfg, microbatches=TRAIN_MICRO, kv_chunk=kv_chunk)
+        zero_counts()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (new_state, metrics), step_ms = _events_ms(lambda: step(state, batch))
+        peak = torch.cuda.max_memory_allocated()
+        launches = counts()
+        want = {"flash_attention": 2 * cfg.n_layers * TRAIN_MICRO}
+        flop_bound = 1e3 * 8 * n_body * tokens / PEAK_F32_FLOPS
+        opt_bound = 1e3 * 7 * 4 * n_params / PEAK_BYTES_PER_S
+        log(f"[train] tinyllama-1.1b f32 step (make_train_step, B {TRAIN_BATCH} S {TRAIN_SEQ}, "
+            f"{TRAIN_MICRO} microbatches): {step_ms:.1f} ms (CUDA events), loss "
+            f"{float(metrics['loss'])!r}, grad norm {float(metrics['grad_norm'])!r}; FLOP bound "
+            f"{flop_bound:.1f} ms (8 x {n_body} non-embedding parameters x {tokens} tokens over "
+            f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s: forward 2, backward 4, recompute 2), "
+            f"{step_ms / flop_bound:.2f}x it; peak {peak / 2**30:.2f} GiB ({resident / 2**30:.2f} "
+            f"resident before); launches {launches} (expected {want}: 2 x {cfg.n_layers} layers "
+            f"x {TRAIN_MICRO} microbatches)")
+        if launches != want:
+            raise AssertionError(f"[train] tinyllama-1.1b: a step launched {launches}, not {want}")
+        if not (math.isfinite(float(metrics["loss"])) and math.isfinite(float(metrics["grad_norm"]))):
+            raise AssertionError("[train] tinyllama-1.1b: the step's loss or grad norm is not finite")
+        del new_state, metrics
+
+        split = _held_against_eager("tinyllama-1.1b f32", cfg, state.params, batch, TRAIN_MICRO,
+                                    kv_chunk)
+        _, grads = batch_grads(cfg, state.params, batch, microbatches=TRAIN_MICRO,
+                               kv_chunk=kv_chunk)
+        _, opt_ms = _events_ms(lambda: adamw_update(opt_cfg, state.params, grads, state.opt))
+        del grads
+        attn_ms, attn_mib = _plain_backward_ms(
+            flash_attention_plain, [(cfg.n_heads, TRAIN_SEQ, cfg.head_dim)] * 3,
+            {"causal": True})
+        fb, fw = sum(split["fwd_bwd_ms"]), sum(split["fwd_ms"])
+        n_bwd = cfg.n_layers * TRAIN_MICRO
+        log(f"[train] tinyllama-1.1b f32 step split (CUDA events): forward+backward "
+            f"{' + '.join(f'{m:.1f}' for m in split['fwd_bwd_ms'])} ms (the microbatches), of "
+            f"which forward alone {' + '.join(f'{m:.1f}' for m in split['fwd_ms'])} ms and "
+            f"backward {fb - fw:.1f} ms (remat's recompute, about one forward, among it); the "
+            f"attention Function's plain backward {attn_ms:.2f} ms a layer (B·H {cfg.n_heads}, "
+            f"S {TRAIN_SEQ}, D {cfg.head_dim}; {attn_mib:.0f} MiB peak), x {n_bwd} = "
+            f"{attn_ms * n_bwd:.1f} ms, {100 * attn_ms * n_bwd / step_ms:.1f}% of the step; "
+            f"optimizer {opt_ms:.1f} ms against its byte bound {opt_bound:.2f} ms (7 x 4 B x "
+            f"{n_params} parameters over 3.35 TB/s), {opt_ms / opt_bound:.1f}x it")
+        for key in ("flash_attention/tinyllama-prefill/f32",):
+            rows[key]["train_launches"] = {"tinyllama-1.1b f32 train step": want["flash_attention"]}
+            rows[key]["train_step_ms"] = {"tinyllama-1.1b f32 train step": step_ms}
+            rows[key]["plain_backward_ms"] = attn_ms
+
+        # the launcher again: it restores the step-2 checkpoint and takes step 3
+        meta = json.loads((Path(ckpt) / "step-00000002.json").read_text())
+        t1 = time.perf_counter()
+        resumed, hist_r = train_launch.main(argv)
+        resume_s = time.perf_counter() - t1
+        path, rel = _worst_leaf(_leaves(resumed.params), [t for _, t in _leaves(state.params)])
+        same = all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(_leaves(resumed.params), _leaves(state.params)))
+        ok = ([h["step"] for h in hist_r] == [2] and meta["data"]["step"] == 2
+              and abs(hist_r[0]["loss"] - hist[2]["loss"]) <= RESUME_TOL * abs(hist[2]["loss"])
+              and rel <= RESUME_TOL)
+        log(f"[train] tinyllama-1.1b f32 resumed from the step-2 checkpoint (data cursor "
+            f"{meta['data']}): step 3 loss {hist_r[0]['loss']!r} against {hist[2]['loss']!r} "
+            f"uninterrupted; parameters {'bit for bit' if same else f'worst leaf {path} {rel!r}'} "
+            f"(limit {RESUME_TOL} of each leaf's largest); launcher wall {launcher_s:.1f} s "
+            f"(3 steps, one checkpoint of {sum(f.stat().st_size for f in Path(ckpt).iterdir()) / 2**30:.2f} GiB), "
+            f"resumed {resume_s:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[train] tinyllama-1.1b: the resumed step differs")
+        del resumed
+        params = state.params
+        del state
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[train] tinyllama-1.1b phase {time.perf_counter() - t0:.1f} s")
+
+    # -- mamba2-2.7b, full width, 4 layers ---------------------------------------
+    t0 = time.perf_counter()
+    mcfg = dataclasses.replace(get_config("mamba2_2_7b"), n_layers=MAMBA_LAYERS)
+    mparams = init_params(mcfg, torch.Generator(device="cuda").manual_seed(SEED), torch.float32,
+                          "cuda")
+    mstate = TrainState(mparams, adamw_init(mparams), torch.Generator(device="cuda").manual_seed(1))
+    del mparams
+    data = DataPipeline(mcfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    mstep = make_train_step(mcfg, AdamWConfig(lr=3e-3, warmup_steps=20), kv_chunk=128)
+    ssd = ("ssd_gram", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
+    for i in range(2):
+        batch = train_launch.to_device(next(data), torch.device("cuda"))
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        (mstate, metrics), ms = _events_ms(lambda: mstep(mstate, batch))
+        launches = counts()
+        want = dict.fromkeys(ssd, 2 * MAMBA_LAYERS * TRAIN_BATCH)
+        log(f"[train] mamba2-2.7b f32, {MAMBA_LAYERS} of 64 layers (depth cut), step {i} (B "
+            f"{TRAIN_BATCH} S {TRAIN_SEQ}, 1 microbatch): {ms:.1f} ms (CUDA events), loss "
+            f"{float(metrics['loss'])!r}, grad norm {float(metrics['grad_norm'])!r}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches} (expected "
+            f"{want}: 2 x {MAMBA_LAYERS} layers x {TRAIN_BATCH} batch rows)")
+        if launches != want:
+            raise AssertionError(f"[train] mamba2-2.7b: step {i} launched {launches}, not {want}")
+        if not (math.isfinite(float(metrics["loss"])) and math.isfinite(float(metrics["grad_norm"]))):
+            raise AssertionError(f"[train] mamba2-2.7b: step {i}'s loss or grad norm is not finite")
+    data.close()
+    _held_against_eager(f"mamba2-2.7b f32 ({MAMBA_LAYERS} layers)", mcfg, mstate.params, batch, 1,
+                        128)
+    chunk = min(256, TRAIN_SEQ)
+    h, p_, n = mcfg.ssm_heads, mcfg.ssm_head_dim, mcfg.ssm_state
+    ssd_ms, ssd_mib = _plain_backward_ms(
+        ssd_scan_plain, [(TRAIN_SEQ, h, p_), (TRAIN_SEQ, h), (h,), (TRAIN_SEQ, n), (TRAIN_SEQ, n)],
+        {"chunk": chunk})
+    n_bwd = MAMBA_LAYERS * TRAIN_BATCH
+    log(f"[train] mamba2-2.7b SSD Function's plain backward: {ssd_ms:.2f} ms a call (S "
+        f"{TRAIN_SEQ}, H {h}, P {p_}, N {n}, chunk {chunk}; {ssd_mib:.0f} MiB peak), x {n_bwd} = "
+        f"{ssd_ms * n_bwd:.1f} ms, {100 * ssd_ms * n_bwd / ms:.1f}% of the step")
+    for k in ssd:
+        key = f"{k}/mamba2-2.7b-prefill/f32"
+        rows[key]["train_launches"] = {f"mamba2-2.7b f32 {MAMBA_LAYERS}-layer train step": want[k]}
+        rows[key]["train_step_ms"] = {f"mamba2-2.7b f32 {MAMBA_LAYERS}-layer train step": ms}
+        rows[key]["plain_backward_ms"] = ssd_ms
+    del mstate, metrics
+    torch.cuda.empty_cache()
+    log(f"[train] mamba2-2.7b phase {time.perf_counter() - t0:.1f} s")
+
+    # -- serving the trained tinyllama ------------------------------------------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT), generator=gen,
+                            device="cuda").tolist()
+    engine = ServeEngine(cfg, params, SERVE_SLOTS, max_seq=SERVE_PROMPT + SERVE_NEW + 1)
+    zero_counts()
+    done, serve_ms = _events_ms(lambda: engine.run(
+        [Request(prompt=pr, max_new=SERVE_NEW) for pr in prompts]))
+    launches = counts()
+    steps = SERVE_PROMPT + SERVE_NEW - 1
+    seqs = torch.tensor([r.prompt + r.generated for r in done], device="cuda")
+    # the decode route's error: the same sequences teacher-forced through
+    # decode_step against eager prefills of each context
+    cache = init_kv_cache(cfg, SERVE_SLOTS, seqs.shape[1], torch.float32, "cuda")
+    err, mismatches = 0.0, []
+    with torch.no_grad():
+        for pos in range(seqs.shape[1] - 1):
+            logits, cache = decode_step(cfg, params, cache, seqs[:, pos], pos)
+            if pos + 1 < SERVE_PROMPT:
+                continue
+            want = forward_prefill(cfg, params, {"tokens": seqs[:, : pos + 1]}, kernels="eager")
+            err = max(err, float((logits - want).abs().max()))
+            for i in range(SERVE_SLOTS):
+                got_tok = int(seqs[i, pos + 1])
+                best = int(want[i].argmax())
+                if got_tok != best:
+                    mismatches.append((i, pos + 1, float(want[i, best] - want[i, got_tok])))
+    ties_ok = all(gap <= err for _, _, gap in mismatches)
+    nbytes = sum(t.numel() * t.element_size() for _, t in _leaves(params))
+    bound = 1e3 * nbytes / PEAK_BYTES_PER_S
+    tok_ms = serve_ms / steps
+    ok = (not launches and ties_ok and all(len(r.generated) == SERVE_NEW for r in done))
+    log(f"[train] serving the trained tinyllama-1.1b f32: ServeEngine, {SERVE_SLOTS} slots, "
+        f"prompts of {SERVE_PROMPT}, {SERVE_NEW} new tokens each: {serve_ms:.1f} ms for {steps} "
+        f"decode steps, {tok_ms:.2f} ms a step (CUDA events around the run); weight-byte bound "
+        f"{bound:.3f} ms ({nbytes} B over 3.35 TB/s), {tok_ms / bound:.1f}x it; hand-written "
+        f"launches {launches or 'none'}; teacher-forced decode against eager prefills: max|diff| "
+        f"{err!r}, {len(mismatches)} greedy tokens differ from the eager argmax "
+        f"{[(i, p, round(g, 6)) for i, p, g in mismatches]} (each allowed only as a near-tie, its "
+        f"gap within that error) {'ok' if ok else 'FAIL'}; {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise AssertionError("[train] serving the trained tinyllama failed its checks")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script", file=sys.stderr)
@@ -1828,6 +2188,11 @@ def main() -> int:
     t0 = time.perf_counter()
     models_phase(rows)
     log(f"[models] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # -- 11. train: the training path through the kernels, then serving --------
+    t0 = time.perf_counter()
+    train_phase(rows)
+    log(f"[train] phase wall {time.perf_counter() - t0:.1f} s")
 
     # every variant of the generated kernel, with the configurations that
     # launched it at full size and its largest difference from the plain version

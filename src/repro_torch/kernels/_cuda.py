@@ -55,11 +55,17 @@ def tma_aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def require_cuda(fn: str, *tensors: torch.Tensor) -> torch.device:
     """The one CUDA device ``tensors`` lie on; ``ValueError`` otherwise (the
     plain version is asked for by name, ``kernels="eager"``).  A tensor
-    that needs a gradient raises too: the kernels have no backward, and
-    their outputs would cut the graph without a word."""
+    that needs a gradient raises too: a direct kernel call records nothing
+    for autograd, and its output would cut the graph without a word; the
+    differentiable route is ``ops.attention_op`` / ``ops.ssd_op``."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{fn}: tensors on several devices {devs}")
@@ -69,10 +75,11 @@ def require_cuda(fn: str, *tensors: torch.Tensor) -> torch.device:
             f"{fn}: the CUDA kernel takes CUDA tensors, got {dev}; use "
             "kernels='eager' for the plain version on the CPU"
         )
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         raise NotImplementedError(
-            f"{fn}: the CUDA kernel has no backward; run it under torch.no_grad() "
-            "or differentiate the plain version, kernels='eager'"
+            f"{fn}: a direct kernel call records no backward; differentiate through "
+            "kernels.ops.attention_op / kernels.ops.ssd_op (kernel forward, the plain "
+            "version's gradient), or run the kernel under torch.no_grad()"
         )
     return dev
 
@@ -135,5 +142,6 @@ class CudaLauncher:
 
 
 __all__ = [
-    "CSRC", "CudaLauncher", "DTYPES", "DTYPE_CODE", "check_dtypes", "require_cuda", "tma_aligned",
+    "CSRC", "CudaLauncher", "DTYPES", "DTYPE_CODE", "check_dtypes", "needs_grad", "require_cuda",
+    "tma_aligned",
 ]

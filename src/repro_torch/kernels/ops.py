@@ -5,6 +5,12 @@ Each op runs the CUDA kernel by default (``kernels="cuda"``, CUDA tensors
 only: CPU tensors raise ``ValueError``); ``kernels="eager"`` runs its plain
 PyTorch version on any device and ``kernels="ref"`` the oracle (the JAX
 package's ``use_pallas=False``).  Nothing falls back from one to another.
+
+``attention_op`` and ``ssd_op`` are differentiable on every route: with
+``kernels="cuda"``, a call that autograd records (grad enabled, an input
+needing a gradient) goes through a ``torch.autograd.Function`` of ``grad``,
+whose forward launches the kernel and whose backward is the gradient of the
+plain version; ``"eager"`` and ``"ref"`` differentiate natively.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ import numpy as np
 import torch
 
 from . import ref
+from ._cuda import needs_grad
+from .grad import KernelAttention, KernelSSD
 from .flash_attention import flash_attention, flash_attention_plain
 from .matmul import matmul, matmul_plain
 from .ssd import ssd_scan, ssd_scan_plain
@@ -46,6 +54,8 @@ def attention_op(
     fn = _choose(kernels, flash_attention, flash_attention_plain, ref.attention_ref)
     if kernels == "ref":
         return fn(q, k, v, causal=causal)
+    if kernels == "cuda" and needs_grad(q, k, v):
+        return KernelAttention.apply(q, k, v, causal, block_q, block_kv)
     return fn(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv)
 
 
@@ -55,6 +65,8 @@ def ssd_op(x, dt, a, b, c, kernels: str = "cuda", *, chunk: Optional[int] = None
     fn = _choose(kernels, ssd_scan, ssd_scan_plain, ref.ssd_ref)
     if kernels == "ref":
         return fn(x, dt, a, b, c)
+    if kernels == "cuda" and needs_grad(x, dt, a, b, c):
+        return KernelSSD.apply(x, dt, a, b, c, chunk)
     return fn(x, dt, a, b, c, chunk=chunk)
 
 

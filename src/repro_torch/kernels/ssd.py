@@ -276,9 +276,10 @@ def ssd_chunk_out_plain(
     states: torch.Tensor, chunk: int,
 ) -> torch.Tensor:
     """The plain PyTorch version of ``ssd_chunk_out``: the Pallas body's
-    intra-chunk sum and read-out, chunk by chunk.  The decay above the
-    diagonal is dropped with ``torch.where``: ``exp`` may overflow there, and
-    ``inf * 0`` would be NaN."""
+    intra-chunk sum and read-out, chunk by chunk.  The exponent above the
+    diagonal is masked to ``-inf`` before ``exp``: ``exp`` may overflow
+    there, and an overflowed ``inf`` would make ``inf * 0`` NaN in the value
+    or in its gradient."""
     l = _check(x, dt, None, c, c, chunk)
     _check_g(g, x, l)
     _check_states("ssd_chunk_out", states, s, tuple(x.shape), c.shape[1], l)
@@ -289,7 +290,7 @@ def ssd_chunk_out_plain(
     for ci, t0 in enumerate(range(0, s_len, l)):
         sc, dtc = s[t0 : t0 + l], dtf[t0 : t0 + l]
         gap = sc[:, None, :] - sc[None, :, :]                                # (L, L, H)
-        decay = torch.where(mask, torch.exp(gap) * dtc[None, :, :], 0.0)
+        decay = torch.exp(torch.where(mask, gap, -torch.inf)) * dtc[None, :, :]
         y_intra = torch.einsum("lm,lmh,mhp->lhp", gf[ci], decay, xf[t0 : t0 + l])
         y_inter = torch.exp(sc)[:, :, None] * torch.einsum(
             "ln,hnp->lhp", cf[t0 : t0 + l], states[ci]
@@ -304,9 +305,10 @@ def ssd_chunk_scan_plain(
 ) -> torch.Tensor:
     """The plain PyTorch version of ``ssd_chunk_scan``: the Pallas body's
     chunked dual form, chunk by chunk with the f32 state carried (the
-    reference of the three kernels' composition).  The decay above the
-    diagonal is dropped with ``torch.where``: ``exp`` may overflow there, and
-    ``inf * 0`` would be NaN."""
+    reference of the three kernels' composition).  The exponent above the
+    diagonal is masked to ``-inf`` before ``exp``: ``exp`` may overflow
+    there, and an overflowed ``inf`` would make ``inf * 0`` NaN in the value
+    or in its gradient."""
     l = _check(x, dt, a, b, c, chunk)
     _check_g(g, x, l)
     s_len, h, p = x.shape
@@ -318,7 +320,7 @@ def ssd_chunk_scan_plain(
         xc, dtc, bc, cc = xf[t0 : t0 + l], dtf[t0 : t0 + l], bf[t0 : t0 + l], cf[t0 : t0 + l]
         s = torch.cumsum(af[None, :] * dtc, dim=0)                       # (L, H)
         gap = s[:, None, :] - s[None, :, :]                              # (L, L, H)
-        decay = torch.where(mask, torch.exp(gap) * dtc[None, :, :], 0.0)
+        decay = torch.exp(torch.where(mask, gap, -torch.inf)) * dtc[None, :, :]
         y_intra = torch.einsum("lm,lmh,mhp->lhp", gf[ci], decay, xc)
         y_inter = torch.exp(s)[:, :, None] * torch.einsum("ln,hpn->lhp", cc, state)
         y[t0 : t0 + l] = y_intra + y_inter

@@ -24,14 +24,15 @@ hand-written SSD kernels (``ops.ssd_op`` per batch row); decode runs the
 plain ``decode_attention`` and ``mamba2_decode_step``, and projections,
 expert products and logits stay ``torch.matmul`` / ``einsum``, as the JAX
 model computes them outside any Pallas kernel.  ``layers.ROUTES`` counts
-the routed calls.  The kernels have no backward: on the kernel route a
-parameter that needs a gradient raises (``NotImplementedError``), and a
-gradient is taken through ``kernels="eager"``.
+the routed calls.  ``forward_train`` is differentiable on both routes: on
+the kernel route ``ops.attention_op`` / ``ops.ssd_op`` launch the kernel in
+the forward and take the plain version's gradient in the backward
+(``kernels.grad``); ``kernels="eager"`` differentiates natively.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -169,7 +170,9 @@ def init_params(
 
 
 def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
-    for k, v in tree.items():
+    """(path, leaf) pairs in the JAX package's tree order: dict keys
+    sorted, depth first."""
+    for k, v in sorted(tree.items()):
         if isinstance(v, Mapping):
             yield from _leaves(v, f"{prefix}{k}/")
         else:
@@ -194,9 +197,14 @@ def param_count(params: Mapping) -> int:
     return sum(t.numel() for _, t in _leaves(params))
 
 
-def _layer(stacked: Mapping, i: int) -> Dict:
-    """Layer ``i``'s slice of a tree stacked on a leading L axis."""
-    return _map(lambda t: t[i], stacked)
+def _layers(stacked: Mapping) -> List[Dict]:
+    """Each layer's slice of a tree stacked on a leading L axis, every leaf
+    split by one ``torch.unbind``: autograd then stacks a leaf's layer
+    gradients once, where an index per layer would make each layer's
+    backward fill a zero gradient of the whole stacked leaf."""
+    split = _map(lambda t: t.unbind(0), stacked)
+    n = len(next(t for _, t in _leaves(split)))
+    return [_map(lambda ts, i=i: ts[i], split) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -298,15 +306,13 @@ def _backbone(
         return fn(*args)
 
     if cfg.family in ("dense", "vlm", "audio", "moe"):
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+        for i, lp in enumerate(_layers(params["layers"])):
             x, a = run(lambda xc, i=i, lp=lp: _transformer_layer(
                 cfg, xc, lp, i, positions, kv_chunk, kernels), x)
             aux = aux + a
     elif cfg.family in ("ssm", "hybrid"):
         every = cfg.shared_attn_every
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+        for i, lp in enumerate(_layers(params["layers"])):
 
             def body(xc, i=i, lp=lp):
                 y = _mamba_layer(cfg, xc, lp, kernels)
@@ -430,8 +436,7 @@ def decode_step(
 
     if cfg.family in ("dense", "vlm", "audio", "moe"):
         ks, vs = [], []
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+        for i, lp in enumerate(_layers(params["layers"])):
             hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
             o, kn, vn = _decode_attn(cfg, hn, lp["attn"], cache["k"][i], cache["v"][i],
                                      pos, posv, _window_for_layer(cfg, i))
@@ -456,8 +461,7 @@ def decode_step(
         sp = params.get("shared_attn")
         every = cfg.shared_attn_every
         states, shared = [], {}
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+        for i, lp in enumerate(_layers(params["layers"])):
             hn = rms_norm(x, lp["ln"], cfg.norm_eps)
             y, st = mamba2_decode_step(
                 hn, lp["mixer"],

@@ -83,7 +83,9 @@ def ssd_chunked(
         sgl = torch.cumsum(af[None, None, :] * dtc, dim=1)                  # (B,l,H)
         g = torch.einsum("bln,bmn->blm", cc, bc)                            # (B,l,l)
         gap = sgl[:, :, None, :] - sgl[:, None, :, :]                       # (B,l,l,H)
-        m = torch.where(mask[None, :, :, None], torch.exp(gap) * dtc[:, None, :, :], 0.0)
+        # the exponent masked before exp: an overflowed exp above the diagonal
+        # would make the gradient through torch.where NaN (0 * inf)
+        m = torch.exp(torch.where(mask[None, :, :, None], gap, -torch.inf)) * dtc[:, None, :, :]
         y_intra = torch.einsum("blm,blmh,bmhp->blhp", g, m, xc)
         y_inter = torch.exp(sgl)[..., None] * torch.einsum("bln,bhpn->blhp", cc, hstate)
         tail = torch.exp(sgl[:, -1][:, None, :] - sgl) * dtc               # (B,l,H)

@@ -42,7 +42,9 @@ def test_port_backend_import_leaves_jax_unloaded():
         "repro_torch.kernels, repro_torch.kernels.ops, repro_torch.quickstart, "
         "repro_torch.backend.demo, repro_torch.backend.faults, repro_torch.core.simulator, "
         "repro_torch.core.hwmodel, repro_torch.backend.autotune, repro_torch.models, "
-        "repro_torch.models.model, repro_torch.configs; "
+        "repro_torch.models.model, repro_torch.configs, repro_torch.train, "
+        "repro_torch.train.fault, repro_torch.serve.engine, repro_torch.launch.train, "
+        "repro_torch.launch.serve, repro_torch.kernels.grad; "
         "from repro_torch.configs import all_configs; all_configs(); "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"

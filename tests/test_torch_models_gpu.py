@@ -61,19 +61,56 @@ def test_mamba2_prefill_on_card_matches_eager():
 
 
 def test_kernel_route_refuses_a_gradient():
-    """The kernels have no backward: a train forward whose parameters need
-    a gradient raises on the kernel route instead of cutting the graph;
-    the eager route differentiates."""
+    """A direct kernel call records no backward: given a tensor that needs
+    a gradient it raises, naming the differentiable route; a train forward
+    on the kernel route goes through that route (``ops``) and
+    differentiates, as the eager route does."""
     _card()
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import forward_train
 
+    q = torch.zeros((1, 64, 64), device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ops.attention_op"):
+        flash_attention(q, q, q)
     cfg = get_config("tinyllama_1_1b").reduced()
     p = init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.float32, "cuda")
     p["layers"]["attn"]["wq"].requires_grad_(True)
     batch = _tokens(cfg, 2, 32)
     batch["labels"] = batch["tokens"]
-    with pytest.raises(NotImplementedError, match="no backward"):
-        forward_train(cfg, p, batch, remat=False)
-    loss, _ = forward_train(cfg, p, batch, remat=False, kernels="eager")
-    loss.backward()
-    assert p["layers"]["attn"]["wq"].grad is not None
+    for kernels in ("cuda", "eager"):
+        p["layers"]["attn"]["wq"].grad = None
+        loss, _ = forward_train(cfg, p, batch, remat=False, kernels=kernels)
+        loss.backward()
+        assert bool(torch.isfinite(p["layers"]["attn"]["wq"].grad).all())
+
+
+@pytest.mark.parametrize("arch,kernels,rows", [
+    ("tinyllama_1_1b", ("flash_attention",), 1), ("mamba2_2_7b", SSD, 2),
+])
+@pytest.mark.parametrize("remat", [True, False])
+def test_forward_train_grads_on_card_match_eager(arch, kernels, rows, remat):
+    """Reduced models in f32: ``forward_train``'s loss within 1e-5 and
+    every parameter's gradient within 1e-4 of its leaf's largest, on the
+    kernel route against ``kernels="eager"``; each kernel launched once a
+    layer (and batch row, for the SSD scan) in the forward and once more in
+    each layer's recompute under remat, and no other kernel."""
+    _card()
+    from repro_torch.models.model import _leaves
+    from repro_torch.train.train_step import microbatch_grads
+
+    cfg = get_config(arch).reduced(n_layers=2)
+    p = init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.float32, "cuda")
+    batch = _tokens(cfg, rows, 129)
+    batch["labels"] = batch["tokens"][:, 1:]
+    batch["tokens"] = batch["tokens"][:, :-1]
+    for k in KERNELS.values():
+        k.launches = 0
+    loss, grads = microbatch_grads(cfg, p, batch, remat=remat)
+    torch.cuda.synchronize()
+    launched = {n: k.launches for n, k in KERNELS.items() if k.launches}
+    assert launched == dict.fromkeys(kernels, cfg.n_layers * rows * (2 if remat else 1))
+    want_loss, want = microbatch_grads(cfg, p, batch, remat=remat, kernels="eager")
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for (path, _), g, w in zip(_leaves(p), grads, want):
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * max(float(w.abs().max()), 1e-30), (path, err)
