@@ -176,6 +176,21 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    greedy token equals the eager prefill's argmax of its context, or is a
    near-tie within the decode route's measured error.
 
+12. distributed: the port's ``distributed/`` on a world of one NCCL rank
+   (``launch.mesh.init_distributed`` from a ``FileStore``, the (1, 1) host
+   mesh on the card): tinyllama-1.1b bf16 prefill at full depth (22
+   ``flash_attention_wgmma``) and mamba2-2.7b bf16 prefill on 4 layers (4 of
+   each SSD kernel), S 2048, laid out by ``param_shardings`` under the
+   plan's hints, the kernels on each rank's local shards; a tinyllama-1.1b
+   f32 train step (4 layers, B 2, S 1024, 2 microbatches, 16
+   ``flash_attention``) with ZeRO gradient layouts, its state saved and
+   restored with ``shardings``; 8 decode steps with the cache placed by
+   ``kv_cache_specs``; each bit for bit with the unsharded route and timed
+   beside it (DTensor's overhead); ``ring_attention`` on a 1-rank ring at
+   tinyllama's f32 prefill shape within 1e-5 of ``chunked_gqa_attention``
+   (plain and window 512); ``pipeline_forward`` on a 1-stage ``pod`` mesh
+   equal to the stage.
+
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line.
@@ -1887,6 +1902,263 @@ def train_phase(rows) -> None:
         raise AssertionError("[train] serving the trained tinyllama failed its checks")
 
 
+# phase 12's sharded runs on a world of one NCCL rank, each against the
+# unsharded route of phases 10-11 on the same weights and inputs
+DIST_PREFILL = 2048
+DIST_MAMBA_LAYERS = 4
+DIST_TRAIN_LAYERS, DIST_TRAIN_BATCH, DIST_TRAIN_SEQ, DIST_TRAIN_MICRO = 4, 2, 1024, 2
+DIST_DECODE_STEPS = 8
+# ring attention against chunked_gqa_attention, f32, max abs difference
+RING_TOL = 1e-5
+
+
+def _dist_equal(label, got, want, tol=0.0):
+    """Max |got - want| over two tensors or two lists of them, asserted
+    within ``tol`` (0: bit for bit)."""
+    import torch
+
+    pairs = list(zip(got, want)) if isinstance(got, (list, tuple)) else [(got, want)]
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in pairs)
+    if not all(g.shape == w.shape for g, w in pairs) or not err <= tol:
+        raise AssertionError(f"[distributed] {label}: sharded differs from unsharded by {err!r} "
+                             f"(limit {tol})")
+    return err
+
+
+def distributed_phase(rows) -> None:
+    """Phase 12: the port's ``distributed/`` on a world of one NCCL rank
+    (``launch.mesh.init_distributed`` from a ``FileStore``, the (1, 1) host
+    mesh with the production axis names on the card), each run held against
+    the unsharded route on the same weights and inputs: tinyllama-1.1b bf16
+    prefill at full depth and mamba2-2.7b bf16 prefill on 4 layers, S 2048,
+    parameters laid out by ``param_shardings`` under the plan's sharding
+    context, the kernels launched on each rank's local shards (counts zeroed
+    just before, read just after); a tinyllama-1.1b f32 train step (4
+    layers, B 2, S 1024, 2 microbatches) with ZeRO gradient layouts
+    (``zero_shardings``), then its state saved and restored with
+    ``shardings``; 8 greedy decode steps with the cache placed by
+    ``kv_cache_specs``; ``ring_attention`` on a 1-rank ``model`` ring
+    against ``chunked_gqa_attention``; ``pipeline_forward`` on a 1-stage
+    ``pod`` mesh against the stage applied directly.  Each sharded run is
+    timed by CUDA events beside the unsharded one: DTensor's overhead."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import make_plan, param_shardings
+    from repro_torch.distributed.context import sharding_context
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.distributed.ring_attention import ring_attention
+    from repro_torch.distributed.sharding import (
+        P, distribute_batch, distribute_tree, gather_tree, named, zero_shardings,
+    )
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh, make_mesh
+    from repro_torch.models import forward_prefill, init_kv_cache, init_params
+    from repro_torch.models.layers import chunked_gqa_attention
+    from repro_torch.models.model import _leaves
+    from repro_torch.serve.engine import make_serve_step, place_cache
+    from repro_torch.train import AdamWConfig, TrainState, adamw_init, make_train_step
+    from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+
+    def zero_counts():
+        for k in KERNELS.values():
+            k.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {name: k.launches for name, k in KERNELS.items() if k.launches}
+
+    def leaves(tree):
+        return [t for _, t in _leaves(tree)]
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="dist_", dir=ROOT / "build")
+    card = card_line()
+    init_distributed(init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        log(f"[distributed] {card}: a world of 1 NCCL rank (backend {dist.get_backend()}), the "
+            f"(1, 1) host mesh {tuple(mesh.mesh_dim_names)} on {mesh.device_type}; several NCCL "
+            "ranks on one card are not tried, so no collective moves data here (the multi-rank "
+            "semantics are the gloo tests' on the CPU)")
+
+        # -- prefill: tinyllama-1.1b full depth, mamba2-2.7b 4 layers, bf16
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        for label, cfg, expect, keys in (
+            ("tinyllama-1.1b", get_config("tinyllama_1_1b"),
+             {"flash_attention_wgmma": 22}, ["flash_attention_wgmma/tinyllama-prefill/bf16"]),
+            (f"mamba2-2.7b ({DIST_MAMBA_LAYERS} of 64 layers)",
+             dataclasses.replace(get_config("mamba2_2_7b"), n_layers=DIST_MAMBA_LAYERS),
+             dict.fromkeys(("ssd_gram", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out"),
+                           DIST_MAMBA_LAYERS),
+             [f"{k}/mamba2-2.7b-prefill/f32" for k in (
+                 "ssd_gram", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")]),
+        ):
+            params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                 torch.bfloat16, "cuda")
+            batch = {"tokens": torch.randint(0, cfg.vocab, (1, DIST_PREFILL), generator=gen,
+                                             device="cuda")}
+            plan = make_plan(cfg, mesh)
+            dparams = distribute_tree(params, param_shardings(plan, params))
+            dbatch = distribute_batch(plan, batch)
+            with torch.no_grad():
+                want = forward_prefill(cfg, params, batch)
+                with sharding_context(mesh, plan):
+                    zero_counts()
+                    got = forward_prefill(cfg, dparams, dbatch)
+                    launches = counts()
+                    ms = time_ms(lambda: forward_prefill(cfg, dparams, dbatch), 3)
+                plain_ms = time_ms(lambda: forward_prefill(cfg, params, batch), 3)
+            if launches != expect:
+                raise AssertionError(f"[distributed] {label} prefill launched {launches}, not "
+                                     f"{expect}")
+            err = _dist_equal(f"{label} prefill", got.full_tensor(), want)
+            log(f"[distributed] {label} bf16 prefill B 1 S {DIST_PREFILL} (plan "
+                f"{plan.attn_strategy}/{plan.moe_strategy}): sharded {ms:.2f} ms, unsharded "
+                f"{plain_ms:.2f} ms (CUDA events, median of 3), DTensor overhead "
+                f"{ms - plain_ms:.2f} ms ({ms / plain_ms:.2f}x); launches {launches}; logits "
+                f"max|sharded - unsharded| = {err!r} (bit for bit) ok")
+            for key in keys:
+                rows[key]["sharded_launches"] = {f"{label} bf16 sharded prefill":
+                                                 launches[key.split("/")[0]]}
+                rows[key]["sharded_prefill_ms"] = ms
+            del params, dparams, got, want
+            torch.cuda.empty_cache()
+
+        # -- a ZeRO-grad train step, then save and restore with shardings
+        cfg = dataclasses.replace(get_config("tinyllama_1_1b"), n_layers=DIST_TRAIN_LAYERS)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                             torch.float32, "cuda")
+        batch = {k: torch.randint(0, cfg.vocab, (DIST_TRAIN_BATCH, DIST_TRAIN_SEQ),
+                                  generator=gen, device="cuda") for k in ("tokens", "labels")}
+        opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=20)
+        plan = make_plan(cfg, mesh)
+        psh = param_shardings(plan, params)
+        kw = dict(microbatches=DIST_TRAIN_MICRO, kv_chunk=128)
+        step = make_train_step(cfg, opt_cfg, grad_shardings=zero_shardings(plan, params), **kw)
+        plain = make_train_step(cfg, opt_cfg, **kw)
+        dparams = distribute_tree(params, psh)
+        dstate = TrainState(dparams, adamw_init(dparams), torch.Generator(device="cuda"))
+        state = TrainState(params, adamw_init(params), torch.Generator(device="cuda"))
+        dbatch = distribute_batch(plan, batch)
+        (want, met_u), plain_ms = _events_ms(lambda: plain(state, batch))
+        with sharding_context(mesh, plan):
+            zero_counts()
+            (new, met), first_ms = _events_ms(lambda: step(dstate, dbatch))
+            launches = counts()
+            # the same step again, DTensor's sharding propagation cached
+            del new, met
+            (new, met), ms = _events_ms(lambda: step(dstate, dbatch))
+        expect = {"flash_attention": 2 * DIST_TRAIN_LAYERS * DIST_TRAIN_MICRO}
+        if launches != expect:
+            raise AssertionError(f"[distributed] train step launched {launches}, not {expect}")
+        got_p = gather_tree(new.params)
+        err = _dist_equal("train step", [met["loss"].full_tensor(),
+                                         met["grad_norm"].full_tensor(), *leaves(got_p)],
+                          [met_u["loss"], met_u["grad_norm"], *leaves(want.params)])
+        log(f"[distributed] tinyllama-1.1b f32 train step ({DIST_TRAIN_LAYERS} layers, B "
+            f"{DIST_TRAIN_BATCH} S {DIST_TRAIN_SEQ}, {DIST_TRAIN_MICRO} microbatches, ZeRO "
+            f"gradient layouts): sharded {ms:.1f} ms (the first call {first_ms:.1f} ms, sharding "
+            f"propagation uncached), unsharded {plain_ms:.1f} ms (CUDA events), DTensor overhead "
+            f"{ms - plain_ms:.1f} ms ({ms / plain_ms:.2f}x); launches {launches} (the first call); "
+            f"loss {float(met_u['loss'])!r}, grad norm {float(met_u['grad_norm'])!r}, loss, grad "
+            f"norm and every updated parameter max|sharded - unsharded| = {err!r} (bit for bit) ok")
+        rows["flash_attention/tinyllama-prefill/f32"]["sharded_launches"] = {
+            f"tinyllama-1.1b f32 {DIST_TRAIN_LAYERS}-layer sharded train step":
+            expect["flash_attention"]}
+        rows["flash_attention/tinyllama-prefill/f32"]["sharded_train_step_ms"] = ms
+        ckpt = f"{tmp}/ckpt"
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, 1, new.params, new.opt, {"step": 1})
+        osh = {"m": psh, "v": psh, "step": named(mesh, P())}
+        rp, ro, meta = restore_checkpoint(ckpt, 1, params, state.opt, shardings=(psh, osh))
+        same = all(type(a) is type(b) and torch.equal(a.full_tensor(), b.full_tensor())
+                   for a, b in zip(leaves(rp) + leaves(ro["m"]) + leaves(ro["v"]),
+                                   leaves(new.params) + leaves(new.opt["m"])
+                                   + leaves(new.opt["v"])))
+        if not (same and meta["step"] == 1):
+            raise AssertionError("[distributed] the restored sharded state differs from the saved")
+        log(f"[distributed] the sharded state saved and restored with shardings: "
+            f"{len(leaves(rp)) * 3} tensors bit for bit, placements kept, "
+            f"{time.perf_counter() - t0:.1f} s ok")
+        del params, dparams, new, want, got_p, rp, ro, state, dstate
+        torch.cuda.empty_cache()
+
+        # -- decode with the cache placed by kv_cache_specs
+        cfg = get_config("tinyllama_1_1b")
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                             torch.bfloat16, "cuda")
+        plan = make_plan(cfg, mesh)
+        dparams = distribute_tree(params, param_shardings(plan, params))
+        serve = make_serve_step(cfg)
+        cache = init_kv_cache(cfg, 4, DIST_DECODE_STEPS, torch.float32, "cuda")
+        dcache = place_cache(plan, init_kv_cache(cfg, 4, DIST_DECODE_STEPS, torch.float32,
+                                                 "cuda"))
+        tok = dtok = torch.arange(1, 5, device="cuda")
+        toks, dtoks, step_ms, dstep_ms = [], [], [], []
+        with torch.no_grad():
+            for pos in range(DIST_DECODE_STEPS):
+                (tok, cache), t_ms = _events_ms(lambda: serve(params, cache, tok, pos))
+                with sharding_context(mesh, plan):
+                    zero_counts()
+                    (dtok, dcache), d_ms = _events_ms(lambda: serve(dparams, dcache, dtok, pos))
+                    if counts():
+                        raise AssertionError("[distributed] decode launched a hand-written kernel")
+                toks.append(tok.tolist())
+                dtoks.append(dtok.tolist())
+                step_ms.append(t_ms)
+                dstep_ms.append(d_ms)
+        err = _dist_equal("decode cache", [dcache[k].full_tensor() for k in sorted(cache)],
+                          [cache[k] for k in sorted(cache)])
+        if toks != dtoks:
+            raise AssertionError(f"[distributed] decode tokens differ: {dtoks} vs {toks}")
+        log(f"[distributed] tinyllama-1.1b bf16 decode, 4 slots, {DIST_DECODE_STEPS} greedy steps, "
+            f"cache placed by kv_cache_specs ({ {k: str(v.placements) for k, v in dcache.items()} }): "
+            f"sharded {statistics.median(dstep_ms[1:]):.2f} ms a step, unsharded "
+            f"{statistics.median(step_ms[1:]):.2f} ms (CUDA events, median of steps 2-"
+            f"{DIST_DECODE_STEPS}); tokens equal ({toks[-1]} last), cache max|diff| = {err!r} ok")
+        del params, dparams, cache, dcache
+        torch.cuda.empty_cache()
+
+        # -- ring attention on a 1-rank model ring, tinyllama's f32 prefill shape
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        q = torch.randn(1, DIST_PREFILL, 32, 64, generator=gen, device="cuda")
+        k = torch.randn(1, DIST_PREFILL, 4, 64, generator=gen, device="cuda")
+        v = torch.randn(1, DIST_PREFILL, 4, 64, generator=gen, device="cuda")
+        with torch.no_grad():
+            for window in (None, 512):
+                got, ms = _events_ms(lambda: ring_attention(q, k, v, mesh, window=window))
+                want, plain_ms = _events_ms(
+                    lambda: chunked_gqa_attention(q, k, v, window=window, kv_chunk=512))
+                err = _dist_equal(f"ring attention window {window}", got.full_tensor(), want,
+                                  RING_TOL)
+                log(f"[distributed] ring_attention, 1-rank model ring, B 1 S {DIST_PREFILL} 32/4 "
+                    f"heads D 64 f32, window {window}: {ms:.2f} ms, chunked_gqa_attention "
+                    f"{plain_ms:.2f} ms (CUDA events, one call); max|ring - chunked| = {err!r} "
+                    f"(limit {RING_TOL}) ok")
+
+        # -- the GPipe schedule on a 1-stage pod mesh
+        pod = make_mesh((1,), ("pod",))
+        w = torch.randn(1, 2048, 2048, generator=gen, device="cuda") * 0.02
+        micro = torch.randn(4, 8, 2048, generator=gen, device="cuda")
+        fn = pipeline_forward(lambda ws, x, stage: torch.tanh(x @ ws), pod)
+        with torch.no_grad():
+            got, ms = _events_ms(lambda: fn(w, micro))
+            want, plain_ms = _events_ms(lambda: torch.tanh(micro @ w[0]))
+        err = _dist_equal("pipeline", got, want)
+        log(f"[distributed] pipeline_forward, 1-stage pod mesh, 4 microbatches of 8 x 2048: "
+            f"{ms:.2f} ms, the stage applied directly {plain_ms:.2f} ms; max|diff| = {err!r} "
+            "(bit for bit) ok")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script", file=sys.stderr)
@@ -2193,6 +2465,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train_phase(rows)
     log(f"[train] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # -- 12. distributed: the sharded path on one NCCL rank ----------------------
+    t0 = time.perf_counter()
+    distributed_phase(rows)
+    log(f"[distributed] phase wall {time.perf_counter() - t0:.1f} s")
 
     # every variant of the generated kernel, with the configurations that
     # launched it at full size and its largest difference from the plain version

@@ -10,8 +10,14 @@ with no window runs the hand-written attention kernel through
 to the query heads); a windowed layer runs ``chunked_gqa_attention``, as
 the kernel has no window.  Each routed call is counted in ``ROUTES``.
 
-The JAX module's sharding hints (``distributed.context.hint``) have no
-counterpart: the port runs on one device.
+The sharding hints (``distributed.context.hint``) sit at the JAX module's
+sites.  Under a sharding context with DTensor operands both routes first
+redistribute q, k and v to a layout where each rank's attention is
+independent (batch over the data axes, heads over ``model`` where they
+divide it, the sequence whole), run on the local shards and rewrap the
+result (``on_local_heads``).  ``set_attention_impl("ring")``
+sends a ``context``-strategy plan's attention to ``distributed.ring_attention``
+under the JAX module's conditions.
 """
 
 from __future__ import annotations
@@ -21,7 +27,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import context as _ctx
+from repro_torch.distributed.context import hint, seq_whole
+from repro_torch.distributed.ring_attention import ring_attention
+from repro_torch.distributed.sharding import P, dp_axes, placements
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -41,17 +52,17 @@ def set_score_dtype(dtype: torch.dtype) -> None:
     _SCORE_DTYPE = dtype
 
 
+_ATTN_IMPL = "xla"
+
+
 def set_attention_impl(impl: str) -> None:
-    """``"xla"`` (the JAX package's name for the default path) is the only
-    implementation; ``"ring"`` is ring attention over a sharded sequence,
-    which comes with the port of ``distributed/`` (ROADMAP Queue 1 item 10)."""
-    if impl == "ring":
-        raise NotImplementedError(
-            "ring attention needs the port of distributed/ (ROADMAP Queue 1 "
-            "item 10); the port runs on one device"
-        )
-    if impl != "xla":
-        raise ValueError(f"unknown attention impl {impl!r}; the port has 'xla'")
+    """``"xla"`` (the JAX package's name for the default path) or
+    ``"ring"``: ring attention over the sequence for a plan whose
+    attention strategy is ``context`` (``distributed.ring_attention``)."""
+    global _ATTN_IMPL
+    if impl not in ("xla", "ring"):
+        raise ValueError(f"unknown attention impl {impl!r}; the port has 'xla' and 'ring'")
+    _ATTN_IMPL = impl
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -129,12 +140,7 @@ def _kernel_blocks(s: int) -> Optional[int]:
     return None if s & (s - 1) == 0 else s & -s
 
 
-def kernel_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kernels: str
-) -> torch.Tensor:
-    """Causal attention of (B, S, Hq, D) queries over (B, S, Hkv, D) keys
-    and values through the hand-written kernel: batch and heads folded to
-    (B·Hq, S, D), each KV head repeated for its query group."""
+def _local_kernel_attention(q, k, v, kernels: str) -> torch.Tensor:
     b, s, hq, d = q.shape
     g = hq // k.shape[2]
 
@@ -146,8 +152,55 @@ def kernel_attention(
         fold(q), fold(k.repeat_interleave(g, dim=2)), fold(v.repeat_interleave(g, dim=2)),
         causal=True, kernels=kernels, block_q=blk, block_kv=blk,
     )
-    ROUTES["attention_op"] += 1
     return o.reshape(b, hq, s, d).transpose(1, 2)
+
+
+def on_local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v)``, a causal attention of (B, S, Hq, D) queries over
+    (B, S, Hkv, D) keys and values, on each rank's shards.
+
+    DTensor operands under a sharding context are first redistributed so
+    that each rank's work is independent: the batch over the data axes
+    where it divides them, the q heads over ``model`` where they divide it
+    (the KV heads too where they divide it; else each rank takes the KV
+    heads of its own q heads), and the sequence whole, since a causal
+    attention takes query row i at position i.  A ``context`` plan's q,
+    sharded over S, is so gathered over ``model``: every model rank then
+    runs the whole sequence of its batch shard (replicated work).  Plain
+    tensors go to ``fn`` as they are."""
+    c = _ctx.current()
+    if c is None or not isinstance(q, DTensor):
+        return fn(q, k, v)
+    b, _, hq, _ = q.shape
+    hkv = k.shape[2]
+    msize = c.plan.axes["model"]
+    lead = c.plan.batch_spec("q", (b,))[0]
+    heads = hq % msize == 0
+    q_pl = placements(P(lead, None, "model" if heads else None, None), c.mesh)
+    kv_pl = placements(P(lead, None, "model" if heads and hkv % msize == 0 else None, None),
+                       c.mesh)
+    ql = q.redistribute(c.mesh, q_pl).to_local()
+    kl = k.redistribute(c.mesh, kv_pl).to_local()
+    vl = v.redistribute(c.mesh, kv_pl).to_local()
+    if heads and hkv % msize:
+        # the KV head of each local q head (head // g), not the first ones
+        hq_loc = ql.shape[2]
+        first = c.mesh.get_local_rank("model") * hq_loc
+        idx = (first + torch.arange(hq_loc, device=ql.device)) // (hq // hkv)
+        kl, vl = kl[:, :, idx], vl[:, :, idx]
+    return DTensor.from_local(fn(ql, kl, vl), c.mesh, q_pl, run_check=False)
+
+
+def kernel_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kernels: str
+) -> torch.Tensor:
+    """Causal attention of (B, S, Hq, D) queries over (B, S, Hkv, D) keys
+    and values through the hand-written kernel: batch and heads folded to
+    (B·Hq, S, D), each KV head repeated for its query group; DTensor
+    operands on each rank's shards (``on_local_heads``)."""
+    o = on_local_heads(lambda ql, kl, vl: _local_kernel_attention(ql, kl, vl, kernels), q, k, v)
+    ROUTES["attention_op"] += 1
+    return o
 
 
 def attention_block(
@@ -169,6 +222,7 @@ def attention_block(
     runs the attention kernel through ``ops.attention_op(kernels=...)``;
     a window runs the plain ``chunked_gqa_attention``."""
     b, s, _ = x.shape
+    x = seq_whole(x)
     q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
     k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
     v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
@@ -177,16 +231,42 @@ def attention_block(
         k = rms_norm(k, p["k_norm"], norm_eps)
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
+    q = hint(q, "q_heads")
+    c = _ctx.current()
+    if (
+        _ATTN_IMPL == "ring"
+        and c is not None
+        and c.plan.attn_strategy == "context"
+        and s % c.plan.axes["model"] == 0
+        and b % max(1, _dp_size(c.plan)) == 0
+    ):
+        o = ring_attention(q, k, v, c.mesh, axis="model", dp=dp_axes(c.mesh), window=window)
+        ROUTES["ring"] += 1
+        o = hint(o, "q_heads")
+        return seq_whole(o).reshape(b, s, n_heads * head_dim) @ p["wo"]
+    k = hint(k, "kv_heads")
+    v = hint(v, "kv_heads")
     if window is None:
         o = kernel_attention(q, k, v, kernels)
     else:
-        o = chunked_gqa_attention(q, k, v, window=window, kv_chunk=min(kv_chunk, s))
+        o = on_local_heads(lambda ql, kl, vl: chunked_gqa_attention(
+            ql, kl, vl, window=window, kv_chunk=min(kv_chunk, s)), q, k, v)
         ROUTES["windowed"] += 1
-    return o.reshape(b, s, n_heads * head_dim) @ p["wo"]
+    o = hint(o, "q_heads")
+    return seq_whole(o).reshape(b, s, n_heads * head_dim) @ p["wo"]
+
+
+def _dp_size(plan) -> int:
+    n = 1
+    for a in dp_axes(plan.mesh):
+        n *= plan.axes[a]
+    return n
 
 
 def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
-    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+    x = seq_whole(x)
+    h = hint(F.silu(x @ p["w1"]) * (x @ p["w3"]), "mlp_hidden")
+    return h @ p["w2"]
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +321,7 @@ __all__ = [
     "chunked_gqa_attention",
     "decode_attention",
     "kernel_attention",
+    "on_local_heads",
     "rms_norm",
     "rope",
     "set_attention_impl",

@@ -28,6 +28,11 @@ the routed calls.  ``forward_train`` is differentiable on both routes: on
 the kernel route ``ops.attention_op`` / ``ops.ssd_op`` launch the kernel in
 the forward and take the plain version's gradient in the backward
 (``kernels.grad``); ``kernels="eager"`` differentiates natively.
+
+Sharded runs: with DTensor parameters and batch (``distributed.sharding``)
+under a ``distributed.context.sharding_context``, the same functions run
+through DTensor's sharding propagation with the JAX model's hints at its
+sites; the kernels run on each rank's local shards (``layers``, ``ssm``).
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ from typing import Dict, Iterator, List, Mapping, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.utils.checkpoint
-
+from repro_torch.distributed.context import hint, seq_whole, whole_along
+from repro_torch.distributed.sharding import write_region
 from repro_torch.kernels.ops import to_tensor
 
 from .config import ModelConfig
@@ -258,11 +264,11 @@ def _transformer_layer(cfg: ModelConfig, x, lp, idx, positions, kv_chunk, kernel
             y = y + swiglu_mlp(hn, lp["shared_mlp"])
     else:
         y = swiglu_mlp(hn, lp["mlp"])
-    return h + y, aux
+    return hint(h + y, "act"), aux
 
 
 def _mamba_layer(cfg: ModelConfig, x, lp, kernels):
-    return x + mamba2_block(
+    return hint(x, "act") + mamba2_block(
         rms_norm(x, lp["ln"], cfg.norm_eps), lp["mixer"],
         d_inner=cfg.d_inner, ssm_heads=cfg.ssm_heads, ssm_head_dim=cfg.ssm_head_dim,
         ssm_state=cfg.ssm_state, conv_width=cfg.conv_width, kernels=kernels,
@@ -336,15 +342,15 @@ def forward_train(
     kernels: str = "cuda",
 ) -> Tuple[torch.Tensor, Dict]:
     """Next-token loss over the batch.  Returns (loss, metrics)."""
-    x = embed_inputs(cfg, params, batch)
+    x = hint(embed_inputs(cfg, params, batch), "act")
     h, aux = _backbone(cfg, params, x, kv_chunk=kv_chunk, remat=remat, kernels=kernels)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if cfg.frontend != "none":
         h = h[:, PREFIX_LEN:]           # loss only over token positions
-    logits = torch.einsum("bsd,vd->bsv", h, params["embed"]).float()
+    logits = hint(torch.einsum("bsd,vd->bsv", seq_whole(h), params["embed"]).float(), "logits")
     labels = batch["labels"]
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    gold = torch.gather(whole_along(logits, -1), -1, labels[..., None].long())[..., 0]
     mask = batch.get("loss_mask")
     nll = logz - gold
     if mask is not None:
@@ -454,8 +460,8 @@ def decode_step(
             x = h + y
             ks.append(kn)
             vs.append(vn)
-        cache["k"][:, :, :, pos : pos + 1] = torch.stack(ks)
-        cache["v"][:, :, :, pos : pos + 1] = torch.stack(vs)
+        write_region(cache["k"], torch.stack(ks), {3: pos})
+        write_region(cache["v"], torch.stack(vs), {3: pos})
 
     elif cfg.family in ("ssm", "hybrid"):
         sp = params.get("shared_attn")
@@ -484,8 +490,8 @@ def decode_step(
                           ("conv_c", "conv_c")):
             cache[name].copy_(torch.stack([st[key] for st in states]))
         for app, (kn, vn) in shared.items():
-            cache["shared_k"][app, :, :, pos : pos + 1] = kn
-            cache["shared_v"][app, :, :, pos : pos + 1] = vn
+            write_region(cache["shared_k"], kn[None], {0: app, 3: pos})
+            write_region(cache["shared_v"], vn[None], {0: app, 3: pos})
     else:
         raise ValueError(cfg.family)
 

@@ -4,7 +4,9 @@ of the JAX package's ``models/moe.py``.
 Tokens are split into groups, routed top-k with a capacity limit, pushed
 through the experts with einsums whose FLOPs equal the active compute, and
 combined with the router gates.  Overflowing tokens are dropped; an
-auxiliary load-balance loss is returned for training.  ``jax.lax.top_k``
+auxiliary load-balance loss is returned for training.  The sharding hints
+sit at the JAX module's sites (groups over the data axes, experts over
+``model`` under expert parallelism).  ``jax.lax.top_k``
 puts the lower expert first on tied probabilities; ``torch.topk`` promises
 no order, so the port takes a stable descending sort.
 """
@@ -15,6 +17,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.context import hint, seq_whole
 
 
 def route_tokens(
@@ -54,11 +58,12 @@ def moe_block(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B,S,D), aux load-balance loss scalar)."""
     b, s, d = x.shape
-    tokens = x.reshape(-1, d)
+    tokens = seq_whole(x).reshape(-1, d)
     t = tokens.shape[0]
     gsz = min(group_size, t)
     assert t % gsz == 0, (t, gsz)
-    xg = tokens.reshape(t // gsz, gsz, d)
+    # pin the grouped-token layout once: groups ride the data axes
+    xg = hint(tokens.reshape(t // gsz, gsz, d), "moe_groups")
     probs, gate_vals, gate_idx, pos, keep, cap = route_tokens(
         xg, p["router"], n_experts=n_experts, top_k=top_k, capacity_factor=capacity_factor
     )
@@ -68,11 +73,13 @@ def moe_block(
     dispatch = torch.einsum("gtke,gtkc->gtec", onehot * keep[..., None], cap_oh)
     combine = torch.einsum("gtke,gtkc,gtk->gtec", onehot, cap_oh, gate_vals)
 
-    expert_in = torch.einsum("gtec,gtd->gecd", dispatch, xg.float()).to(x.dtype)
+    expert_in = hint(torch.einsum("gtec,gtd->gecd", dispatch, xg.float()).to(x.dtype),
+                     "expert_in")                                     # (G, E, C, D)
     h = F.silu(torch.einsum("gecd,edf->gecf", expert_in, p["w1"])) * torch.einsum(
         "gecd,edf->gecf", expert_in, p["w3"]
     )
-    expert_out = torch.einsum("gecf,efd->gecd", h, p["w2"])
+    h = hint(h, "expert_hidden")
+    expert_out = hint(torch.einsum("gecf,efd->gecd", h, p["w2"]), "expert_in")
     out = torch.einsum("gtec,gecd->gtd", combine, expert_out.float()).to(x.dtype)
 
     # Switch-style load-balance auxiliary loss

@@ -10,7 +10,12 @@ on the card), which is ``ssd_chunked``'s math from a zero state.
 ``mamba2_decode_step`` is the plain one-token recurrence.
 
 Projections are kept as separate weights (z/x/B/C/dt and per-stream convs),
-as the JAX module keeps them.
+as the JAX module keeps them.  The sharding hints sit at the JAX module's
+sites; under a sharding context with DTensor operands the scan's operands
+are first redistributed so that each rank's scan is independent (batch rows
+over the data axes, heads over ``model`` where they divide it, ``B`` and
+``C`` gathered along N, which C Bᵀ contracts), and the kernels run on the
+local shards (``_ssd_rows``).
 """
 
 from __future__ import annotations
@@ -19,7 +24,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import context as _ctx
+from repro_torch.distributed.context import hint, seq_whole
+from repro_torch.distributed.sharding import P, placements
 from repro_torch.kernels import ops
 
 from .layers import ROUTES
@@ -102,6 +111,28 @@ def _project(x, p):
     return x @ p["z_proj"], x @ p["x_proj"], x @ p["b_proj"], x @ p["c_proj"], x @ p["dt_proj"]
 
 
+def _ssd_rows(xh, dt, a, bm, cm, kernels: str, chunk: int) -> torch.Tensor:
+    """``ops.ssd_op`` once per batch row: y (B, S, H, P).  DTensor operands
+    under a sharding context are redistributed first: rows over the data
+    axes, heads over ``model`` where they divide it, ``bm`` / ``cm`` whole
+    along N; the kernels then run on each rank's rows and heads."""
+    c = _ctx.current()
+    sharded = c is not None and isinstance(xh, DTensor)
+    if sharded:
+        lead = c.plan.batch_spec("x", (xh.shape[0],))[0]
+        heads = "model" if xh.shape[2] % c.plan.axes["model"] == 0 else None
+        x_pl = placements(P(lead, None, heads, None), c.mesh)
+        bc_pl = placements(P(lead, None, None), c.mesh)
+        xh, dt, a, bm, cm = (
+            t.redistribute(c.mesh, pl).to_local() for t, pl in (
+                (xh, x_pl), (dt, placements(P(lead, None, heads), c.mesh)),
+                (a, placements(P(heads), c.mesh)), (bm, bc_pl), (cm, bc_pl)))
+    y = torch.stack([ops.ssd_op(xh[i], dt[i], a, bm[i], cm[i], kernels=kernels, chunk=chunk)
+                     for i in range(xh.shape[0])])
+    ROUTES["ssd_op"] += xh.shape[0]
+    return DTensor.from_local(y, c.mesh, x_pl, run_check=False) if sharded else y
+
+
 def mamba2_block(
     x: torch.Tensor,          # (B, S, D)
     p: Dict,
@@ -118,18 +149,18 @@ def mamba2_block(
     ``ops.ssd_op(kernels=...)`` per batch row."""
     chunk = chunk or _SSD_CHUNK
     b, s, d = x.shape
-    z, xs, bm, cm, dt = _project(x, p)
+    z, xs, bm, cm, dt = _project(seq_whole(x), p)
+    xs = hint(xs, "ssm_inner")
+    z = hint(z, "ssm_inner")
     xs, _ = causal_conv1d(xs, p["conv_x"])
     bm, _ = causal_conv1d(bm, p["conv_b"])
     cm, _ = causal_conv1d(cm, p["conv_c"])
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     a = -torch.exp(p["a_log"].float())                                     # (H,)
     xh = xs.reshape(b, s, ssm_heads, ssm_head_dim)
-    y = torch.stack([
-        ops.ssd_op(xh[i], dt[i], a, bm[i], cm[i], kernels=kernels, chunk=min(chunk, s))
-        for i in range(b)
-    ])
-    ROUTES["ssd_op"] += b
+    xh = hint(xh, "ssm_heads")
+    y = _ssd_rows(xh, dt, a, bm, cm, kernels, min(chunk, s))
+    y = hint(y, "ssm_heads")
     y = y.float() + p["d_skip"].float()[None, None, :, None] * xh.float()
     y = y.reshape(b, s, d_inner).to(x.dtype)
     y = y * F.silu(z)

@@ -3,7 +3,7 @@ batched servers share (``slots``)."""
 
 from .slots import pad_to_slots
 
-_ENGINE = ("Request", "ServeEngine", "make_serve_step")
+_ENGINE = ("Request", "ServeEngine", "kv_cache_specs", "make_serve_step")
 
 
 def __getattr__(name: str):
@@ -17,4 +17,4 @@ def __getattr__(name: str):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["Request", "ServeEngine", "make_serve_step", "pad_to_slots"]
+__all__ = ["Request", "ServeEngine", "kv_cache_specs", "make_serve_step", "pad_to_slots"]

@@ -9,8 +9,13 @@ file + atomic rename, a ``step-XXXXXXXX.json`` carries the step and the
 data cursor, and ``keep_last`` old checkpoints are retained for corruption
 fallback.  numpy has no bfloat16 here, so a bf16 leaf is stored as its
 16-bit pattern (``uint16``) and its key listed under ``"bf16"`` in the
-JSON; restore reads it back bit for bit.  Re-sharding on restore comes
-with the port of ``distributed/``.
+JSON; restore reads it back bit for bit.
+
+Sharded states: ``save_checkpoint`` gathers each DTensor leaf with
+``full_tensor()`` on every rank (the call is a collective) and writes on
+rank 0 only, so the file stays logical and unsharded;
+``restore_checkpoint(..., shardings=...)`` lays each leaf out on its
+target mesh (any mesh: the file knows none).
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models.model import _leaves
 
@@ -35,6 +42,8 @@ def _flatten(prefix: str, tree: Mapping) -> Tuple[Dict[str, np.ndarray], List[st
     flat, bf16 = {}, []
     for path, leaf in _leaves(tree):
         key = SEP.join([prefix, *path.split("/")])
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             bf16.append(key)
@@ -56,10 +65,14 @@ def save_checkpoint(
 ) -> Optional[threading.Thread]:
     """Every tensor is copied to the host before this returns (or before
     the writer thread starts, under ``async_save``), so the caller may
-    update its tensors in place at once."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    update its tensors in place at once.  In a process group every rank
+    calls this (DTensor leaves are gathered collectively) and rank 0 alone
+    writes; the others return None."""
     arrays, bf16 = _flatten("params", params)
     opt_arrays, opt_bf16 = _flatten("opt", opt_state)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
+    os.makedirs(ckpt_dir, exist_ok=True)
     arrays.update(opt_arrays)
     meta = {"step": step, "data": data_state}
     if bf16 or opt_bf16:
@@ -116,9 +129,13 @@ def restore_checkpoint(
     step: int,
     params_template: Mapping,
     opt_template: Mapping,
+    shardings: Optional[Tuple[Optional[Mapping], Optional[Mapping]]] = None,
 ) -> Tuple[Dict, Dict, Dict]:
-    """Rebuild (params, opt_state, meta): each array on its template leaf's
-    device and in its dtype; ``meta`` as it was saved (``{"step", "data"}``)."""
+    """Rebuild (params, opt_state, meta): each array in its template leaf's
+    dtype, on its device; ``meta`` as it was saved (``{"step", "data"}``).
+    ``shardings``: optional (params, opt) trees of ``NamedSharding``s
+    matching the templates (either may be None) for the target mesh; each
+    leaf is then a DTensor laid out by its sharding."""
     path = os.path.join(ckpt_dir, f"step-{step:08d}.npz")
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
@@ -126,22 +143,28 @@ def restore_checkpoint(
         meta = json.load(f)
     bf16 = set(meta.pop(_BF16, ()))
 
-    def leaf(key: str, template: torch.Tensor) -> torch.Tensor:
+    def leaf(key: str, template: torch.Tensor, sh) -> torch.Tensor:
         arr = data[key]
         if key in bf16:
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        return t.to(device=template.device, dtype=template.dtype)
+        if sh is None:
+            return t.to(device=template.device, dtype=template.dtype)
+        t = t.to(device=sh.mesh.device_type, dtype=template.dtype)
+        return distribute_tensor(t, sh.mesh, sh.placements)
 
-    def rebuild(prefix: str, template: Mapping, at: str = "") -> Dict:
+    def rebuild(prefix: str, template: Mapping, shards: Optional[Mapping], at: str = "") -> Dict:
         return {
-            k: rebuild(prefix, v, f"{at}{k}{SEP}") if isinstance(v, Mapping)
-            else leaf(f"{prefix}{SEP}{at}{k}", v)
+            k: rebuild(prefix, v, None if shards is None else shards[k], f"{at}{k}{SEP}")
+            if isinstance(v, Mapping)
+            else leaf(f"{prefix}{SEP}{at}{k}", v, None if shards is None else shards[k])
             for k, v in template.items()
         }
 
-    return rebuild("params", params_template), rebuild("opt", opt_template), meta
+    p_sh, o_sh = shardings if shardings is not None else (None, None)
+    return (rebuild("params", params_template, p_sh), rebuild("opt", opt_template, o_sh),
+            meta)
 
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "latest_steps"]

@@ -5,8 +5,9 @@ Trees are the port's nested dicts of tensors.  Moments are f32; the update
 keeps the JAX function's order of operations: the clip scale from the
 global norm, the f32 moments, bias correction, decoupled weight decay, then
 the cast back to each parameter's dtype.  The update is functional: it
-returns new tensors and leaves its arguments as they were.  The ZeRO
-sharding of the moments comes with the port of ``distributed/``.
+returns new tensors and leaves its arguments as they were.  With DTensor
+parameters the moments follow their parameter's layout, and each gradient
+(ZeRO-sharded or not) is taken to it before the update.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import _leaves, _map
 
@@ -36,10 +38,10 @@ class AdamWConfig:
 
 
 def adamw_init(params: Mapping) -> Dict:
-    """f32 zero moments shaped as ``params`` and a 0-d int32 ``step``, on
-    the parameters' device."""
+    """f32 zero moments shaped (and, for DTensors, laid out) as ``params``
+    and a 0-d int32 ``step``, on the parameters' device."""
     dev = next(t for _, t in _leaves(params)).device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return {
         "m": _map(zeros, params),
         "v": _map(zeros, params),
@@ -93,6 +95,8 @@ def adamw_update(
     c2 = 1 - cfg.b2 ** step
 
     def upd(p, g, m, v):
+        if isinstance(g, DTensor):
+            g = g.redistribute(p.device_mesh, p.placements)
         g = g.to(torch.float32) * scale
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g

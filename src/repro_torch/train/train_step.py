@@ -9,8 +9,15 @@ in ``acc_dtype`` (f32 by default) and averaged, optionally stochastically
 rounded to bf16 (``compress_grads``), then AdamW updates the state.  On
 ``kernels="cuda"`` the attention and SSD kernels run in the forward and in
 each layer's recompute, and their backward is the plain version's gradient
-(``kernels.grad``).  The ZeRO-grad accumulator shardings
-(``grad_shardings``) come with the port of ``distributed/``.
+(``kernels.grad``).
+
+ZeRO-grad (``grad_shardings``, a tree of ``distributed.sharding``
+``NamedSharding``s, e.g. ``zero_shardings``): with DTensor parameters,
+each microbatch's gradients and the accumulator are redistributed to those
+layouts (a data-parallel split on top of the parameter's), so the gradient
+reduction over the data axes becomes a reduce-scatter; the optimizer then
+takes each gradient to its parameter's layout.  A sharded step runs under
+the plan's ``distributed.context.sharding_context``.
 """
 
 from __future__ import annotations
@@ -60,9 +67,19 @@ def batch_grads(
     cfg: ModelConfig, params: Mapping, batch: Mapping, *, microbatches: int = 1,
     kv_chunk: int = 512, remat: bool = True, comm_dtype: Optional[torch.dtype] = None,
     acc_dtype: Optional[torch.dtype] = None, kernels: str = "cuda",
+    grad_shardings: Optional[Mapping] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """(mean loss, mean gradient tree) over ``microbatches`` equal slices
-    of the batch's rows, accumulated as the JAX step's scan does."""
+    of the batch's rows, accumulated as the JAX step's scan does; each
+    microbatch's gradients and the accumulator laid out by
+    ``grad_shardings`` when given."""
+    shards = None if grad_shardings is None else [sh for _, sh in _leaves(grad_shardings)]
+
+    def constrain(gs: List[torch.Tensor]) -> List[torch.Tensor]:
+        if shards is None:
+            return gs
+        return [g.redistribute(sh.mesh, sh.placements) for g, sh in zip(gs, shards)]
+
     b = batch["tokens"].shape[0]
     if b % microbatches:
         raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
@@ -76,8 +93,8 @@ def batch_grads(
                                        kernels=kernels)
         if comm_dtype is not None:
             grads = [g.to(comm_dtype) for g in grads]
-        grads = [g.to(adt) for g in grads]
-        acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
+        grads = constrain([g.to(adt) for g in grads])
+        acc = grads if acc is None else constrain([a + g for a, g in zip(acc, grads)])
         loss_sum = loss_sum + loss
     return loss_sum / microbatches, _unflatten(params, [g / microbatches for g in acc])
 
@@ -89,6 +106,7 @@ def make_train_step(
     microbatches: int = 1,
     kv_chunk: int = 512,
     remat: bool = True,
+    grad_shardings: Optional[Mapping] = None,   # ZeRO-grad: accumulator layouts
     comm_dtype: Optional[torch.dtype] = None,   # per-microbatch grads cast to it
     acc_dtype: Optional[torch.dtype] = None,    # gradient accumulator (default f32)
     kernels: str = "cuda",
@@ -104,6 +122,7 @@ def make_train_step(
         loss, grads = batch_grads(
             cfg, state.params, batch, microbatches=microbatches, kv_chunk=kv_chunk,
             remat=remat, comm_dtype=comm_dtype, acc_dtype=acc_dtype, kernels=kernels,
+            grad_shardings=grad_shardings,
         )
         if opt_cfg.compress_grads:
             grads = _map(lambda g: stochastic_round_bf16(g, state.generator).to(torch.float32),

@@ -44,7 +44,9 @@ def test_port_backend_import_leaves_jax_unloaded():
         "repro_torch.core.hwmodel, repro_torch.backend.autotune, repro_torch.models, "
         "repro_torch.models.model, repro_torch.configs, repro_torch.train, "
         "repro_torch.train.fault, repro_torch.serve.engine, repro_torch.launch.train, "
-        "repro_torch.launch.serve, repro_torch.kernels.grad; "
+        "repro_torch.launch.serve, repro_torch.kernels.grad, repro_torch.distributed, "
+        "repro_torch.distributed.ring_attention, repro_torch.distributed.pipeline, "
+        "repro_torch.launch.mesh; "
         "from repro_torch.configs import all_configs; all_configs(); "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"

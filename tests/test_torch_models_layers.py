@@ -168,9 +168,25 @@ def test_kernel_attention_blocks_divide_any_sequence():
 
 
 def test_set_attention_impl_refuses_ring():
+    """``"ring"`` is taken (ring attention came with the port of
+    ``distributed/``), but without a sharding context a layer does not take
+    the ring, as the JAX package's does not: its output and route stay the
+    default's.  An unknown implementation is refused."""
+    rng = _rng(6)
+    x = _t(_n(rng, 2, 16, 32))
+    p = {k: _t(a) for k, a in _attn_params(rng, 32, 4, 2, 8, False).items()}
+    kw = dict(n_heads=4, n_kv_heads=2, head_dim=8, rope_theta=1e4, qk_norm=False,
+              norm_eps=1e-6, positions=torch.arange(16), window=None, kernels="eager")
     tl.set_attention_impl("xla")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tl.set_attention_impl("ring")
+    want = tl.attention_block(x, p, **kw)
+    tl.ROUTES.clear()
+    tl.set_attention_impl("ring")
+    try:
+        got = tl.attention_block(x, p, **kw)
+    finally:
+        tl.set_attention_impl("xla")
+    assert tl.ROUTES == {"attention_op": 1}
+    assert torch.equal(got, want)
     with pytest.raises(ValueError):
         tl.set_attention_impl("flash")
 
