@@ -191,6 +191,16 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    (plain and window 512); ``pipeline_forward`` on a 1-stage ``pod`` mesh
    equal to the stage.
 
+13. dryrun: the dry run (``repro_torch.launch.dryrun``) in subprocesses:
+   phase 10's tinyllama-1.1b bf16 prefill (B 1, S 2048) on a fake (1, 1)
+   world, its modelled compute, memory and collective terms (H100
+   data-sheet constants) printed beside phase 10's measured ms, its
+   argument bytes exactly its parameters' and tokens'; then
+   ``DRYRUN_CELL`` (qwen3-14b ``train_4k``) at full size on a fake (16, 16)
+   world through the CLI, its compute term at least 6 x active parameters x
+   tokens over the ranks and the bf16 peak, the fit test against this
+   card's memory.
+
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line.
@@ -585,60 +595,6 @@ def held(tag: str, got, plain, want, tol, exact: bool = False, row_tol=None):
     return e_plain
 
 
-def kernel_work(name: str, args, out, chunk=None) -> tuple:
-    """Bytes a hand-written kernel must move (each input read once, the
-    output written once), the operations it does on these inputs (only the
-    scores a causal mask keeps; only the lower triangle of each SSD chunk,
-    whose C B^T the SSD read-out kernel reads only there; the additions of
-    a split-K matmul's reduction) and the peak rate of the unit they could
-    use: bf16 tensor cores for bf16 products, else IEEE f32 (the SSD
-    kernels' products are f32 whatever x's dtype)."""
-    import torch
-
-    name = name.removesuffix("_wgmma")         # the tensor-core kernels do the op's work
-    nbytes = sum(t.numel() * t.element_size() for t in args) + out.numel() * out.element_size()
-    peak = PEAK_BF16_FLOPS if out.dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    if name == "matmul_reduce":                  # the f32 splits (S, M, N) added in order
-        ops = (args[0].shape[0] - 1) * out.numel()
-        peak = PEAK_F32_FLOPS
-    elif name == "stencil3x3":
-        ops = 18 * out.numel()                      # 9 products and 9 sums per output
-        peak = PEAK_F32_FLOPS
-    elif name == "matmul":
-        (m, k), n = args[0].shape, args[1].shape[1]
-        ops = 2 * m * n * k
-    elif name == "flash_attention":               # every configuration here is causal
-        b, sq, d = args[0].shape
-        ops = 4 * d * b * sq * (sq + 1) // 2        # q.k and p.v per kept score
-    elif name == "ssd_gram":                      # C B^T of each chunk, lower triangle
-        s, n = args[0].shape
-        ops = 2 * (s // chunk) * (chunk * (chunk + 1) // 2) * n
-    elif name == "ssd_chunk_state":               # (x, dt, a, b): each chunk's contribution
-        s, h, p = args[0].shape
-        n = args[3].shape[1]
-        nbytes += 4 * s * h                         # and s, written beside it
-        ops = 2 * s * h * p * n
-        peak = PEAK_F32_FLOPS
-    elif name == "ssd_state_pass":                # (states, s): the states rewritten in place
-        nc, h, n, p = args[0].shape
-        # every chunk's entering state written; the contributions and s (its
-        # last step) of every chunk but the last read: the last makes only
-        # the state after the sequence, which nothing reads
-        nbytes = 4 * (2 * nc - 1) * h * n * p + 4 * (nc - 1) * h
-        ops = 2 * (nc - 1) * h * n * p
-        peak = PEAK_F32_FLOPS
-    else:                                         # ssd_chunk_out: (x, dt, c, g, s, states)
-        s, h, p = args[0].shape
-        n = args[2].shape[1]
-        tri, n_chunks = chunk * (chunk + 1) // 2, s // chunk
-        nbytes -= 4 * (args[3].numel() - n_chunks * tri)    # reads G's lower triangles only
-        nbytes -= 4 * h * n * p                             # and no state entering chunk 0 (zero)
-        # the intra-chunk sum, and the read-out of every chunk but the first
-        ops = 2 * n_chunks * tri * h * p + 2 * (s - chunk) * h * p * n
-        peak = PEAK_F32_FLOPS
-    return nbytes, ops, peak
-
-
 def kernels_small() -> None:
     """Phase 6: each hand-written kernel at the JAX package's test shapes,
     against its plain version and its oracle at the JAX tolerances."""
@@ -791,6 +747,7 @@ def kernels_full(full_apps, rows) -> None:
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels.matmul import matmul_plain, matmul_reduce_plain, simt_plan
+    from repro_torch.roofline.kernel_cost import kernel_work
     from repro_torch.kernels.ssd import (
         ssd_chunk_out, ssd_chunk_out_plain, ssd_chunk_state, ssd_chunk_state_plain, ssd_gram,
         ssd_gram_plain, ssd_scan_plain, ssd_state_pass, ssd_state_pass_plain,
@@ -2159,6 +2116,101 @@ def distributed_phase(rows) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+DRYRUN_CELL = ("qwen3_14b", "train_4k")
+# phase 10's tinyllama-1.1b bf16 prefill (B 1, S 2048) on a fake world of one
+# rank: its report, the bytes of its parameters and tokens, its launches
+DRYRUN_CALIBRATION = r"""
+import json, torch
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.model import init_params, param_count
+with dryrun.fake_world(1):
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="fake")
+    cost, rep = dryrun.lower_cell("tinyllama_1_1b", "prefill_2k", mesh=mesh,
+                                  info=dict(kind="prefill", seq=2048, batch=1))
+cfg = dryrun.get_config("tinyllama_1_1b")
+rep["params_and_tokens_bytes"] = (2 * param_count(init_params(cfg, None, torch.bfloat16, "meta"))
+                                  + 4 * 2048)
+rep["launches"] = cost.kernels
+print(json.dumps(rep))
+"""
+
+
+def dryrun_phase(rows) -> None:
+    """Phase 13: the dry run (``repro_torch.launch.dryrun``), each run in a
+    subprocess of its own (this process owns the default NCCL group of
+    phase 12): (1) phase 10's tinyllama-1.1b bf16 prefill, B 1, S 2048, on a
+    fake (1, 1) world, its modelled terms (H100 data-sheet constants)
+    printed beside phase 10's measured ms, its argument bytes exactly its
+    parameters' and tokens', 22 attention kernels charged; (2) one
+    production cell at full size on the fake (16, 16) world through the
+    CLI, its compute term at least 6 x active parameters x tokens over the
+    ranks and the bf16 peak.  The fit test reads the card's own memory."""
+    import os
+
+    import torch
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    props = torch.cuda.get_device_properties(0)
+    log(f"[dryrun] {torch.cuda.get_device_name(0)}: total_memory {props.total_memory} B, "
+        "the dry run's fit test on this card")
+    measured = [ms for r in rows.values()
+                for k, ms in r.get("model_prefill_ms", {}).items()
+                if k == "tinyllama-1.1b bf16 prefill"]
+    if not measured:
+        raise AssertionError("[dryrun] phase 10's tinyllama-1.1b bf16 prefill time is missing")
+    res = subprocess.run([sys.executable, "-c", DRYRUN_CALIBRATION], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=ROOT)
+    if res.returncode:
+        raise AssertionError(f"[dryrun] calibration failed:\n{res.stderr[-3000:]}")
+    rep = json.loads(res.stdout.strip().splitlines()[-1])
+    r, mem = rep["roofline"], rep["memory"]
+    if mem["argument_bytes_per_chip"] != rep["params_and_tokens_bytes"]:
+        raise AssertionError(f"[dryrun] argument bytes {mem['argument_bytes_per_chip']} are not "
+                             f"the parameters' and tokens' {rep['params_and_tokens_bytes']}")
+    if rep["launches"] != {"flash_attention": 22}:
+        raise AssertionError(f"[dryrun] calibration charged {rep['launches']}, want 22 attention")
+    bound_ms = 1e3 * max(r["t_compute"], r["t_memory"], r["t_collective"])
+    useful_ms = 1e3 * r["model_flops"] / PEAK_BF16_FLOPS
+    log(f"[dryrun] calibration tinyllama-1.1b bf16 prefill B 1 S 2048, fake (1, 1) world "
+        f"(modelled, data-sheet peaks): compute {1e3 * r['t_compute']:.3f} ms, memory "
+        f"{1e3 * r['t_memory']:.3f} ms, collective {1e3 * r['t_collective']:.3f} ms, "
+        f"{r['dominant']}-bound at {bound_ms:.3f} ms, roofline_fraction "
+        f"{r['roofline_fraction']:.3f}; FLOPs {r['flops']:.6g}, HBM bytes {r['hbm_bytes']:.6g}, "
+        f"arguments {mem['argument_bytes_per_chip']} B (= parameters + tokens), temp "
+        f"{mem['temp_bytes_per_chip']} B, launches {rep['launches']}, trace {rep['trace_s']} s | "
+        f"phase 10 measured {measured[0]:.3f} ms on this card: {measured[0] / bound_ms:.2f}x the "
+        f"modelled bound, useful compute {useful_ms:.3f} ms = {useful_ms / measured[0]:.3f} of it")
+    arch, shape = DRYRUN_CELL
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                          "--shape", shape, "--force"], capture_output=True, text=True,
+                         timeout=600, env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    out = ROOT / "results" / "dryrun_torch" / f"{arch}__{shape}__sp.json"
+    if res.returncode or not out.exists():
+        raise AssertionError(f"[dryrun] {arch} {shape} failed:\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-3000:]}")
+    rep = json.loads(out.read_text())
+    if rep["status"] != "ok":
+        raise AssertionError(f"[dryrun] {arch} {shape}: {rep['status']} {rep.get('error')}")
+    r, mem = rep["roofline"], rep["memory"]
+    # 6 x active parameters x tokens a rank over the bf16 peak: the compute
+    # term's floor before remat's recompute
+    floor = r["model_flops"] / rep["chips"] / PEAK_BF16_FLOPS
+    if r["t_compute"] < floor:
+        raise AssertionError(f"[dryrun] {arch} {shape}: compute term {r['t_compute']} s, "
+                             f"want at least {floor:.4f} s")
+    log(f"[dryrun] {arch} {shape} at full size, fake (16, 16) world, torch {rep['torch']} "
+        f"(modelled, data-sheet peaks): compute {r['t_compute']:.4f} s (floor "
+        f"{floor:.4f}), memory {r['t_memory']:.4f} s, collective "
+        f"{r['t_collective']:.4f} s, {r['dominant']}-bound; FLOPs {r['flops_by_unit']}, "
+        f"collective bytes {r['collective_bytes']} ({r['network_bytes']} across nodes); "
+        f"per rank {mem['peak_gb_per_chip']} GB, fits {mem['fits_80gb']} against "
+        f"{mem['budget_bytes']} B of {mem['budget_of']}; microbatches {rep['microbatches']}, "
+        f"trace {rep['trace_s']} s, wall {wall:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside the script", file=sys.stderr)
@@ -2470,6 +2522,11 @@ def main() -> int:
     t0 = time.perf_counter()
     distributed_phase(rows)
     log(f"[distributed] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. dryrun: the production cells on a fake world, modelled ------------
+    t0 = time.perf_counter()
+    dryrun_phase(rows)
+    log(f"[dryrun] phase wall {time.perf_counter() - t0:.1f} s")
 
     # every variant of the generated kernel, with the configurations that
     # launched it at full size and its largest difference from the plain version

@@ -90,12 +90,41 @@ def whole_along(x: torch.Tensor, dim: int) -> torch.Tensor:
                                           for p in x.placements])
 
 
+class _GradWholeAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return whole_along(grad, ctx.dim), None
+
+
+def grad_whole_along(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` itself, whose gradient is gathered along ``dim`` on its way
+    back (``whole_along``): for a view whose backward cannot take that dim
+    sharded.  A plain tensor is returned as it is."""
+    return _GradWholeAlong.apply(x, dim) if isinstance(x, DTensor) else x
+
+
+def reduced(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with partial sums (or maxima) as the reduced value, whole
+    on those mesh dims; anything else as it is.  For a reduction over a
+    split dim that meets a tensor of another layout: DTensor's rules in
+    torch 2.11 cannot take a split operand to the partial layout."""
+    if not isinstance(x, DTensor) or not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in x.placements])
+
+
 def seq_whole(x: torch.Tensor) -> torch.Tensor:
     """A (B, S, ...) activation whole along S (``whole_along(x, 1)``)."""
     return whole_along(x, 1)
 
 
 __all__ = [
-    "clear_sharding_context", "current", "hint", "seq_whole", "set_sharding_context",
-    "sharding_context", "whole_along",
+    "clear_sharding_context", "current", "grad_whole_along", "hint", "reduced", "seq_whole",
+    "set_sharding_context", "sharding_context", "whole_along",
 ]

@@ -60,17 +60,20 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def require_cuda(fn: str, *tensors: torch.Tensor) -> torch.device:
+def require_cuda(fn: str, *tensors: torch.Tensor, meta: bool = False) -> torch.device:
     """The one CUDA device ``tensors`` lie on; ``ValueError`` otherwise (the
-    plain version is asked for by name, ``kernels="eager"``).  A tensor
-    that needs a gradient raises too: a direct kernel call records nothing
-    for autograd, and its output would cut the graph without a word; the
-    differentiable route is ``ops.attention_op`` / ``ops.ssd_op``."""
+    plain version is asked for by name, ``kernels="eager"``).  ``meta``:
+    meta tensors are taken too, for an entry whose fake implementation
+    gives the output's shape and dtype without computing anything (the dry
+    run, ``launch.dryrun``).  A tensor that needs a gradient raises too: a
+    direct kernel call records nothing for autograd, and its output would
+    cut the graph without a word; the differentiable route is
+    ``ops.attention_op`` / ``ops.ssd_op``."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{fn}: tensors on several devices {devs}")
     dev = devs.pop()
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not (meta and dev.type == "meta"):
         raise ValueError(
             f"{fn}: the CUDA kernel takes CUDA tensors, got {dev}; use "
             "kernels='eager' for the plain version on the CPU"

@@ -160,13 +160,31 @@ def flash_attention(
     block_q: Optional[int] = None, block_kv: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention over (B, S, D) with batch × heads folded into B, scale
-    ``1/sqrt(D)``, by the CUDA kernel ``route`` names.  CUDA tensors only."""
+    ``1/sqrt(D)``, by the CUDA kernel ``route`` names.  CUDA tensors only,
+    or meta tensors: those go to the operator ``repro_torch::flash_attention``,
+    whose fake implementation gives the output's shape and dtype and
+    computes nothing (the dry run's, ``launch.dryrun``)."""
     _check(q, k, v, causal, block_q, block_kv)
-    dev = require_cuda("flash_attention", q, k, v)
+    if q.shape[2] > MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention: the CUDA kernel takes head dims up to {MAX_HEAD_DIM}, got {q.shape[2]}"
+        )
+    if q.device.type == "meta":
+        require_cuda("flash_attention", q, k, v, meta=True)
+        return _flash_attention_op(q, k, v, causal)
+    return _launch(require_cuda("flash_attention", q, k, v), q, k, v, causal)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool) -> torch.Tensor:
+    return _launch(q.device, q, k, v, causal)
+
+
+def _launch(dev: torch.device, q, k, v, causal: bool) -> torch.Tensor:
+    """The kernel's launch on checked inputs."""
     b, sq, d = q.shape
     skv = k.shape[1]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: the CUDA kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
     out = torch.empty((b, sq, d), dtype=q.dtype, device=dev)
     if _route(q) == "wgmma":
         qc, kc, vc = (tma_aligned(t) for t in (q, k, v))
@@ -177,6 +195,11 @@ def flash_attention(
         ptrs = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr())
         KERNEL(dev, *ptrs, b, sq, skv, d, 1.0 / (d ** 0.5), int(causal), DTYPE_CODE[q.dtype])
     return out
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 def flash_attention_plain(

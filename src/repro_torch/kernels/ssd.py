@@ -234,11 +234,32 @@ def ssd_scan(
     x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     *, chunk: Optional[int] = None,
 ) -> torch.Tensor:
-    """y: (S, H, P) in x's dtype, by the four CUDA kernels.  CUDA tensors only."""
+    """y: (S, H, P) in x's dtype, by the four CUDA kernels.  CUDA tensors
+    only, or meta tensors: those go to the operator ``repro_torch::ssd_scan``,
+    whose fake implementation gives y's shape and dtype and computes
+    nothing (the dry run's, ``launch.dryrun``)."""
     l = _check(x, dt, a, b, c, chunk)
-    dev = require_cuda("ssd_scan", x, dt, a, b, c)
+    if x.device.type == "meta":
+        require_cuda("ssd_scan", x, dt, a, b, c, meta=True)
+        return _ssd_scan_op(x, dt, a, b, c, l)
+    return _scan(require_cuda("ssd_scan", x, dt, a, b, c), x, dt, a, b, c, l)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(), device_types="cuda")
+def _ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, chunk: int) -> torch.Tensor:
+    return _scan(x.device, x, dt, a, b, c, chunk)
+
+
+def _scan(dev: torch.device, x, dt, a, b, c, chunk: int) -> torch.Tensor:
+    """The four launches on checked inputs."""
     dtf, af, bf, cf = _f32(dt, a, b, c)
-    return _chunk_scan(dev, x.contiguous(), dtf, af, bf, cf, _gram(dev, bf, cf, l), l)
+    return _chunk_scan(dev, x.contiguous(), dtf, af, bf, cf, _gram(dev, bf, cf, chunk), chunk)
+
+
+@_ssd_scan_op.register_fake
+def _(x, dt, a, b, c, chunk):
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
 
 
 def ssd_chunk_state_plain(

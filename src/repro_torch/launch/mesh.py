@@ -10,7 +10,10 @@ specs compare spec for spec with the JAX package's.
 
 A device mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over an
 initialised process group of exactly its size (``init_distributed``: NCCL
-for ``"cuda"``, gloo for ``"cpu"``).  ``make_abstract_mesh`` is the
+for ``"cuda"``, gloo for ``"cpu"``, and for ``"fake"`` PyTorch's fake
+backend: a world of any size in one process, this process its rank 0,
+whose collectives move nothing — the dry run's, ``launch/dryrun.py``, on
+meta tensors).  ``make_abstract_mesh`` is the
 device-free counterpart of JAX's ``AbstractMesh`` for spec math: the
 planner runs on either.  The entry points run on the card unless the
 caller asks for the CPU, and raise where no GPU is visible.
@@ -26,7 +29,9 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+BACKENDS = {"cuda": "nccl", "cpu": "gloo", "fake": "fake"}
+# the DeviceMesh device type of each: a fake world's mesh holds no data
+MESH_DEVICE = {"cuda": "cuda", "cpu": "cpu", "fake": "cpu"}
 
 
 def _check_device_type(device_type: str) -> None:
@@ -48,11 +53,24 @@ def init_distributed(
     CUDA tensors.  ``init_method`` is ``torch.distributed``'s
     (``"file:///path"`` or ``"tcp://localhost:<port>"``; ``None`` reads the
     ``env://`` variables), as are ``rank`` and ``world_size`` (-1: from the
-    environment).  Raises when ``"cuda"`` is asked and no GPU is visible,
-    or when a group is already initialised."""
+    environment).  ``"fake"``: a world of ``world_size`` ranks in this one
+    process, as rank ``rank`` (0 when -1), through PyTorch's fake backend
+    and its in-process store (``torch.testing._internal.distributed.
+    fake_pg``); no other process takes part and no collective moves data.
+    Raises when ``"cuda"`` is asked and no GPU is visible, or when a group
+    is already initialised."""
     _check_device_type(device_type)
     if dist.is_initialized():
         raise RuntimeError("a default process group is already initialised")
+    if device_type == "fake":
+        # importing the module registers the "fake" backend
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        if world_size < 1:
+            raise ValueError("a fake world needs its world_size")
+        dist.init_process_group("fake", store=FakeStore(), rank=max(rank, 0),
+                                world_size=world_size)
+        return
     dist.init_process_group(
         BACKENDS[device_type], init_method=init_method, rank=rank, world_size=world_size
     )
@@ -72,12 +90,17 @@ def make_mesh(
         raise ValueError(f"{len(shape)} axis sizes for {len(names)} names")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group (init_distributed)")
+    if (device_type == "fake") != (dist.get_backend() == "fake"):
+        raise RuntimeError(
+            f"a {device_type!r} mesh over a {dist.get_backend()!r} process group; "
+            "init_distributed with the same device_type"
+        )
     if dist.get_world_size() != math.prod(shape):
         raise RuntimeError(
             f"a {shape} mesh needs {math.prod(shape)} ranks; the process group has "
             f"{dist.get_world_size()}"
         )
-    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+    return init_device_mesh(MESH_DEVICE[device_type], shape, mesh_dim_names=names)
 
 
 class AbstractMesh:

@@ -22,6 +22,7 @@ under the JAX module's conditions.
 
 from __future__ import annotations
 
+import math
 from collections import Counter
 from typing import Optional
 
@@ -30,7 +31,9 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed import context as _ctx
-from repro_torch.distributed.context import hint, seq_whole
+from repro_torch.distributed.context import (
+    grad_whole_along, hint, reduced, seq_whole, whole_along,
+)
 from repro_torch.distributed.ring_attention import ring_attention
 from repro_torch.distributed.sharding import P, dp_axes, placements
 from repro_torch.kernels import ops
@@ -82,6 +85,42 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _heads_divide(t: torch.Tensor, dim: int, heads: int) -> torch.Tensor:
+    """``t``, gathered along ``dim`` where it is a DTensor split along it
+    over a number of ranks that ``heads`` does not divide: DTensor cannot
+    unflatten such a dim into (heads, ...) (tinyllama's 4 KV heads over 16
+    model ranks), nor flatten a dim of ``heads`` so split (musicgen's 24),
+    which XLA reshards for the JAX package."""
+    if isinstance(t, DTensor):
+        dim %= t.ndim
+        ranks = math.prod(t.device_mesh.size(i) for i, pl in enumerate(t.placements)
+                          if pl.is_shard(dim))
+        if heads % ranks:
+            return whole_along(t, dim)
+    return t
+
+
+def split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """(B, S, heads·head_dim) as (B, S, heads, head_dim), gathered first
+    where the heads do not divide its split (``_heads_divide``)."""
+    t = _heads_divide(t, -1, heads)
+    return t.reshape(t.shape[0], t.shape[1], heads, head_dim)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) as (B, S, H·D), ``split_heads``' inverse.  Under a
+    sharding context whose ``model`` axis H does not divide, the gradient
+    coming back from the product that follows (split along H·D over
+    ``model``) is gathered along H·D before this view's backward unflattens
+    it, for the same reason as ``split_heads``."""
+    b, s, h, d = t.shape
+    flat = t.reshape(b, s, h * d)
+    c = _ctx.current()
+    if c is not None and h % c.plan.axes["model"]:
+        flat = grad_whole_along(flat, 2)
+    return flat
 
 
 def chunked_gqa_attention(
@@ -223,9 +262,9 @@ def attention_block(
     a window runs the plain ``chunked_gqa_attention``."""
     b, s, _ = x.shape
     x = seq_whole(x)
-    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
+    q = split_heads(x @ p["wq"], n_heads, head_dim)
+    k = split_heads(x @ p["wk"], n_kv_heads, head_dim)
+    v = split_heads(x @ p["wv"], n_kv_heads, head_dim)
     if qk_norm:
         q = rms_norm(q, p["q_norm"], norm_eps)
         k = rms_norm(k, p["k_norm"], norm_eps)
@@ -243,7 +282,7 @@ def attention_block(
         o = ring_attention(q, k, v, c.mesh, axis="model", dp=dp_axes(c.mesh), window=window)
         ROUTES["ring"] += 1
         o = hint(o, "q_heads")
-        return seq_whole(o).reshape(b, s, n_heads * head_dim) @ p["wo"]
+        return merge_heads(seq_whole(o)) @ p["wo"]
     k = hint(k, "kv_heads")
     v = hint(v, "kv_heads")
     if window is None:
@@ -253,7 +292,7 @@ def attention_block(
             ql, kl, vl, window=window, kv_chunk=min(kv_chunk, s)), q, k, v)
         ROUTES["windowed"] += 1
     o = hint(o, "q_heads")
-    return seq_whole(o).reshape(b, s, n_heads * head_dim) @ p["wo"]
+    return merge_heads(seq_whole(o)) @ p["wo"]
 
 
 def _dp_size(plan) -> int:
@@ -290,7 +329,13 @@ def decode_attention(
     b, _, hq, d = q.shape
     _, hkv, smax, _ = k_cache.shape
     g = hq // hkv
-    qg = q.reshape(b, hkv, g, d).float()
+    # the token's heads whole (one token): the cache is split along S
+    # (flash-decoding), torch 2.11 refuses to flatten (B, Hkv) for the
+    # products with Hkv split, and the sums over S are reduced before they
+    # meet the token's own term (``reduced``)
+    qg = whole_along(q, 2).reshape(b, hkv, g, d).float()
+    if k_new is not None:
+        k_new, v_new = whole_along(k_new, 1), whole_along(v_new, 1)
     scale = 1.0 / (d ** 0.5)
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * scale   # (B,Hkv,G,Smax)
     k_pos = torch.arange(smax, device=q.device)
@@ -303,15 +348,16 @@ def decode_attention(
         o = torch.einsum("bhgs,bhsd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
     else:
         s_self = torch.einsum("bhgd,bhsd->bhgs", qg, k_new.float()) * scale   # (B,Hkv,G,1)
-        m = torch.maximum(s.amax(dim=-1, keepdim=True), s_self)
+        m = torch.maximum(reduced(s.amax(dim=-1, keepdim=True)), s_self)
         p = torch.exp(s - m)
         p_self = torch.exp(s_self - m)
-        denom = p.sum(dim=-1, keepdim=True) + p_self
+        denom = reduced(p.sum(dim=-1, keepdim=True)) + p_self
         o = (
-            torch.einsum("bhgs,bhsd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
+            reduced(torch.einsum("bhgs,bhsd->bhgd", p.to(v_cache.dtype).float(),
+                                 v_cache.float()))
             + p_self * v_new.float()
         ) / denom
-    return o.reshape(b, 1, hq * d).to(q.dtype)
+    return _heads_divide(o, 1, hkv).reshape(b, 1, hq * d).to(q.dtype)
 
 
 __all__ = [
@@ -321,10 +367,12 @@ __all__ = [
     "chunked_gqa_attention",
     "decode_attention",
     "kernel_attention",
+    "merge_heads",
     "on_local_heads",
     "rms_norm",
     "rope",
     "set_attention_impl",
     "set_score_dtype",
+    "split_heads",
     "swiglu_mlp",
 ]

@@ -16,14 +16,16 @@ layers stacked on a leading ``L`` axis, so every leaf has its counterpart
 ``forward_train``, ``forward_prefill`` and ``decode_step`` take
 ``kernels="cuda" | "eager"`` (default ``"cuda"``), the contract of
 ``compile_pipeline`` and ``kernels.ops``: ``"cuda"`` needs CUDA tensors
-and raises on others; nothing falls back.  The route is fixed by the
-configuration: train and prefill attention of every layer with no window
-(``_layer_window``) runs the hand-written attention kernel, windowed
-layers the plain ``chunked_gqa_attention``, and every mamba2 block the
-hand-written SSD kernels (``ops.ssd_op`` per batch row); decode runs the
-plain ``decode_attention`` and ``mamba2_decode_step``, and projections,
-expert products and logits stay ``torch.matmul`` / ``einsum``, as the JAX
-model computes them outside any Pallas kernel.  ``layers.ROUTES`` counts
+and raises on others (meta tensors give shapes only, through the kernels'
+fake implementations: the dry run's); nothing falls back.  The route is
+fixed by the configuration: train and prefill attention of every layer
+with no window (``_layer_window``) runs the hand-written attention
+kernel, windowed layers the plain ``chunked_gqa_attention``, and every
+mamba2 block the hand-written SSD kernels (``ops.ssd_op`` per batch
+row); decode runs the plain ``decode_attention`` and
+``mamba2_decode_step``, and projections, expert products and logits
+stay ``torch.matmul`` / ``einsum``, as the JAX model computes them
+outside any Pallas kernel.  ``layers.ROUTES`` counts
 the routed calls.  ``forward_train`` is differentiable on both routes: on
 the kernel route ``ops.attention_op`` / ``ops.ssd_op`` launch the kernel in
 the forward and take the plain version's gradient in the backward
@@ -41,13 +43,16 @@ from typing import Dict, Iterator, List, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Replicate
+
 from repro_torch.distributed.context import hint, seq_whole, whole_along
 from repro_torch.distributed.sharding import write_region
 from repro_torch.kernels.ops import to_tensor
 
 from .config import ModelConfig
-from .layers import attention_block, decode_attention, rms_norm, rope, swiglu_mlp
+from .layers import attention_block, decode_attention, rms_norm, rope, split_heads, swiglu_mlp
 from .moe import moe_block
 from .ssm import mamba2_block, mamba2_decode_step
 
@@ -71,10 +76,10 @@ def _resolve_device(device: Union[str, torch.device]) -> torch.device:
 def _check_kernels(kernels: str, t: torch.Tensor) -> None:
     if kernels not in KERNEL_CHOICES:
         raise ValueError(f"kernels must be one of {KERNEL_CHOICES}: {kernels!r}")
-    if kernels == "cuda" and t.device.type != "cuda":
+    if kernels == "cuda" and t.device.type not in ("cuda", "meta"):
         raise ValueError(
-            f"kernels='cuda' needs CUDA tensors, got {t.device}; use "
-            f"kernels='eager' for the plain version"
+            f"kernels='cuda' needs CUDA tensors (or meta tensors, which give shapes "
+            f"only), got {t.device}; use kernels='eager' for the plain version"
         )
 
 
@@ -250,9 +255,23 @@ def _attn(cfg: ModelConfig, x, ap, positions, window, kv_chunk, kernels, qk_norm
     )
 
 
+def _residual(x, y):
+    """``x + y``: the residual stream ``x`` and a block's output ``y``, ``y``
+    first laid out as the stream (``hint(y, "act")``, a sum over ``model``
+    scattered along S under sequence parallelism).  The backward of that
+    scatter gathers the gradient along S, so the gradient reaching the
+    block's last product is whole along S, where its (B, S) rows are
+    flattened (Megatron-SP's backward all-gather; torch 2.11's view rules
+    refuse to flatten a sequence-sharded gradient, which the sum alone
+    would hand back).  In decode it spares torch 2.11 a sum of a partial
+    and a batch-split operand, which its rules would take to the partial
+    layout and cannot."""
+    return x + hint(y, "act")
+
+
 def _transformer_layer(cfg: ModelConfig, x, lp, idx, positions, kv_chunk, kernels):
-    h = x + _attn(cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), lp["attn"], positions,
-                  _layer_window(cfg, idx), kv_chunk, kernels, cfg.qk_norm)
+    h = _residual(x, _attn(cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), lp["attn"], positions,
+                           _layer_window(cfg, idx), kv_chunk, kernels, cfg.qk_norm))
     hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "moe" in lp:
@@ -264,21 +283,21 @@ def _transformer_layer(cfg: ModelConfig, x, lp, idx, positions, kv_chunk, kernel
             y = y + swiglu_mlp(hn, lp["shared_mlp"])
     else:
         y = swiglu_mlp(hn, lp["mlp"])
-    return hint(h + y, "act"), aux
+    return hint(_residual(h, y), "act"), aux
 
 
 def _mamba_layer(cfg: ModelConfig, x, lp, kernels):
-    return hint(x, "act") + mamba2_block(
+    return _residual(hint(x, "act"), mamba2_block(
         rms_norm(x, lp["ln"], cfg.norm_eps), lp["mixer"],
         d_inner=cfg.d_inner, ssm_heads=cfg.ssm_heads, ssm_head_dim=cfg.ssm_head_dim,
         ssm_state=cfg.ssm_state, conv_width=cfg.conv_width, kernels=kernels,
-    )
+    ))
 
 
 def _shared_attn(cfg: ModelConfig, x, sp, positions, kv_chunk, kernels):
-    h = x + _attn(cfg, rms_norm(x, sp["ln"], cfg.norm_eps), sp["attn"], positions,
-                  None, kv_chunk, kernels, False)
-    return h + swiglu_mlp(rms_norm(h, sp["ln2"], cfg.norm_eps), sp["mlp"])
+    h = _residual(x, _attn(cfg, rms_norm(x, sp["ln"], cfg.norm_eps), sp["attn"], positions,
+                           None, kv_chunk, kernels, False))
+    return _residual(h, swiglu_mlp(rms_norm(h, sp["ln2"], cfg.norm_eps), sp["mlp"]))
 
 
 # ---------------------------------------------------------------------------
@@ -286,10 +305,27 @@ def _shared_attn(cfg: ModelConfig, x, sp, positions, kv_chunk, kernels):
 # ---------------------------------------------------------------------------
 
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` by ``F.embedding``, not indexing: DTensor's
+    embedding rules take a vocab-sharded table in the forward and the
+    backward (torch 2.11's index rules fail on the indexing route's
+    backward, and on tokens split over two mesh axes).  A sharded lookup is
+    a masked partial sum, which DTensor reduces only once and only on its
+    own layout: it is reduced here, before anything reads or reshards it.
+    A table split along D as well (FSDP over the data axes) is gathered
+    along D first, FSDP's gather (torch 2.11's embedding backward cannot
+    take the split)."""
+    x = F.embedding(tokens, whole_along(table, 1))
+    if isinstance(x, DTensor):
+        x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                           for p in x.placements])
+    return x
+
+
 def embed_inputs(cfg: ModelConfig, params, batch: Mapping) -> torch.Tensor:
     """batch: {"tokens": (B,S)} and, for vlm/audio, {"prefix_embeds":
     (B, PREFIX_LEN, D)} produced by the (stubbed) modality frontend."""
-    tok = params["embed"][batch["tokens"]]
+    tok = hint(_embed(params["embed"], batch["tokens"]), "act")
     if cfg.frontend != "none":
         return torch.cat([batch["prefix_embeds"].to(tok.dtype), tok], dim=1)
     return tok
@@ -350,7 +386,13 @@ def forward_train(
     logits = hint(torch.einsum("bsd,vd->bsv", seq_whole(h), params["embed"]).float(), "logits")
     labels = batch["labels"]
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(whole_along(logits, -1), -1, labels[..., None].long())[..., 0]
+    # the label's logit as a masked sum over the vocabulary (one term is not
+    # zero, so the sum is that logit exactly): on vocab-sharded logits each
+    # rank sums its own columns.  A gather's backward would allocate a zero
+    # gradient of the global logits on every rank of a sharded run.
+    hit = hint(labels[..., None].long() == torch.arange(logits.shape[-1], device=logits.device),
+               "logits")
+    gold = torch.where(hit, logits, 0.0).sum(-1)
     mask = batch.get("loss_mask")
     nll = logz - gold
     if mask is not None:
@@ -400,10 +442,9 @@ def init_kv_cache(
 
 
 def _proj_qkv(cfg: ModelConfig, x, ap, pos):
-    b = x.shape[0]
-    q = (x @ ap["wq"]).reshape(b, -1, cfg.n_heads, cfg.head_dim)
-    k = (x @ ap["wk"]).reshape(b, -1, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ ap["wv"]).reshape(b, -1, cfg.n_kv_heads, cfg.head_dim)
+    q = split_heads(x @ ap["wq"], cfg.n_heads, cfg.head_dim)
+    k = split_heads(x @ ap["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(x @ ap["wv"], cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm and "q_norm" in ap:
         q = rms_norm(q, ap["q_norm"], cfg.norm_eps)
         k = rms_norm(k, ap["k_norm"], cfg.norm_eps)
@@ -436,7 +477,7 @@ def decode_step(
     (in place, as the JAX model updates its donated buffer), and the SSM
     states and conv tails likewise.  Decode launches no hand-written kernel
     (the JAX model's decode reaches no Pallas kernel)."""
-    x = params["embed"][tokens][:, None, :]                          # (B, 1, D)
+    x = _embed(params["embed"], tokens[:, None])                       # (B, 1, D)
     _check_kernels(kernels, x)
     posv = torch.tensor([pos], device=x.device)
 
@@ -446,7 +487,7 @@ def decode_step(
             hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
             o, kn, vn = _decode_attn(cfg, hn, lp["attn"], cache["k"][i], cache["v"][i],
                                      pos, posv, _window_for_layer(cfg, i))
-            h = x + o
+            h = _residual(x, o)
             hn2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
             if "moe" in lp:
                 y, _ = moe_block(
@@ -457,7 +498,7 @@ def decode_step(
                     y = y + swiglu_mlp(hn2, lp["shared_mlp"])
             else:
                 y = swiglu_mlp(hn2, lp["mlp"])
-            x = h + y
+            x = _residual(h, y)
             ks.append(kn)
             vs.append(vn)
         write_region(cache["k"], torch.stack(ks), {3: pos})
@@ -476,15 +517,15 @@ def decode_step(
                 d_inner=cfg.d_inner, ssm_heads=cfg.ssm_heads, ssm_head_dim=cfg.ssm_head_dim,
                 ssm_state=cfg.ssm_state, conv_width=cfg.conv_width,
             )
-            x = x + y
+            x = _residual(x, y)
             states.append(st)
             if cfg.family == "hybrid" and i % every == every - 1:
                 app = i // every
                 hn2 = rms_norm(x, sp["ln"], cfg.norm_eps)
                 o, kn, vn = _decode_attn(cfg, hn2, sp["attn"], cache["shared_k"][app],
                                          cache["shared_v"][app], pos, posv, None)
-                x = x + o
-                x = x + swiglu_mlp(rms_norm(x, sp["ln2"], cfg.norm_eps), sp["mlp"])
+                x = _residual(x, o)
+                x = _residual(x, swiglu_mlp(rms_norm(x, sp["ln2"], cfg.norm_eps), sp["mlp"]))
                 shared[app] = (kn, vn)
         for name, key in (("ssm_h", "h"), ("conv_x", "conv_x"), ("conv_b", "conv_b"),
                           ("conv_c", "conv_c")):

@@ -31,7 +31,7 @@ from repro_torch.distributed.context import hint, seq_whole
 from repro_torch.distributed.sharding import P, placements
 from repro_torch.kernels import ops
 
-from .layers import ROUTES
+from .layers import ROUTES, split_heads
 
 # SSD chunk length: intra-chunk cost grows with L, carried-state passes
 # shrink with L
@@ -157,8 +157,7 @@ def mamba2_block(
     cm, _ = causal_conv1d(cm, p["conv_c"])
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     a = -torch.exp(p["a_log"].float())                                     # (H,)
-    xh = xs.reshape(b, s, ssm_heads, ssm_head_dim)
-    xh = hint(xh, "ssm_heads")
+    xh = hint(split_heads(xs, ssm_heads, ssm_head_dim), "ssm_heads")
     y = _ssd_rows(xh, dt, a, bm, cm, kernels, min(chunk, s))
     y = hint(y, "ssm_heads")
     y = y.float() + p["d_skip"].float()[None, None, :, None] * xh.float()

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
-from repro_torch.distributed.context import sharding_context
+from repro_torch.distributed.context import sharding_context, whole_along
 from repro_torch.distributed.sharding import P, axis_sizes, placements
 from repro_torch.models import decode_step, init_kv_cache
 from repro_torch.models.config import ModelConfig
@@ -83,7 +83,9 @@ def make_serve_step(cfg: ModelConfig, greedy: bool = True, *, kernels: str = "cu
 
     def serve_step(params, cache, tokens, pos):
         logits, cache = decode_step(cfg, params, cache, tokens, pos, kernels=kernels)
-        nxt = torch.argmax(logits, dim=-1)
+        # the vocabulary whole first: DTensor's argmax over a sharded dim
+        # gathers wrongly for a batch of one (torch 2.13)
+        nxt = torch.argmax(whole_along(logits, -1), dim=-1)
         return (nxt.full_tensor() if isinstance(nxt, DTensor) else nxt), cache
 
     return serve_step

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import forward_train
 from repro_torch.models.config import ModelConfig
@@ -63,6 +64,14 @@ def microbatch_grads(
     return loss.detach(), list(grads)
 
 
+def _rows(t: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """Rows ``start:stop`` of a batch array, a DTensor's laid out as the
+    batch is (a slice of a batch-sharded dim comes back replicated: every
+    rank would run the whole microbatch)."""
+    rows = t[start:stop]
+    return rows.redistribute(t.device_mesh, t.placements) if isinstance(t, DTensor) else rows
+
+
 def batch_grads(
     cfg: ModelConfig, params: Mapping, batch: Mapping, *, microbatches: int = 1,
     kv_chunk: int = 512, remat: bool = True, comm_dtype: Optional[torch.dtype] = None,
@@ -88,7 +97,7 @@ def batch_grads(
     acc = None
     loss_sum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
     for i in range(microbatches):
-        mb = {k: v[i * mbs : (i + 1) * mbs] for k, v in batch.items()}
+        mb = {k: _rows(v, i * mbs, (i + 1) * mbs) for k, v in batch.items()}
         loss, grads = microbatch_grads(cfg, params, mb, kv_chunk=kv_chunk, remat=remat,
                                        kernels=kernels)
         if comm_dtype is not None:

@@ -27,7 +27,7 @@ import pytest
 from repro.configs import get_config as jax_get_config
 from repro.models import model as jm
 from torch_dist_cases import JAX_TOL, SHARD_TOL, check_model, close, flat, models_case, run_worker
-from torch_dist_worker import B, S, TRAIN_ARCH, TRAIN_OVER
+from torch_dist_worker import B, MOE_ARCH, S, TRAIN_ARCH, TRAIN_OVER
 
 pytestmark = pytest.mark.torch
 
@@ -61,6 +61,41 @@ def train_and_restore(tmp_path_factory):
     trained = run_worker("train", root, inputs)
     restored = run_worker("restore", root, {"unused": np.zeros(1)})
     return trained, restored
+
+
+@pytest.fixture(scope="module")
+def moe_step(tmp_path_factory):
+    """Reduced dbrx's parameters and two seeded batches of two microbatches
+    of B rows: S 24 (48 tokens, one MoE group, whole on both data ranks)
+    and S 512 (two groups of 512, one on each data rank)."""
+    cfg = jax_get_config(MOE_ARCH).reduced()
+    params = jm.init_params(cfg, jax.random.PRNGKey(5), dtype=jnp.float32)
+    rng = np.random.default_rng(6)
+    inputs = flat(params, "params")
+    for tag, s in (("batch", S), ("batch-long", 512)):
+        for k in ("tokens", "labels"):
+            inputs[f"{tag}/{k}"] = rng.integers(0, cfg.vocab, (2 * B, s)).astype(np.int64)
+    return run_worker("train-moe", tmp_path_factory.mktemp("train-moe"), inputs)
+
+
+@pytest.mark.parametrize("batch", ["batch", "batch-long"])
+@pytest.mark.parametrize("tree,tol", [("loss", SHARD_TOL), ("grad_norm", SHARD_TOL),
+                                      ("params", JAX_TOL), ("m", SHARD_TOL)])
+def test_moe_zero_step_under_expert_parallelism_matches_unsharded(moe_step, batch, tree, tol):
+    """Reduced dbrx's step on 2x2 ranks, its 4 experts over the 2 model
+    ranks: the expert pass runs on each rank's own experts and each
+    gradient is summed over the ranks that did not compute it
+    (``moe._on_local_experts``), whether the tokens are whole on the data
+    ranks or split over them; the same tolerances as the dense step."""
+    out = _leaves(moe_step, batch)
+    assert str(out["strategy"]) == "heads/ep"
+    if tree in ("loss", "grad_norm"):
+        close(out[tree], out[f"{tree}_unsharded"], tol)
+        return
+    got, want = _leaves(out, tree), _leaves(out, f"{tree}_unsharded")
+    assert sorted(got) == sorted(want) and any("moe" in k for k in got)
+    for k in got:
+        close(got[k], want[k], tol)
 
 
 def _leaves(out, prefix):

@@ -46,7 +46,9 @@ def test_port_backend_import_leaves_jax_unloaded():
         "repro_torch.train.fault, repro_torch.serve.engine, repro_torch.launch.train, "
         "repro_torch.launch.serve, repro_torch.kernels.grad, repro_torch.distributed, "
         "repro_torch.distributed.ring_attention, repro_torch.distributed.pipeline, "
-        "repro_torch.launch.mesh; "
+        "repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.roofline, "
+        "repro_torch.roofline.analysis, repro_torch.roofline.dispatch_cost, "
+        "repro_torch.roofline.kernel_cost; "
         "from repro_torch.configs import all_configs; all_configs(); "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"

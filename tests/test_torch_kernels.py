@@ -631,15 +631,16 @@ def test_flash_attention_wgmma_shared_memory(host_wgmma_tile):
                        (8, 80, 128, 64)], torch.float32, 256, 0.0753, "operations"),
 ])
 def test_chip_smoke_bounds(name, shapes, dtype, chunk, bound_ms, by):
-    """``chip_smoke.kernel_work`` gives each phase-7 configuration the bound
-    that PERF.md reports (shapes on the meta device: nothing is allocated)."""
-    import importlib.util
+    """``kernel_work`` (``repro_torch.roofline.kernel_cost``, which
+    ``chip_smoke.py`` reads) gives each phase-7 configuration the bound that
+    PERF.md reports (shapes on the meta device: nothing is allocated)."""
     from pathlib import Path
 
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    from repro_torch.roofline.analysis import HBM_BW
+    from repro_torch.roofline.kernel_cost import kernel_work
+
+    smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    assert "from repro_torch.roofline.kernel_cost import kernel_work" in smoke
     # the stencil's weights and the SSD operands after x are f32 whatever x's dtype
     f32_after_x = name.startswith(("ssd_", "stencil"))
     args = [torch.empty(sh, dtype=dtype if i == 0 or not f32_after_x else torch.float32,
@@ -649,8 +650,8 @@ def test_chip_smoke_bounds(name, shapes, dtype, chunk, bound_ms, by):
     else:
         out_shape = {"stencil3x3": (1080, 1920), "matmul": (shapes[0][0], shapes[1][1]),
                      "ssd_gram": (8, 256, 256), "ssd_chunk_state": (8, 80, 128, 64)}.get(name, shapes[0])
-    nbytes, ops_, peak = smoke.kernel_work(name, args, torch.empty(out_shape, dtype=dtype, device="meta"), chunk)
-    t_bytes, t_ops = 1e3 * nbytes / smoke.PEAK_BYTES_PER_S, 1e3 * ops_ / peak
+    nbytes, ops_, peak = kernel_work(name, args, torch.empty(out_shape, dtype=dtype, device="meta"), chunk)
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BW, 1e3 * ops_ / peak
     assert ("bytes" if t_bytes >= t_ops else "operations") == by
     assert max(t_bytes, t_ops) == pytest.approx(bound_ms, rel=0.02)
 

@@ -33,6 +33,7 @@ CASES = {
     "models-2x2": ((2, 2), ("data", "model")),
     "models-1x3": ((1, 3), ("data", "model")),
     "train": ((2, 2), ("data", "model")),
+    "train-moe": ((2, 2), ("data", "model")),
     "restore": ((1, 3), ("data", "model")),
 }
 # the reduced models of each models case: (label, arch, attention impl,
@@ -54,6 +55,9 @@ KV_CHUNK = 8
 # the step's model: reduced tinyllama with a d_ff that both meshes divide,
 # so the 1x3 restore really re-shards the MLP weights
 TRAIN_ARCH, TRAIN_OVER, TRAIN_MICRO = "tinyllama_1_1b", {"d_ff": 96}, 2
+# the MoE step: reduced dbrx, its 4 experts over the 2 model ranks (``ep``:
+# the expert pass on each rank's own experts, ``moe._on_local_experts``)
+MOE_ARCH = "dbrx_132b"
 
 
 def tree_from_flat(flat, prefix):
@@ -143,19 +147,20 @@ def case_models(mesh, ins, out, runs):
         out[f"{label}/routes"] = np.array(",".join(f"{k}={n}" for k, n in sorted(routes.items())))
 
 
-def case_train(mesh, ins, out, root):
-    from repro_torch.configs import get_config
+def _zero_step(mesh, ins, out, cfg, tag="batch", prefix=""):
+    """One AdamW step on the batch under ``tag`` with ZeRO gradient layouts
+    against the unsharded step on the same values; writes both's metrics,
+    parameters and first moments (keys after ``prefix``); returns (plan,
+    the sharded state, its gradient layouts, the gathered parameters)."""
     from repro_torch.distributed import make_plan, param_shardings
     from repro_torch.distributed.context import sharding_context
     from repro_torch.distributed.sharding import (
         distribute_batch, distribute_tree, gather_tree, zero_shardings,
     )
     from repro_torch.train import AdamWConfig, TrainState, adamw_init, make_train_step
-    from repro_torch.train.checkpoint import save_checkpoint
 
-    cfg = get_config(TRAIN_ARCH).reduced(**TRAIN_OVER)
     params = tree_from_flat(ins, "params")
-    batch = _batch(ins, "batch")
+    batch = _batch(ins, tag)
     opt_cfg = AdamWConfig(lr=1e-2, warmup_steps=1)
     plan = make_plan(cfg, mesh)
     psh = param_shardings(plan, params)
@@ -170,13 +175,35 @@ def case_train(mesh, ins, out, root):
         new, met = step(state, distribute_batch(plan, batch))
     want, met_u = plain(TrainState(params, adamw_init(params), torch.Generator()), batch)
     full = gather_tree(new.params)
-    out.update(flat_from_tree(full, "params"))
-    out.update(flat_from_tree(gather_tree(new.opt["m"]), "m"))
-    out.update(flat_from_tree(want.params, "params_unsharded"))
-    out.update(flat_from_tree(want.opt["m"], "m_unsharded"))
-    out["loss"], out["grad_norm"] = _full(met["loss"]).numpy(), _full(met["grad_norm"]).numpy()
-    out["loss_unsharded"] = met_u["loss"].numpy()
-    out["grad_norm_unsharded"] = met_u["grad_norm"].numpy()
+    out.update(flat_from_tree(full, prefix + "params"))
+    out.update(flat_from_tree(gather_tree(new.opt["m"]), prefix + "m"))
+    out.update(flat_from_tree(want.params, prefix + "params_unsharded"))
+    out.update(flat_from_tree(want.opt["m"], prefix + "m_unsharded"))
+    out[prefix + "loss"] = _full(met["loss"]).numpy()
+    out[prefix + "grad_norm"] = _full(met["grad_norm"]).numpy()
+    out[prefix + "loss_unsharded"] = met_u["loss"].numpy()
+    out[prefix + "grad_norm_unsharded"] = met_u["grad_norm"].numpy()
+    out[prefix + "strategy"] = np.array(f"{plan.attn_strategy}/{plan.moe_strategy}")
+    return plan, new, gsh, full
+
+
+def case_train_moe(mesh, ins, out):
+    """The MoE step on two batches: ``batch`` (a microbatch is one token
+    group, whole on every data rank) and ``batch-long`` (two groups a
+    microbatch, one on each data rank)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH).reduced()
+    for tag in ("batch", "batch-long"):
+        _zero_step(mesh, ins, out, cfg, tag, prefix=f"{tag}/")
+
+
+def case_train(mesh, ins, out, root):
+    from repro_torch.configs import get_config
+    from repro_torch.train.checkpoint import save_checkpoint
+
+    cfg = get_config(TRAIN_ARCH).reduced(**TRAIN_OVER)
+    plan, new, gsh, full = _zero_step(mesh, ins, out, cfg)
     # the ZeRO layouts of the moments follow their parameters'; the
     # accumulator's are the data split on top (spot-checked on one leaf)
     wq = new.opt["m"]["layers"]["attn"]["wq"]
@@ -245,6 +272,8 @@ def _rank(rank, world, case, root):
             case_models(mesh, ins, out, MODEL_RUNS[case])
         elif case == "train":
             case_train(mesh, ins, out, root)
+        elif case == "train-moe":
+            case_train_moe(mesh, ins, out)
         else:
             case_restore(mesh, ins, out, root)
         if rank == 0:
