@@ -197,9 +197,30 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    data-sheet constants) printed beside phase 10's measured ms, its
    argument bytes exactly its parameters' and tokens'; then
    ``DRYRUN_CELL`` (qwen3-14b ``train_4k``) at full size on a fake (16, 16)
-   world through the CLI, its compute term at least 6 x active parameters x
-   tokens over the ranks and the bf16 peak, the fit test against this
-   card's memory.
+   world and on a fake (2, 16, 16) world (the batch over (pod, data))
+   through the CLI, each compute term at least 6 x active parameters x
+   tokens over the ranks and the bf16 peak, each fitting this card's
+   memory (the (2, 16, 16) cell's vocab-parallel loss keeps its logits
+   gradient on the rank's own rows and columns).
+
+14. examples: the three ``repro_torch.examples`` scripts through their
+   ``main`` on the card, each with the launch counts zeroed just before and
+   read just after.  ``serve_demo`` as the JAX script sizes it (reduced
+   tinyllama, 4 slots, 4 prompts of 8, 24 new tokens, no hand-written
+   launch; then the four failure paths on gaussian 13 at batch 4 through
+   the generated kernel, each failing closed by name, the healthy tiles
+   bit for bit with the per-tile pipeline and with the plain version).
+   ``train_lm`` on llama-100m for its default 150 steps (batch 4, seq 128,
+   2 microbatches, remat): 48 ``flash_attention`` launches a step (12
+   layers x 2 microbatches x the forward and remat's recompute), the loss
+   trajectory and tok/s, the loss falling (``LEARNING``); the first step's
+   loss and gradients held against ``kernels="eager"`` microbatch by
+   microbatch (phase 11's ``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_TOL``), that
+   step split as phase 11 splits it.
+   ``schedule_explorer`` measured on its default apps (harris, unsharp,
+   matmul) into a temporary db: every measured candidate's run launches
+   the generated kernel, each winner no slower than the heuristic, one
+   row each of mode ``cuda`` and this card's name.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -2143,9 +2164,9 @@ def dryrun_phase(rows) -> None:
     fake (1, 1) world, its modelled terms (H100 data-sheet constants)
     printed beside phase 10's measured ms, its argument bytes exactly its
     parameters' and tokens', 22 attention kernels charged; (2) one
-    production cell at full size on the fake (16, 16) world through the
-    CLI, its compute term at least 6 x active parameters x tokens over the
-    ranks and the bf16 peak.  The fit test reads the card's own memory."""
+    production cell at full size on the fake (16, 16) and (2, 16, 16)
+    worlds through the CLI (``_dryrun_cell``).  The fit test reads the
+    card's own memory."""
     import os
 
     import torch
@@ -2182,26 +2203,37 @@ def dryrun_phase(rows) -> None:
         f"phase 10 measured {measured[0]:.3f} ms on this card: {measured[0] / bound_ms:.2f}x the "
         f"modelled bound, useful compute {useful_ms:.3f} ms = {useful_ms / measured[0]:.3f} of it")
     arch, shape = DRYRUN_CELL
+    for multi_pod in (False, True):
+        _dryrun_cell(arch, shape, multi_pod, env)
+
+
+def _dryrun_cell(arch, shape, multi_pod, env) -> None:
+    """One production cell at full size through the dry run's CLI, on the
+    fake (16, 16) world or, ``multi_pod``, the (2, 16, 16) one: its compute
+    term at least 6 x active parameters x tokens over the ranks and the
+    bf16 peak, and its peak within this card's memory."""
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                          "--shape", shape, "--force"], capture_output=True, text=True,
-                         timeout=600, env=env, cwd=ROOT)
+                          "--shape", shape, "--force"] + (["--multi-pod"] if multi_pod else []),
+                         capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
     wall = time.perf_counter() - t0
-    out = ROOT / "results" / "dryrun_torch" / f"{arch}__{shape}__sp.json"
+    world = "(2, 16, 16)" if multi_pod else "(16, 16)"
+    out = ROOT / "results" / "dryrun_torch" / f"{arch}__{shape}__{'mp' if multi_pod else 'sp'}.json"
     if res.returncode or not out.exists():
-        raise AssertionError(f"[dryrun] {arch} {shape} failed:\n{res.stdout[-2000:]}"
+        raise AssertionError(f"[dryrun] {arch} {shape} {world} failed:\n{res.stdout[-2000:]}"
                              f"{res.stderr[-3000:]}")
     rep = json.loads(out.read_text())
     if rep["status"] != "ok":
-        raise AssertionError(f"[dryrun] {arch} {shape}: {rep['status']} {rep.get('error')}")
+        raise AssertionError(f"[dryrun] {arch} {shape} {world}: {rep['status']} "
+                             f"{rep.get('error')}")
     r, mem = rep["roofline"], rep["memory"]
     # 6 x active parameters x tokens a rank over the bf16 peak: the compute
     # term's floor before remat's recompute
     floor = r["model_flops"] / rep["chips"] / PEAK_BF16_FLOPS
     if r["t_compute"] < floor:
-        raise AssertionError(f"[dryrun] {arch} {shape}: compute term {r['t_compute']} s, "
+        raise AssertionError(f"[dryrun] {arch} {shape} {world}: compute term {r['t_compute']} s, "
                              f"want at least {floor:.4f} s")
-    log(f"[dryrun] {arch} {shape} at full size, fake (16, 16) world, torch {rep['torch']} "
+    log(f"[dryrun] {arch} {shape} at full size, fake {world} world, torch {rep['torch']} "
         f"(modelled, data-sheet peaks): compute {r['t_compute']:.4f} s (floor "
         f"{floor:.4f}), memory {r['t_memory']:.4f} s, collective "
         f"{r['t_collective']:.4f} s, {r['dominant']}-bound; FLOPs {r['flops_by_unit']}, "
@@ -2209,6 +2241,163 @@ def dryrun_phase(rows) -> None:
         f"per rank {mem['peak_gb_per_chip']} GB, fits {mem['fits_80gb']} against "
         f"{mem['budget_bytes']} B of {mem['budget_of']}; microbatches {rep['microbatches']}, "
         f"trace {rep['trace_s']} s, wall {wall:.1f} s")
+    if not mem["fits_80gb"]:
+        raise AssertionError(f"[dryrun] {arch} {shape} {world}: {mem['peak_gb_per_chip']} GB a "
+                             f"rank does not fit {mem['budget_bytes']} B")
+
+
+# phase 14's examples: train_lm at its defaults (llama-100m, batch 4, seq
+# 128, 2 microbatches, the JAX script's 150 steps)
+EXAMPLE_STEPS = 150
+EXAMPLE_LOSS_EVERY = 10
+
+
+def examples_phase(rows, kind: str) -> None:
+    """Phase 14: the three ``repro_torch.examples`` scripts through their
+    ``main`` on the card (see the module docstring), each with every
+    launch count zeroed just before it runs and read just after."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.apps.paper_apps import make_app
+    from repro_torch.backend import compile_pipeline
+    from repro_torch.backend.runner import clear_pipeline_cache
+    from repro_torch.examples import schedule_explorer, serve_demo, train_lm
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import init_params
+    from repro_torch.models.model import param_count
+    from repro_torch.train import DataPipeline, adamw_init, adamw_update
+    from repro_torch.train.train_step import batch_grads
+
+    def zero_counts():
+        for k in KERNELS.values():
+            k.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {name: k.launches for name, k in KERNELS.items() if k.launches}
+
+    # -- serve_demo: decoding, then the serve bridge's failure paths ----------
+    clear_pipeline_cache()            # the failure paths' kernels start at 0 launches
+    zero_counts()
+    t0 = time.perf_counter()
+    res = serve_demo.main([])
+    wall = time.perf_counter() - t0
+    launches = counts()
+    serve, faults = res["serve"], res["faults"]
+    srv, ref = faults["server"], faults["ref"]
+    served = {k.name: k.launches for k in srv.pipeline.kernels}
+    per_tile = {k.name: k.launches for k in ref.kernels}
+    app = make_app("gaussian", size=13)
+    plain = compile_pipeline(app.pipeline, block_h=4, kernels="eager")
+    name = app.pipeline.output
+    vs_plain = all(np.array_equal(r.outputs[name], plain.run(t)[name].cpu().numpy())
+                   for r, t in zip(faults["healthy"], (faults["tiles"][0], faults["tiles"][2])))
+    codes = {k: e.code for k, e in faults["errors"].items()}
+    s = faults["stats"]
+    ok = (serve["deterministic"] and serve["tokens"] == 4 * serve_demo.MAX_NEW and not launches
+          and faults["exact"] and vs_plain and len(codes) == 4 and all(served.values())
+          and sum(per_tile.values()) == 2
+          and (s["poisoned_tiles"], s["deadline_misses"], s["served"], s["failed"]) == (1, 1, 7, 2))
+    log(f"[examples] serve_demo: {serve['tokens']} greedy tokens in {serve['s']:.3f} s "
+        f"({serve['tokens'] / serve['s']:.1f} tok/s, host clock, as the script times it), "
+        f"deterministic {serve['deterministic']}, hand-written launches {launches or 'none'}; "
+        f"failure paths on gaussian 13 at batch 4: {codes}; counters poisoned "
+        f"{s['poisoned_tiles']} deadline {s['deadline_misses']} rejected "
+        f"{s['validation_rejects']}+{s['backpressure_rejects']} served {s['served']} failed "
+        f"{s['failed']}, dispatches {s['dispatches']}; generated-kernel launches {served} "
+        f"served, {per_tile} per tile; healthy tiles bit for bit with the per-tile pipeline "
+        f"{faults['exact']} and with the plain version {vs_plain}; wall {wall:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[examples] serve_demo failed its checks")
+    key = next(k for k in rows if k.startswith("gaussian/"))
+    rows[key].setdefault("example_launches", {})["serve_demo failure paths (gaussian 13, batch "
+                                                  "4)"] = sum(served.values())
+
+    # -- train_lm: the first step held against eager, then the 150 steps ------
+    cfg = train_lm.config()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.float32, "cuda")
+    data = DataPipeline(cfg.vocab, 4, 128, seed=0)
+    batch = to_device(next(data), torch.device("cuda"))
+    data.close()
+    split = _held_against_eager("llama-100m f32 (train_lm's first step)", cfg, params, batch,
+                                train_lm.MICROBATCHES, train_lm.KV_CHUNK)
+    _, grads = batch_grads(cfg, params, batch, microbatches=train_lm.MICROBATCHES,
+                           kv_chunk=train_lm.KV_CHUNK)
+    opt_state = adamw_init(params)
+    _, opt_ms = _events_ms(lambda: adamw_update(train_lm.OPT, params, grads, opt_state))
+    mb_rows = batch["tokens"].shape[0] // train_lm.MICROBATCHES
+    attn_ms, _ = _plain_backward_ms(
+        flash_attention_plain, [(mb_rows * cfg.n_heads, 128, cfg.head_dim)] * 3, {"causal": True})
+    n_attn = cfg.n_layers * train_lm.MICROBATCHES
+    fb, fw = sum(split["fwd_bwd_ms"]), sum(split["fwd_ms"])
+    log(f"[examples] train_lm llama-100m first step split (CUDA events): forward+backward "
+        f"{' + '.join(f'{m:.1f}' for m in split['fwd_bwd_ms'])} ms (the microbatches), of which "
+        f"forward alone {' + '.join(f'{m:.1f}' for m in split['fwd_ms'])} ms and backward "
+        f"{fb - fw:.1f} ms (remat's recompute among it); the attention Function's plain "
+        f"backward {attn_ms:.2f} ms a call (B·H {mb_rows * cfg.n_heads}, S 128, D "
+        f"{cfg.head_dim}) x {n_attn} = {attn_ms * n_attn:.1f} ms; optimizer {opt_ms:.1f} ms")
+    n_body = param_count(params) - cfg.vocab * cfg.d_model
+    del params, batch, grads, opt_state
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = train_lm.main(["--steps", str(EXAMPLE_STEPS)])
+    wall = time.perf_counter() - t0
+    launches = counts()
+    per_step = 2 * cfg.n_layers * train_lm.MICROBATCHES
+    want = {"flash_attention": per_step * EXAMPLE_STEPS}
+    losses = res["losses"]
+    step_ms = 1e3 * res["wall_s"] / EXAMPLE_STEPS
+    flop_bound = 1e3 * 8 * n_body * 4 * 128 / PEAK_F32_FLOPS
+    ok = (launches == want and res["verdict"] == "LEARNING"
+          and all(math.isfinite(x) for x in losses) and len(losses) == EXAMPLE_STEPS)
+    log(f"[examples] train_lm llama-100m f32, {EXAMPLE_STEPS} steps of batch 4 x seq 128, "
+        f"{train_lm.MICROBATCHES} microbatches, remat: loss every {EXAMPLE_LOSS_EVERY} steps "
+        f"{[round(x, 4) for x in losses[::EXAMPLE_LOSS_EVERY]]}, last {losses[-1]!r}; "
+        f"first 10 {res['first']:.4f} -> last 10 {res['last']:.4f} ({res['verdict']}); "
+        f"{res['tok_s']:.0f} tok/s, {step_ms:.2f} ms a step (host clock over the run, each "
+        f"step ending in the loss's read); FLOP bound {flop_bound:.3f} ms a step (8 x {n_body} "
+        f"non-embedding parameters x 512 tokens over {PEAK_F32_FLOPS / 1e12:g} TFLOP/s), "
+        f"{step_ms / flop_bound:.1f}x it; launches {launches} (expected {want}: {per_step} a "
+        f"step, {cfg.n_layers} layers x {train_lm.MICROBATCHES} microbatches x the forward and "
+        f"remat's recompute); wall {wall:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[examples] train_lm failed its checks")
+    rows["flash_attention/tinyllama-prefill/f32"].setdefault("example_launches", {})[
+        "train_lm llama-100m step"] = launches["flash_attention"] // EXAMPLE_STEPS
+    rows["flash_attention/tinyllama-prefill/f32"]["example_step_ms"] = step_ms
+    del res
+    torch.cuda.empty_cache()
+
+    # -- schedule_explorer: measured on its default apps into a temporary db ---
+    with tempfile.TemporaryDirectory() as tmp:
+        db = Path(tmp) / "schedule_db_torch.json"
+        t0 = time.perf_counter()
+        res = schedule_explorer.main(["--db", str(db)])
+        wall = time.perf_counter() - t0
+        entries = json.loads(db.read_text())["entries"]
+    ok = res["rc"] == 0 and len(entries) == len(res["results"]) == 3 and all(
+        e["mode"] == "cuda" and e["device"] == kind for e in entries.values())
+    for app_name, r in res["results"].items():
+        good = all(c.launches for c in r.measured) and r.warm_us <= r.heuristic_warm_us
+        ok = ok and good
+        log(f"[examples] schedule_explorer {app_name}: {len(r.candidates)} candidates, "
+            f"{len(r.measured)} measured (launches a run {[c.launches for c in r.measured]}), "
+            f"{len(r.rejected)} rejected; winner {r.schedule or '{heuristic}'} {r.warm_us:.1f} us "
+            f"against the heuristic's {r.heuristic_warm_us:.1f} us (CUDA events, median of 3), "
+            f"{r.speedup:.3f}x; nvcc batch {r.build_s:.1f} s {'ok' if good else 'FAIL'}")
+    log(f"[examples] schedule_explorer: {len(entries)} rows in the temporary db, modes "
+        f"{sorted({e['mode'] for e in entries.values()})}, devices "
+        f"{sorted({e['device'] for e in entries.values()})}; wall {wall:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[examples] schedule_explorer failed its checks")
 
 
 def main() -> int:
@@ -2264,6 +2453,9 @@ def main() -> int:
     for pipe, ckw in configs:
         plan = build_pipeline_plan(pipe, vmem_budget=H100_SMEM_PER_BLOCK, **ckw)
         sources.append(emit_library([LoweredGroup(kg) for kg in plan.kernels]))
+    # phase 14's serve_demo: gaussian 13 served at batch 4 and per tile, block_h 4
+    for ckw in ({"block_h": 4, "batch": 4, "batch_capacity": 4}, {"block_h": 4}):
+        configs.append((make_app("gaussian", size=13).pipeline, ckw))
     # phase 8's compile_stage group (planned here; its plain version lowers it)
     staged = compile_stage(*stage_of(full_apps["gaussian"].pipeline), device="cpu", kernels="eager")
     sources.append(emit_library([staged.lg]))
@@ -2527,6 +2719,11 @@ def main() -> int:
     t0 = time.perf_counter()
     dryrun_phase(rows)
     log(f"[dryrun] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # -- 14. examples: serve_demo, train_lm, schedule_explorer on the card -------
+    t0 = time.perf_counter()
+    examples_phase(rows, kind)
+    log(f"[examples] phase wall {time.perf_counter() - t0:.1f} s")
 
     # every variant of the generated kernel, with the configurations that
     # launched it at full size and its largest difference from the plain version

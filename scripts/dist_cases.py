@@ -13,7 +13,9 @@ them:
     python scripts/dist_cases.py check DIR OUT              # needs JAX
 
 ``write`` puts ``DIR/<case>/inputs.npz`` and the JAX references
-``DIR/<case>/refs.npz`` there (cases ``models-2x2`` and ``train``).
+``DIR/<case>/refs.npz`` there (cases ``models-2x2``, ``train``,
+``train-moe`` and ``multipod``, the (2, 2, 2) world of 8 ranks, whose
+references are the JAX losses).
 ``run`` runs each case's gloo ranks with the rendezvous store under a fresh
 directory of the system's temporary directory (a store under a copied
 tree has hung every case on the GPU machine) and copies rank 0's
@@ -39,7 +41,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-CASES = ("models-2x2", "train", "train-moe")
+CASES = ("models-2x2", "train", "train-moe", "multipod")
 
 
 def write(root: Path) -> None:
@@ -50,7 +52,9 @@ def write(root: Path) -> None:
     from repro.configs import get_config as jax_get_config
     from repro.models import model as jm
     from torch_dist_cases import flat, model_inputs
-    from torch_dist_worker import B, KV_CHUNK, MODEL_RUNS, MOE_ARCH, S, TRAIN_ARCH, TRAIN_OVER
+    from torch_dist_worker import (
+        B, KV_CHUNK, MODEL_RUNS, MOE_ARCH, MULTIPOD_B, MULTIPOD_RUNS, S, TRAIN_ARCH, TRAIN_OVER,
+    )
 
     inputs, refs = {}, {}
     for i, (label, arch, _impl, over) in enumerate(MODEL_RUNS["models-2x2"]):
@@ -79,6 +83,15 @@ def write(root: Path) -> None:
         for k in ("tokens", "labels"):
             inputs[f"{tag}/{k}"] = rng.integers(0, cfg.vocab, (2 * B, s)).astype(np.int64)
     _save(root / "train-moe", inputs, {})
+    # the (2, 2, 2) case's, as tests/test_torch_dryrun_multipod.py makes them
+    inputs, refs = {}, {}
+    for i, (label, arch, over) in enumerate(MULTIPOD_RUNS):
+        cfg, params, batch, ins = model_inputs(label, arch, over, 10 + i, MULTIPOD_B, S)
+        inputs.update(ins)
+        jb = {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()}
+        loss, _ = jm.forward_train(cfg, params, jb, kv_chunk=KV_CHUNK, remat=False)
+        refs[f"{label}/loss"] = np.asarray(loss)
+    _save(root / "multipod", inputs, refs)
 
 
 def _save(d: Path, inputs: dict, refs: dict) -> None:
@@ -193,6 +206,30 @@ def check(root: Path, out: Path) -> int:
     same = np.array_equal(got["decode_tokens"], got["decode_tokens_unsharded"])
     print(f"  sharded-cache decode tokens equal: {same}")
     bad += not same
+    if (out / "multipod" / "out.npz").exists():
+        from torch_dist_worker import MULTIPOD_RUNS
+
+        got = dict(np.load(out / "multipod" / "out.npz"))
+        refs = dict(np.load(root / "multipod" / "refs.npz"))
+        print("multipod ((2, 2, 2) gloo ranks, the batch over (pod, data), against the "
+              "unsharded port and JAX):")
+        for label, *_ in MULTIPOD_RUNS:
+            held(f"{label} loss vs unsharded", got[f"{label}/loss"],
+                 got[f"{label}/loss_unsharded"], SHARD_TOL)
+            held(f"{label} loss vs JAX", got[f"{label}/loss"], refs[f"{label}/loss"], JAX_TOL)
+            # each gradient leaf relative to its own largest value, as the test holds it
+            rel = {k: float(np.max(np.abs(got[k] - got[k.replace("/grad/", "/grad_unsharded/")]))
+                            / np.max(np.abs(got[k.replace("/grad/", "/grad_unsharded/")])))
+                   for k in got if k.startswith(f"{label}/grad/")}
+            worst = max(rel, key=rel.get)
+            ok = rel[worst] <= SHARD_TOL
+            bad += not ok
+            print(f"  {label} gradient (worst leaf {worst}, of its largest value): "
+                  f"{rel[worst]:.3e} (limit {SHARD_TOL:g}){'' if ok else ' FAILS'}")
+        same = np.array_equal(got["tinyllama/decode_tokens"],
+                              got["tinyllama/decode_tokens_unsharded"])
+        print(f"  tinyllama decode tokens equal: {same}")
+        bad += not same
     print("check:", "OK" if not bad else f"{bad} FAILED")
     return 1 if bad else 0
 

@@ -15,10 +15,11 @@ which they are on every rank.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 from .sharding import placements
@@ -108,23 +109,72 @@ def grad_whole_along(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _GradWholeAlong.apply(x, dim) if isinstance(x, DTensor) else x
 
 
-def reduced(x: torch.Tensor) -> torch.Tensor:
-    """A DTensor with partial sums (or maxima) as the reduced value, whole
-    on those mesh dims; anything else as it is.  For a reduction over a
-    split dim that meets a tensor of another layout: DTensor's rules in
-    torch 2.11 cannot take a split operand to the partial layout."""
-    if not isinstance(x, DTensor) or not any(p.is_partial() for p in x.placements):
-        return x
-    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
-                                          for p in x.placements])
-
-
 def seq_whole(x: torch.Tensor) -> torch.Tensor:
     """A (B, S, ...) activation whole along S (``whole_along(x, 1)``)."""
     return whole_along(x, 1)
 
 
+def batch_rows(x: DTensor) -> list:
+    """The placements of ``x``'s batch rows: split along dim 0 over the
+    mesh dims that split ``x`` there, whole on every other."""
+    return [Shard(0) if p.is_shard(0) else Replicate() for p in x.placements]
+
+
+def local_rows(t: torch.Tensor, mesh, rows: Sequence) -> torch.Tensor:
+    """This rank's part of ``t`` laid out as ``rows`` (``batch_rows``), as
+    a local tensor; a plain ``t`` is the same on every rank."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return t.redistribute(mesh, list(rows)).to_local()
+
+
+def from_local_rows(x: torch.Tensor, mesh, rows: Sequence, shape: Sequence[int]) -> DTensor:
+    """The contiguous DTensor of global ``shape`` whose part on each rank,
+    laid out as ``rows``, is that rank's ``x``."""
+    stride, n = [], 1
+    for e in reversed(shape):
+        stride.insert(0, n)
+        n *= e
+    return DTensor.from_local(x, mesh, list(rows), run_check=False,
+                              shape=tuple(shape), stride=tuple(stride))
+
+
+def _all_reduce(x: torch.Tensor, op: str, mesh, dims: Sequence[int]) -> torch.Tensor:
+    for d in dims:
+        x = funcol.all_reduce(x, op, (mesh, d))
+        if isinstance(x, funcol.AsyncCollectiveTensor):
+            x = x.wait()
+    return x
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        return _all_reduce(x, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def sum_over(x: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
+    """A local tensor summed over the ranks of ``mesh``'s dims ``dims``
+    (an all-reduce a dim; ``x`` itself for none).  Its gradient is passed
+    on as it is: the sum is whole on each of those ranks, and what follows
+    runs the same there (Megatron's reduction from the model-parallel
+    region), so each rank's own term takes the whole gradient."""
+    return _SumOver.apply(x, mesh, tuple(dims)) if dims else x
+
+
+def max_over(x: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
+    """A local tensor's maximum over the ranks of ``mesh``'s dims ``dims``,
+    with no gradient (a softmax's shift)."""
+    with torch.no_grad():
+        return _all_reduce(x.detach(), "max", mesh, dims)
+
+
 __all__ = [
-    "clear_sharding_context", "current", "grad_whole_along", "hint", "reduced", "seq_whole",
-    "set_sharding_context", "sharding_context", "whole_along",
+    "batch_rows", "clear_sharding_context", "current", "from_local_rows", "grad_whole_along",
+    "hint", "local_rows", "max_over", "seq_whole", "set_sharding_context", "sharding_context",
+    "sum_over", "whole_along",
 ]

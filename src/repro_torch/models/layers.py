@@ -28,11 +28,13 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch.distributed import context as _ctx
 from repro_torch.distributed.context import (
-    grad_whole_along, hint, reduced, seq_whole, whole_along,
+    batch_rows, from_local_rows, grad_whole_along, hint, local_rows, max_over, seq_whole,
+    sum_over, whole_along,
 )
 from repro_torch.distributed.ring_attention import ring_attention
 from repro_torch.distributed.sharding import P, dp_axes, placements
@@ -205,8 +207,10 @@ def on_local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
     heads of its own q heads), and the sequence whole, since a causal
     attention takes query row i at position i.  A ``context`` plan's q,
     sharded over S, is so gathered over ``model``: every model rank then
-    runs the whole sequence of its batch shard (replicated work).  Plain
-    tensors go to ``fn`` as they are."""
+    runs the whole sequence of its batch shard (replicated work).  Where
+    the KV heads are whole on the model ranks that split the q heads, a
+    rank's gradient of K and V is its part of a sum over those ranks.
+    Plain tensors go to ``fn`` as they are."""
     c = _ctx.current()
     if c is None or not isinstance(q, DTensor):
         return fn(q, k, v)
@@ -218,9 +222,14 @@ def on_local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
     q_pl = placements(P(lead, None, "model" if heads else None, None), c.mesh)
     kv_pl = placements(P(lead, None, "model" if heads and hkv % msize == 0 else None, None),
                        c.mesh)
+    # KV heads whole on the model ranks that split the q heads: each rank's
+    # gradient of K and V is its own q heads' part of a sum over them
+    m = list(c.plan.axes).index("model")
+    kv_grad = [Partial() if i == m and heads and hkv % msize else p
+               for i, p in enumerate(kv_pl)]
     ql = q.redistribute(c.mesh, q_pl).to_local()
-    kl = k.redistribute(c.mesh, kv_pl).to_local()
-    vl = v.redistribute(c.mesh, kv_pl).to_local()
+    kl = k.redistribute(c.mesh, kv_pl).to_local(grad_placements=kv_grad)
+    vl = v.redistribute(c.mesh, kv_pl).to_local(grad_placements=kv_grad)
     if heads and hkv % msize:
         # the KV head of each local q head (head // g), not the first ones
         hq_loc = ql.shape[2]
@@ -325,39 +334,57 @@ def decode_attention(
 ) -> torch.Tensor:
     """One query token against the cache, (B, H, S, D) layout; the current
     token's own term is merged by explicit max/sum algebra when its K/V are
-    passed apart from the cache (the cache is written after all layers)."""
+    passed apart from the cache (the cache is written after all layers).
+
+    A DTensor cache runs on each rank's own rows of the batch and its own
+    positions of the cache (flash-decoding): the token's query, K and V are
+    taken to the cache's batch layout, whole elsewhere (one token), and
+    ``_decode_local`` reduces the softmax's max, its sum of ``exp`` and the
+    weighted sum of V over the mesh dims that split the positions
+    (``model``) before they meet the token's own term.  DTensor's rules
+    would take a batch split over two mesh dims, (pod, data), to the
+    partial layout of those sums, which torch 2.11 refuses.  The output is
+    laid out as the cache's batch, whole on every other mesh dim."""
+    if not isinstance(k_cache, DTensor):
+        return _decode_local(q, k_cache, v_cache, pos, window, k_new, v_new)
+    mesh = k_cache.device_mesh
+    rows = batch_rows(k_cache)
+    sdims = [i for i, p in enumerate(k_cache.placements) if p.is_shard(2)]
+    _, offset = compute_local_shape_and_global_offset(k_cache.shape, mesh, k_cache.placements)
+    kn, vn = (None if t is None else local_rows(t, mesh, rows) for t in (k_new, v_new))
+    o = _decode_local(local_rows(q, mesh, rows), k_cache.to_local(), v_cache.to_local(), pos,
+                      window, kn, vn, mesh, sdims, offset[2])
     b, _, hq, d = q.shape
-    _, hkv, smax, _ = k_cache.shape
-    g = hq // hkv
-    # the token's heads whole (one token): the cache is split along S
-    # (flash-decoding), torch 2.11 refuses to flatten (B, Hkv) for the
-    # products with Hkv split, and the sums over S are reduced before they
-    # meet the token's own term (``reduced``)
-    qg = whole_along(q, 2).reshape(b, hkv, g, d).float()
-    if k_new is not None:
-        k_new, v_new = whole_along(k_new, 1), whole_along(v_new, 1)
+    return from_local_rows(o, mesh, rows, (b, 1, hq * d))
+
+
+def _decode_local(q, kc, vc, pos, window, k_new, v_new, mesh=None, sdims=(), start=0):
+    """``decode_attention`` on local tensors whose cache holds the positions
+    ``start ..`` of the sequence; the statistics are reduced over ``mesh``'s
+    dims ``sdims`` (none: the whole cache is here)."""
+    b, _, hq, d = q.shape
+    hkv, sl = kc.shape[1], kc.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
     scale = 1.0 / (d ** 0.5)
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * scale   # (B,Hkv,G,Smax)
-    k_pos = torch.arange(smax, device=q.device)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, kc.float()) * scale        # (B,Hkv,G,S)
+    k_pos = start + torch.arange(sl, device=kc.device)
     mask = k_pos < pos if k_new is not None else k_pos <= pos
     if window is not None:
         mask = mask & (pos - k_pos < window)
-    s = torch.where(mask[None, None, None, :], s, torch.tensor(NEG_INF, device=q.device))
-    if k_new is None:
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhgs,bhsd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
-    else:
+    s = torch.where(mask[None, None, None, :], s, torch.tensor(NEG_INF, device=kc.device))
+    m = max_over(s.amax(dim=-1, keepdim=True), mesh, sdims)
+    if k_new is not None:
         s_self = torch.einsum("bhgd,bhsd->bhgs", qg, k_new.float()) * scale   # (B,Hkv,G,1)
-        m = torch.maximum(reduced(s.amax(dim=-1, keepdim=True)), s_self)
-        p = torch.exp(s - m)
+        m = torch.maximum(m, s_self)
+    p = torch.exp(s - m)
+    denom = sum_over(p.sum(dim=-1, keepdim=True), mesh, sdims)
+    acc = sum_over(torch.einsum("bhgs,bhsd->bhgd", p.to(vc.dtype).float(), vc.float()),
+                   mesh, sdims)
+    if k_new is not None:
         p_self = torch.exp(s_self - m)
-        denom = reduced(p.sum(dim=-1, keepdim=True)) + p_self
-        o = (
-            reduced(torch.einsum("bhgs,bhsd->bhgd", p.to(v_cache.dtype).float(),
-                                 v_cache.float()))
-            + p_self * v_new.float()
-        ) / denom
-    return _heads_divide(o, 1, hkv).reshape(b, 1, hq * d).to(q.dtype)
+        denom = denom + p_self
+        acc = acc + p_self * v_new.float()
+    return (acc / denom).reshape(b, 1, hq * d).to(q.dtype)
 
 
 __all__ = [

@@ -46,8 +46,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
-from repro_torch.distributed.context import hint, seq_whole, whole_along
+from repro_torch.distributed.context import (
+    batch_rows, from_local_rows, hint, local_rows, max_over, seq_whole, sum_over, whole_along,
+)
 from repro_torch.distributed.sharding import write_region
 from repro_torch.kernels.ops import to_tensor
 
@@ -368,6 +371,48 @@ def _backbone(
     return x, aux
 
 
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's ``logsumexp(logits) - logits[label]``, (B, S).
+
+    The label's logit is a masked sum over the vocabulary (one term is not
+    zero, so the sum is that logit exactly).  DTensor logits go to
+    ``_vocab_parallel_nll``."""
+    if isinstance(logits, DTensor):
+        return _vocab_parallel_nll(logits, labels)
+    logz = torch.logsumexp(logits, dim=-1)
+    hit = labels[..., None].long() == torch.arange(logits.shape[-1], device=logits.device)
+    return logz - torch.where(hit, logits, 0.0).sum(-1)
+
+
+def _vocab_parallel_nll(logits: DTensor, labels: torch.Tensor) -> DTensor:
+    """``_token_nll`` of (B, S, V) logits split along V over some mesh dims
+    (``model``) and along B over others (the data axes), on each rank's own
+    shard: a local max reduced by ``max_over``, a local sum of ``exp`` and
+    the label's logit among the rank's own columns, each reduced by
+    ``sum_over`` (Megatron's vocab-parallel cross-entropy); logits whole
+    along V take the plain path on the rank's rows (one rank gives the
+    unsharded loss bit for bit).  The result is split along B as the
+    logits are.  The logits' gradient stays on each
+    rank's (B_local, S, V_local) shard: DTensor's ``logsumexp`` takes a B
+    split over two mesh dims, (pod, data), through replication, a logits
+    gradient whole over B and V on every rank."""
+    mesh = logits.device_mesh
+    pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in logits.placements]
+    logits = logits.redistribute(mesh, pl)
+    rows = batch_rows(logits)
+    vdims = [i for i, p in enumerate(pl) if p.is_shard(2)]
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, pl)
+    lg, lab = logits.to_local(), local_rows(labels, mesh, rows)
+    if vdims:
+        m = max_over(lg.amax(-1, keepdim=True), mesh, vdims)
+        logz = torch.log(sum_over(torch.exp(lg - m).sum(-1), mesh, vdims)) + m[..., 0]
+        hit = (lab[..., None].long() - offset[2]) == torch.arange(lg.shape[-1], device=lg.device)
+        nll = logz - sum_over(torch.where(hit, lg, 0.0).sum(-1), mesh, vdims)
+    else:                                      # the vocabulary whole on this rank
+        nll = _token_nll(lg, lab)
+    return from_local_rows(nll, mesh, rows, labels.shape)
+
+
 def forward_train(
     cfg: ModelConfig,
     params,
@@ -384,17 +429,8 @@ def forward_train(
     if cfg.frontend != "none":
         h = h[:, PREFIX_LEN:]           # loss only over token positions
     logits = hint(torch.einsum("bsd,vd->bsv", seq_whole(h), params["embed"]).float(), "logits")
-    labels = batch["labels"]
-    logz = torch.logsumexp(logits, dim=-1)
-    # the label's logit as a masked sum over the vocabulary (one term is not
-    # zero, so the sum is that logit exactly): on vocab-sharded logits each
-    # rank sums its own columns.  A gather's backward would allocate a zero
-    # gradient of the global logits on every rank of a sharded run.
-    hit = hint(labels[..., None].long() == torch.arange(logits.shape[-1], device=logits.device),
-               "logits")
-    gold = torch.where(hit, logits, 0.0).sum(-1)
+    nll = _token_nll(logits, batch["labels"])
     mask = batch.get("loss_mask")
-    nll = logz - gold
     if mask is not None:
         nll = nll * mask
         denom = torch.clamp(mask.sum(), min=1.0)

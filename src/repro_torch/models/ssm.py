@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial
 
 from repro_torch.distributed import context as _ctx
 from repro_torch.distributed.context import hint, seq_whole
@@ -47,13 +47,18 @@ def causal_conv1d(
     x: torch.Tensor, w: torch.Tensor, tail: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv. x: (B, S, C), w: (W, C).  ``tail``: (B, W-1, C)
-    carried context for decode.  Returns (y, new_tail)."""
-    b, s, c = x.shape
+    carried context for decode.  Returns (y, new_tail).
+
+    The zero tail and the accumulator are made ``like`` ``x``: a DTensor
+    ``x`` gives them its layout, where a plain tensor of the global shape
+    would be whole on every rank (an f32 (B, S, C) on each) and would take
+    ``x`` to its layout in the ``cat``."""
+    s = x.shape[1]
     width = w.shape[0]
     if tail is None:
-        tail = torch.zeros((b, width - 1, c), dtype=x.dtype, device=x.device)
+        tail = torch.zeros_like(x[:, :1]).expand(-1, width - 1, -1)
     xp = torch.cat([tail, x], dim=1)                                # (B, S+W-1, C)
-    y = torch.zeros((b, s, c), dtype=torch.float32, device=x.device)
+    y = torch.zeros_like(x, dtype=torch.float32)
     for i in range(width):
         y = y + w[i].float() * xp[:, i : i + s].float()
     new_tail = xp[:, s:]
@@ -115,7 +120,10 @@ def _ssd_rows(xh, dt, a, bm, cm, kernels: str, chunk: int) -> torch.Tensor:
     """``ops.ssd_op`` once per batch row: y (B, S, H, P).  DTensor operands
     under a sharding context are redistributed first: rows over the data
     axes, heads over ``model`` where they divide it, ``bm`` / ``cm`` whole
-    along N; the kernels then run on each rank's rows and heads."""
+    along N; the kernels then run on each rank's rows and heads.  A rank's
+    gradient of what it holds whole is its own part of a sum (``Partial``):
+    of ``bm`` / ``cm`` over the model ranks, whose heads all read them, and
+    of ``a`` over the ranks that split the rows."""
     c = _ctx.current()
     sharded = c is not None and isinstance(xh, DTensor)
     if sharded:
@@ -123,10 +131,14 @@ def _ssd_rows(xh, dt, a, bm, cm, kernels: str, chunk: int) -> torch.Tensor:
         heads = "model" if xh.shape[2] % c.plan.axes["model"] == 0 else None
         x_pl = placements(P(lead, None, heads, None), c.mesh)
         bc_pl = placements(P(lead, None, None), c.mesh)
+        m = list(c.plan.axes).index("model")
+        bc_grad = [Partial() if i == m and heads else q for i, q in enumerate(bc_pl)]
+        a_pl = placements(P(heads), c.mesh)
+        a_grad = [Partial() if x_pl[i].is_shard(0) else q for i, q in enumerate(a_pl)]
         xh, dt, a, bm, cm = (
-            t.redistribute(c.mesh, pl).to_local() for t, pl in (
-                (xh, x_pl), (dt, placements(P(lead, None, heads), c.mesh)),
-                (a, placements(P(heads), c.mesh)), (bm, bc_pl), (cm, bc_pl)))
+            t.redistribute(c.mesh, pl).to_local(grad_placements=g) for t, pl, g in (
+                (xh, x_pl, None), (dt, placements(P(lead, None, heads), c.mesh), None),
+                (a, a_pl, a_grad), (bm, bc_pl, bc_grad), (cm, bc_pl, bc_grad)))
     y = torch.stack([ops.ssd_op(xh[i], dt[i], a, bm[i], cm[i], kernels=kernels, chunk=chunk)
                      for i in range(xh.shape[0])])
     ROUTES["ssd_op"] += xh.shape[0]

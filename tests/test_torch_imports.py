@@ -48,7 +48,9 @@ def test_port_backend_import_leaves_jax_unloaded():
         "repro_torch.distributed.ring_attention, repro_torch.distributed.pipeline, "
         "repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.roofline, "
         "repro_torch.roofline.analysis, repro_torch.roofline.dispatch_cost, "
-        "repro_torch.roofline.kernel_cost; "
+        "repro_torch.roofline.kernel_cost, repro_torch.examples, "
+        "repro_torch.examples.serve_demo, repro_torch.examples.train_lm, "
+        "repro_torch.examples.schedule_explorer; "
         "from repro_torch.configs import all_configs; all_configs(); "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"

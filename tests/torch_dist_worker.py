@@ -35,6 +35,7 @@ CASES = {
     "train": ((2, 2), ("data", "model")),
     "train-moe": ((2, 2), ("data", "model")),
     "restore": ((1, 3), ("data", "model")),
+    "multipod": ((2, 2, 2), ("pod", "data", "model")),
 }
 # the reduced models of each models case: (label, arch, attention impl,
 # overrides of ``reduced()``).  gemma3's single KV head is replicated under
@@ -58,6 +59,14 @@ TRAIN_ARCH, TRAIN_OVER, TRAIN_MICRO = "tinyllama_1_1b", {"d_ff": 96}, 2
 # the MoE step: reduced dbrx, its 4 experts over the 2 model ranks (``ep``:
 # the expert pass on each rank's own experts, ``moe._on_local_experts``)
 MOE_ARCH = "dbrx_132b"
+# the (2, 2, 2) case: a batch of 4 rows, one on each (pod, data) rank pair,
+# through reduced tinyllama (loss, gradients, decode), the same with one KV
+# head (whole on the model ranks, which split the q heads) and mamba2 (its
+# 4 heads over the model ranks): (label, arch, overrides of ``reduced()``)
+MULTIPOD_RUNS = (("tinyllama", "tinyllama_1_1b", {}),
+                 ("tinyllama-kv1", "tinyllama_1_1b", {"n_kv_heads": 1}),
+                 ("mamba2", "mamba2_2_7b", {}))
+MULTIPOD_B = 4
 
 
 def tree_from_flat(flat, prefix):
@@ -226,6 +235,51 @@ def case_train(mesh, ins, out, root):
     out["cache_k_placements"] = np.array([repr(p) for p in engine.cache["k"].placements])
 
 
+def case_multipod(mesh, ins, out):
+    """Loss and gradients of one batch split over (pod, data), the vocab
+    over ``model``: the loss is the vocab-parallel cross-entropy
+    (``model._vocab_parallel_nll``), mamba2's convolutions are made like
+    their input (``ssm.causal_conv1d``); greedy decoding with the cache's
+    batch over (pod, data) and its positions over ``model``
+    (``layers.decode_attention``); each against the unsharded port."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import make_plan, param_shardings
+    from repro_torch.distributed.context import sharding_context
+    from repro_torch.distributed.sharding import distribute_batch, distribute_tree
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train.train_step import microbatch_grads
+
+    for label, arch, over in MULTIPOD_RUNS:
+        cfg = get_config(arch).reduced(**over)
+        params = tree_from_flat(ins, f"params-{label}")
+        batch = _batch(ins, f"batch-{label}")
+        plan = make_plan(cfg, mesh)
+        dparams = distribute_tree(params, param_shardings(plan, params))
+        with sharding_context(mesh, plan):
+            loss, grads = microbatch_grads(cfg, dparams, distribute_batch(plan, batch),
+                                           kv_chunk=KV_CHUNK, remat=False, kernels="eager")
+        loss_u, grads_u = microbatch_grads(cfg, params, batch, kv_chunk=KV_CHUNK, remat=False,
+                                           kernels="eager")
+        out[f"{label}/loss"] = _full(loss).numpy()
+        out[f"{label}/loss_unsharded"] = loss_u.numpy()
+        for i, (g, gu) in enumerate(zip(grads, grads_u)):
+            out[f"{label}/grad/{i}"] = _full(g).numpy()
+            out[f"{label}/grad_unsharded/{i}"] = gu.numpy()
+        if label != "tinyllama":
+            continue
+
+        def reqs():
+            return [Request(prompt=[1 + i, 7, 3], max_new=5) for i in range(MULTIPOD_B)]
+
+        engine = ServeEngine(cfg, dparams, MULTIPOD_B, 12, kernels="eager", plan=plan)
+        out[f"{label}/decode_tokens"] = np.array([r.generated for r in engine.run(reqs())])
+        out[f"{label}/decode_tokens_unsharded"] = np.array(
+            [r.generated for r in ServeEngine(cfg, params, MULTIPOD_B, 12,
+                                              kernels="eager").run(reqs())])
+        out[f"{label}/cache_k_placements"] = np.array(
+            [repr(p) for p in engine.cache["k"].placements])
+
+
 def case_restore(mesh, ins, out, root):
     from repro_torch.configs import get_config
     from repro_torch.distributed import make_plan, param_shardings
@@ -274,6 +328,8 @@ def _rank(rank, world, case, root):
             case_train(mesh, ins, out, root)
         elif case == "train-moe":
             case_train_moe(mesh, ins, out)
+        elif case == "multipod":
+            case_multipod(mesh, ins, out)
         else:
             case_restore(mesh, ins, out, root)
         if rank == 0:
