@@ -106,7 +106,16 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    own (``flash_attention.wgmma_plan``: tile, blocks, blocks an SM,
    shared bytes); where K is split (the matmul
    tile) the call launches ``matmul`` and ``matmul_reduce``, each timed
-   alone on its own row, and the whole call too.  The f32 matmuls are bit
+   alone on its own row, and the whole call too.  Then three context-plan
+   shards (``models/layers.py:on_local_heads``): the last of 16 model
+   ranks' query rows of qwen3-14b (40 heads, 256 rows at offset 3840 of
+   4096, D 128) and gemma3-1b (D 256, 128 rows at 1920 of 2048) in bf16 on
+   the tensor cores, and of tinyllama-1.1b in f32 (D 64) on the SIMT
+   kernel, each through ``ops.attention_op(q_offset=...)``, launching its
+   one kernel, held against the plain version and the oracle at the
+   offset and against the rows of the whole-sequence call, and timed
+   beside that whole call (one call and replayed), its bound
+   ``kernel_work`` at the offset.  The f32 matmuls are bit
    for bit on their integer inputs and are also held at the JAX package's
    f32 tolerance (1e-4) on normal inputs of the same shapes.  Every row
    carries its library's registers and spills as ``ptxas -v`` reported
@@ -201,7 +210,11 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    through the CLI, each compute term at least 6 x active parameters x
    tokens over the ranks and the bf16 peak, each fitting this card's
    memory (the (2, 16, 16) cell's vocab-parallel loss keeps its logits
-   gradient on the rank's own rows and columns).
+   gradient on the rank's own rows and columns); each traced as the rank
+   with the last ``model`` coordinate (its ``context`` plan's heaviest
+   query rows), printed with its compute term, f32 FLOPs and attention
+   launches beside the figures with the attention replicated over
+   ``model`` (``DRYRUN_REPLICATED``).
 
 14. examples: the three ``repro_torch.examples`` scripts through their
    ``main`` on the card, each with the launch counts zeroed just before and
@@ -816,7 +829,7 @@ def kernels_full(full_apps, rows) -> None:
     # the CUDA kernels each configuration's call must launch, and only they
     path = {"ssd_scan": ("ssd_gram", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")}
 
-    def simt_call(kname, args, scratch):
+    def simt_call(kname, args, scratch, q_offset=0):
         """The SIMT kernel of a tensor-core kernel's op on the same inputs,
         launched directly into ``scratch``: the comparison the tensor cores
         are for."""
@@ -827,7 +840,7 @@ def kernels_full(full_apps, rows) -> None:
         heads, s, d = q.shape
         return lambda: KERNELS["flash_attention"](
             dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), scratch.data_ptr(),
-            heads, s, k.shape[1], d, 1.0 / d ** 0.5, 1, 1)
+            heads, s, k.shape[1], d, 1.0 / d ** 0.5, 1, q_offset, 1)
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True)[0]
@@ -1128,6 +1141,72 @@ def kernels_full(full_apps, rows) -> None:
         log(f"[kernels-full] {label} {kname} {dname} {[tuple(t.shape) for t in args]}: "
             f"{time.perf_counter() - t0:.1f} s")
         del args, out
+        torch.cuda.empty_cache()
+
+    # A context plan's shard (models/layers.py:on_local_heads): the query
+    # rows of the last of 16 model ranks, over the whole sequence's keys at
+    # their offset, through the ops entry; held against the plain version
+    # and the oracle at the offset and against the whole call's rows, and
+    # timed beside the whole call.  qwen3-14b (40 heads, D 128) and
+    # gemma3-1b (D 256) have a context plan over 16; tinyllama's f32 rows
+    # take the SIMT kernel at D 64.
+    shards = [
+        ("qwen3-14b-shard", "flash_attention_wgmma", (40, 8, 4096, 128, bf16), flash_bf16),
+        ("gemma3-1b-shard", "flash_attention_wgmma", (4, 1, 2048, 256, bf16), flash_bf16),
+        ("tinyllama-shard", "flash_attention", (32, 4, 2048, 64, f32), flash_f32),
+    ]
+    for label, kname, (heads, kv_heads, s, d, dtype), check in shards:
+        t0 = time.perf_counter()
+        q, k, v = attention(heads, kv_heads, s, d, dtype)
+        sq = s // 16
+        off = s - sq
+        rows_q = q[:, off:].contiguous()
+        kw = {"causal": True, "q_offset": off}
+        dname = "bf16" if dtype == bf16 else "f32"
+        for kk in KERNELS.values():
+            kk.launches = 0
+        out = ops.attention_op(rows_q, k, v, **kw)
+        torch.cuda.synchronize()
+        launched = {name: kk.launches for name, kk in KERNELS.items() if kk.launches}
+        if launched != {kname: 1}:
+            raise AssertionError(f"[kernels-full] {label}: the shard call must launch {kname} "
+                                 f"once and nothing else; it launched {launched}")
+        whole = ops.attention_op(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        tag = f"[kernels-full] {label} {kname} {dname} rows {off}..{s - 1} of {s}"
+        want = kref.attention_ref(rows_q, k, v, q_offset=off)
+        whole_err = held(f"{tag} against the whole call's rows", out, whole[:, off:], want,
+                         check["tol"], row_tol=check.get("row_tol"))
+        same = torch.equal(out, whole[:, off:])
+        del whole
+        keep = (torch.arange(s, device=dev)[None, :]
+                <= (off + torch.arange(sq, device=dev))[:, None])
+        lib = ("F.scaled_dot_product_attention (boolean mask)",
+               lambda: F.scaled_dot_product_attention(rows_q[None], k[None], v[None],
+                                                      attn_mask=keep)[0], None)
+        simt = None
+        if kname.endswith("_wgmma"):
+            scratch = torch.empty_like(out)
+            simt = (simt_call(kname, (rows_q, k, v), scratch, off), scratch)
+        row = measure(kname, label, dname, launched[kname], out,
+                      lambda: ops.attention_op(rows_q, k, v, **kw),
+                      lambda: flash_attention_plain(rows_q, k, v, **kw), want, check, lib,
+                      kernel_work(kname, (rows_q, k, v), out, q_offset=off), simt)
+        plan = fa.wgmma_plan(rows_q, k, v) if kname.endswith("_wgmma") else fa.simt_plan(
+            rows_q, k, v)
+        row.update(q_offset=off, blocks=plan["blocks"], whole_max_abs_err=whole_err,
+                   whole_bit_for_bit=same, shape=[list(t.shape) for t in (rows_q, k, v)],
+                   dtype=dname)
+        row["whole_ms"] = time_ms(lambda: ops.attention_op(q, k, v, causal=True), 10)
+        row["whole_device_ms"] = graph_ms(lambda: ops.attention_op(q, k, v, causal=True))
+        log(f"{tag}: {plan['blocks']} blocks of {plan['block_q']} query rows "
+            f"({plan.get('blocks_per_sm')} a SM, 132 SMs); shard call {row['ms']:.4f} ms "
+            f"({row['dev_ms']:.4f} ms replayed) against the whole call's {row['whole_ms']:.4f} ms "
+            f"({row['whole_device_ms']:.4f} ms replayed): "
+            f"{row['dev_ms'] / row['whole_device_ms']:.3f} of it replayed; bound at the offset "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); against the whole call's rows "
+            f"{whole_err!r}{' (bit for bit)' if same else ''}; {time.perf_counter() - t0:.1f} s")
+        del q, k, v, rows_q, out, want, keep
         torch.cuda.empty_cache()
 
 
@@ -2207,6 +2286,15 @@ def dryrun_phase(rows) -> None:
         _dryrun_cell(arch, shape, multi_pod, env)
 
 
+# qwen3-14b train_4k when every model rank of its context plan ran the
+# attention on the whole sequence, not its own query rows: the dry run's
+# report then, torch 2.13 (PERF.md section 6)
+DRYRUN_REPLICATED = {
+    False: "t_compute 6.934 s, f32 FLOPs 4.12e14, 320 flash_attention launches",
+    True: "t_compute 3.467 s, f32 FLOPs 2.06e14, 320 flash_attention launches",
+}
+
+
 def _dryrun_cell(arch, shape, multi_pod, env) -> None:
     """One production cell at full size through the dry run's CLI, on the
     fake (16, 16) world or, ``multi_pod``, the (2, 16, 16) one: its compute
@@ -2241,6 +2329,11 @@ def _dryrun_cell(arch, shape, multi_pod, env) -> None:
         f"per rank {mem['peak_gb_per_chip']} GB, fits {mem['fits_80gb']} against "
         f"{mem['budget_bytes']} B of {mem['budget_of']}; microbatches {rep['microbatches']}, "
         f"trace {rep['trace_s']} s, wall {wall:.1f} s")
+    log(f"[dryrun] {arch} {shape} {world}: traced as rank {rep['rank']['rank']} at "
+        f"{rep['rank']['coordinate']} ({rep['plan']['attn']} plan): t_compute "
+        f"{r['t_compute']:.4f} s, f32 FLOPs {r['flops_by_unit'].get('f32', 0.0):.4g}, launches "
+        f"{r['trace_cost']['kernels']}; with the attention replicated over model: "
+        f"{DRYRUN_REPLICATED[multi_pod]}")
     if not mem["fits_80gb"]:
         raise AssertionError(f"[dryrun] {arch} {shape} {world}: {mem['peak_gb_per_chip']} GB a "
                              f"rank does not fit {mem['budget_bytes']} B")

@@ -14,8 +14,10 @@ them:
 
 ``write`` puts ``DIR/<case>/inputs.npz`` and the JAX references
 ``DIR/<case>/refs.npz`` there (cases ``models-2x2``, ``train``,
-``train-moe`` and ``multipod``, the (2, 2, 2) world of 8 ranks, whose
-references are the JAX losses).
+``train-moe``, ``multipod``, the (2, 2, 2) world of 8 ranks, whose
+references are the JAX losses, and ``train-context``, reduced tinyllama's
+loss and gradients on 1×3 under the ``context`` plan, whose references are
+the JAX loss and gradient leaves).
 ``run`` runs each case's gloo ranks with the rendezvous store under a fresh
 directory of the system's temporary directory (a store under a copied
 tree has hung every case on the GPU machine) and copies rank 0's
@@ -41,7 +43,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-CASES = ("models-2x2", "train", "train-moe", "multipod")
+CASES = ("models-2x2", "train", "train-moe", "multipod", "train-context")
 
 
 def write(root: Path) -> None:
@@ -53,7 +55,8 @@ def write(root: Path) -> None:
     from repro.models import model as jm
     from torch_dist_cases import flat, model_inputs
     from torch_dist_worker import (
-        B, KV_CHUNK, MODEL_RUNS, MOE_ARCH, MULTIPOD_B, MULTIPOD_RUNS, S, TRAIN_ARCH, TRAIN_OVER,
+        B, CONTEXT_ARCH, KV_CHUNK, MODEL_RUNS, MOE_ARCH, MULTIPOD_B, MULTIPOD_RUNS, S, TRAIN_ARCH,
+        TRAIN_OVER,
     )
 
     inputs, refs = {}, {}
@@ -92,6 +95,15 @@ def write(root: Path) -> None:
         loss, _ = jm.forward_train(cfg, params, jb, kv_chunk=KV_CHUNK, remat=False)
         refs[f"{label}/loss"] = np.asarray(loss)
     _save(root / "multipod", inputs, refs)
+    # the context case's, as tests/test_torch_distributed_train.py makes them
+    cfg, params, batch, inputs = model_inputs("context", CONTEXT_ARCH, {}, 20, B, S)
+    jb = {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()}
+    loss, grads = jax.value_and_grad(
+        lambda p: jm.forward_train(cfg, p, jb, kv_chunk=KV_CHUNK, remat=False)[0])(params)
+    refs = {"loss": np.asarray(loss)}
+    leaves = jax.tree_util.tree_leaves(grads)
+    refs.update({f"grad/{i}": np.asarray(g) for i, g in enumerate(leaves)})
+    _save(root / "train-context", inputs, refs)
 
 
 def _save(d: Path, inputs: dict, refs: dict) -> None:
@@ -230,6 +242,30 @@ def check(root: Path, out: Path) -> int:
                               got["tinyllama/decode_tokens_unsharded"])
         print(f"  tinyllama decode tokens equal: {same}")
         bad += not same
+    if (out / "train-context" / "out.npz").exists():
+        from torch_dist_worker import S
+
+        got = dict(np.load(out / "train-context" / "out.npz"))
+        refs = dict(np.load(root / "train-context" / "refs.npz"))
+        calls = got["attention_calls"].tolist()
+        want = [[[S // 3, S, r * S // 3]] for r in range(3)]
+        print(f"train-context (1x3 gloo ranks, {got['strategy']}): attention calls "
+              f"(rows, keys, offset) by rank {calls}{'' if calls == want else ' FAILS'}")
+        bad += calls != want
+        held("loss vs unsharded", got["loss"], got["loss_unsharded"], SHARD_TOL)
+        held("loss vs JAX", got["loss"], refs["loss"], JAX_TOL)
+        for against, tol in (("unsharded", SHARD_TOL), ("JAX", JAX_TOL)):
+            # each gradient leaf relative to its own largest value, as the test holds it
+            keys = [k for k in got if k.startswith("grad/")]
+            rel = {}
+            for k in keys:
+                w = refs[k] if against == "JAX" else got[k.replace("grad/", "grad_unsharded/")]
+                rel[k] = float(np.max(np.abs(got[k] - w)) / np.max(np.abs(w)))
+            worst = max(rel, key=rel.get)
+            ok = rel[worst] <= tol
+            bad += not ok
+            print(f"  gradient vs {against} (worst leaf {worst} of {len(keys)}, of its largest "
+                  f"value): {rel[worst]:.3e} (limit {tol:g}){'' if ok else ' FAILS'}")
     print("check:", "OK" if not bad else f"{bad} FAILED")
     return 1 if bad else 0
 

@@ -5,8 +5,10 @@
 // (_flash_kernel) for every call that the tensor-core kernel
 // (flash_attention_wgmma.cu) does not take: f32, and bf16 whose head dim is
 // above 128 or not a multiple of 8.  q: (B, Sq, D), k and v: (B, Skv, D)
-// with batch x heads folded into B; scores scaled by 1/sqrt(D); under
-// `causal` (Sq == Skv) column c of row r is kept when c <= r and set to
+// with batch x heads folded into B; scores scaled by 1/sqrt(D); query row r
+// stands at position q_offset + r (q_offset + Sq <= Skv: a rank's rows of a
+// sequence split over ranks; 0 with Sq == Skv for self-attention); under
+// `causal` column c of row r is kept when c <= q_offset + r and set to
 // -1e30 otherwise, so exp gives 0 and never NaN, and KV tiles wholly above
 // the diagonal are skipped.  The running max m, sum l and output
 // accumulator are f32; the output is acc / l in the inputs' dtype.  Every
@@ -51,7 +53,7 @@
 //   at D 256 (one block of eight warps an SM).
 // - Heavy, late query tiles first under causal masking: block x takes
 //   query tile nq - 1 - x / B of head x % B, so the first wave holds every
-//   head's longest tile.
+//   head's longest tile (its KV tiles end at q_offset + q0 + BQ).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -210,7 +212,8 @@ __device__ __forceinline__ void tile_copy(float* dst, const T* src, int t0, int 
 template <typename T, int DMAX, bool ASYNC>
 __global__ void __launch_bounds__(NT<DMAX, ASYNC>, MIN_BLOCKS<DMAX, ASYNC>) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int sq, int skv, int d, float scale, int causal, int vec) {
+    T* __restrict__ o, int sq, int skv, int d, float scale, int causal, int q_offset,
+    int vec) {
   constexpr int R = TM<DMAX, ASYNC>;  // rows of the thread's tile
   constexpr int JJ = DMAX / 64;  // float4 column groups of a thread's output row
   // the product loops' unrolling: through registers, the staged quads
@@ -235,7 +238,7 @@ __global__ void __launch_bounds__(NT<DMAX, ASYNC>, MIN_BLOCKS<DMAX, ASYNC>) flas
   const Walk w(dp / 4, NT<DMAX, ASYNC>);
   typename Stage<T>::Raw st[HOLD<DMAX> ? PER<DMAX, ASYNC> : 1];
 
-  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
+  const int kv_end = causal ? min(skv, q_offset + q0 + BQ) : skv;
   const int tiles = (kv_end + BKV - 1) / BKV;
   if constexpr (ASYNC) {
     tile_async(qs, (const float*)qh, q0, sq, d, ds, w);
@@ -302,7 +305,7 @@ __global__ void __launch_bounds__(NT<DMAX, ASYNC>, MIN_BLOCKS<DMAX, ASYNC>) flas
     float alpha[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      const int r = q0 + sy * R + i;
+      const int r = q_offset + q0 + sy * R + i;  // the row's position
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -392,7 +395,7 @@ __global__ void __launch_bounds__(NT<DMAX, ASYNC>, MIN_BLOCKS<DMAX, ASYNC>) flas
 
 template <typename T, int DMAX, bool ASYNC>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv, int d,
-           float scale, int causal, int vec, cudaStream_t s) {
+           float scale, int causal, int q_offset, int vec, cudaStream_t s) {
   const size_t smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, DMAX, ASYNC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -400,16 +403,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
   const unsigned nq = (sq + BQ - 1) / BQ;
   constexpr int threads = NT<DMAX, ASYNC>;
   flash_kernel<T, DMAX, ASYNC><<<nq * (unsigned)b, threads, smem, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, skv, d, scale, causal, vec);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, skv, d, scale, causal, q_offset, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool ASYNC>
 int launch_d(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv, int d,
-             float scale, int causal, int vec, cudaStream_t s) {
-  if (d <= 64) return launch<T, 64, ASYNC>(q, k, v, o, b, sq, skv, d, scale, causal, vec, s);
-  if (d <= 128) return launch<T, 128, ASYNC>(q, k, v, o, b, sq, skv, d, scale, causal, vec, s);
-  return launch<T, 256, ASYNC>(q, k, v, o, b, sq, skv, d, scale, causal, vec, s);
+             float scale, int causal, int q_offset, int vec, cudaStream_t s) {
+  if (d <= 64)
+    return launch<T, 64, ASYNC>(q, k, v, o, b, sq, skv, d, scale, causal, q_offset, vec, s);
+  if (d <= 128)
+    return launch<T, 128, ASYNC>(q, k, v, o, b, sq, skv, d, scale, causal, q_offset, vec, s);
+  return launch<T, 256, ASYNC>(q, k, v, o, b, sq, skv, d, scale, causal, q_offset, vec, s);
 }
 
 // cp.async takes f32 rows whole: D a multiple of 4, every base on 16 bytes
@@ -436,18 +441,19 @@ extern "C" const char* kernel_error_string(int err) {
 }
 
 // q, o: (b, sq, d); k, v: (b, skv, d); all of `dtype` (0 float32, 1
-// bfloat16); d <= 256.
+// bfloat16); d <= 256; query row r at position q_offset + r.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int b, int sq, int skv, int d, float scale, int causal,
-                                      int dtype, void* stream) {
+                                      int q_offset, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     if (copies_async(q, k, v, d, dtype))
-      return launch_d<float, true>(q, k, v, o, b, sq, skv, d, scale, causal, 0, s);
-    return launch_d<float, false>(q, k, v, o, b, sq, skv, d, scale, causal, 0, s);
+      return launch_d<float, true>(q, k, v, o, b, sq, skv, d, scale, causal, q_offset, 0, s);
+    return launch_d<float, false>(q, k, v, o, b, sq, skv, d, scale, causal, q_offset, 0, s);
   }
   const int vec = d % 4 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 8 == 0;
-  return launch_d<__nv_bfloat16, false>(q, k, v, o, b, sq, skv, d, scale, causal, vec, s);
+  return launch_d<__nv_bfloat16, false>(q, k, v, o, b, sq, skv, d, scale, causal, q_offset,
+                                         vec, s);
 }
 
 // What a launch of head dim d would get on this card: its dynamic shared

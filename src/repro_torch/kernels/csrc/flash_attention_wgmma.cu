@@ -5,9 +5,11 @@
 // (_flash_kernel) for bf16 inputs with head dims up to 256 that are
 // multiples of 8; f32 and other head dims stay on the SIMT kernel
 // (flash_attention.cu).  q: (B, Sq, D), k and v: (B, Skv, D) with batch x
-// heads folded into B; scores scaled by 1/sqrt(D); under `causal` (Sq == Skv)
-// column c of row r is kept when c <= r and set to -1e30 otherwise; KV tiles
-// wholly above the diagonal are skipped.  The running max m and sum l and
+// heads folded into B; scores scaled by 1/sqrt(D); query row r stands at
+// position q_offset + r (q_offset + Sq <= Skv: a rank's rows of a sequence
+// split over ranks; 0 with Sq == Skv for self-attention); under `causal`
+// column c of row r is kept when c <= q_offset + r and set to -1e30
+// otherwise; KV tiles wholly above the diagonal are skipped.  The running max m and sum l and
 // the output accumulator are f32; the output is acc / l rounded once to bf16.
 //
 // Bound: operations (4 D flops per kept score on the bf16 tensor cores).
@@ -164,7 +166,7 @@ template <int DMAX>
 __global__ void __launch_bounds__(Tile<DMAX>::NT, 1) flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int sq, int skv,
-    int d, float scale_log2, int causal) {
+    int d, float scale_log2, int causal, int q_offset) {
   using T = Tile<DMAX>;
   constexpr int BQ = T::BQ, BKV = T::BKV, CONSUMERS = T::CONSUMERS;
   constexpr int BOX_Q = T::BOX_Q, BOX_KV = T::BOX_KV;
@@ -178,11 +180,12 @@ __global__ void __launch_bounds__(Tile<DMAX>::NT, 1) flash_wgmma_kernel(
   uint64_t* v_full = k_full + STAGES;
   uint64_t* empty = v_full + STAGES;
 
-  // heavy (late) query tiles of a head first under causal masking
+  // heavy (late) query tiles of a head first under causal masking: tile
+  // q0's KV tiles end at q_offset + q0 + BQ
   const int nq = (sq + BQ - 1) / BQ;
   const int head = blockIdx.x / nq;
   const int q0 = (nq - 1 - (int)(blockIdx.x % nq)) * BQ;
-  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
+  const int kv_end = causal ? min(skv, q_offset + q0 + BQ) : skv;
   const int ntiles = (kv_end + BKV - 1) / BKV;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
@@ -217,9 +220,11 @@ __global__ void __launch_bounds__(Tile<DMAX>::NT, 1) flash_wgmma_kernel(
   }
 
   // consumer warpgroup wg: query rows q0 + 64 wg .. + 63; this thread's rows
-  // r and r + 8, its columns 8j + 2(l%4) and the next
+  // r and r + 8 (at positions q_offset + r and the next), its columns
+  // 8j + 2(l%4) and the next
   const int wg = warp / 4;
   const int row0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int pos0 = q_offset + row0;
   const int cq = 2 * (lane % 4);
   const uint32_t q_addr = smem_addr(qs) + wg * 64 * 128;
   float acc[DMAX / 2];
@@ -238,11 +243,11 @@ __global__ void __launch_bounds__(Tile<DMAX>::NT, 1) flash_wgmma_kernel(
     // scale into the exp2 domain; where the tile crosses this warpgroup's
     // diagonal or the end of the keys, column k0 + cq + c of row h is kept
     // while c is below lim[h]: one bound a row, no column index formed
-    const bool masked = (causal && k0 + BKV - 1 > q0 + wg * 64) || k0 + BKV > skv;
+    const bool masked = (causal && k0 + BKV - 1 > q_offset + q0 + wg * 64) || k0 + BKV > skv;
     int lim[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      lim[h] = (causal ? min(skv, row0 + 8 * h + 1) : skv) - k0 - cq;
+      lim[h] = (causal ? min(skv, pos0 + 8 * h + 1) : skv) - k0 - cq;
 #pragma unroll
     for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
@@ -320,7 +325,7 @@ __global__ void __launch_bounds__(Tile<DMAX>::NT, 1) flash_wgmma_kernel(
 
 template <int DMAX>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv, int d,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, int q_offset, cudaStream_t stream) {
   using T = Tile<DMAX>;
   CUtensorMap tq, tk, tv;
   // (B, S, D) as 3-D maps, innermost first, so a box never reads into the
@@ -340,7 +345,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
   if (err != cudaSuccess) return (int)err;
   const unsigned nq = (sq + T::BQ - 1) / T::BQ;
   flash_wgmma_kernel<DMAX><<<nq * (unsigned)b, T::NT, smem, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, sq, skv, d, scale * LOG2E, causal);
+      tq, tk, tv, (__nv_bfloat16*)o, sq, skv, d, scale * LOG2E, causal, q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -362,14 +367,14 @@ extern "C" const char* kernel_error_string(int err) {
 }
 
 // q, o: (b, sq, d); k, v: (b, skv, d); all bf16, 16-byte aligned; d a
-// multiple of 8 and at most 256.
+// multiple of 8 and at most 256; query row r at position q_offset + r.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                                             int b, int sq, int skv, int d, float scale,
-                                            int causal, void* stream) {
+                                            int causal, int q_offset, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (d <= 64) return launch<64>(q, k, v, o, b, sq, skv, d, scale, causal, s);
-  if (d <= 128) return launch<128>(q, k, v, o, b, sq, skv, d, scale, causal, s);
-  if (d <= 256) return launch<256>(q, k, v, o, b, sq, skv, d, scale, causal, s);
+  if (d <= 64) return launch<64>(q, k, v, o, b, sq, skv, d, scale, causal, q_offset, s);
+  if (d <= 128) return launch<128>(q, k, v, o, b, sq, skv, d, scale, causal, q_offset, s);
+  if (d <= 256) return launch<256>(q, k, v, o, b, sq, skv, d, scale, causal, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

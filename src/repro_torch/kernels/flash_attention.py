@@ -8,7 +8,12 @@ max and sum as (bq, 128)-lane VMEM tiles and skipping KV blocks wholly
 above the causal diagonal.  The CUDA kernels do not carry the BlockSpecs
 over: a block per (folded batch-head, query tile) loops over KV tiles up to
 the diagonal, with the statistics one float per row and the masked scores
-``-1e30`` as on the TPU.  ``route`` picks one by dtype and shape alone:
+``-1e30`` as on the TPU.  ``q_offset`` places query row r at position
+``q_offset + r`` of the keys (``q_offset + Sq <= Skv``): a rank's own rows
+of a sequence split over ranks, the JAX attention's ``q_offset``
+(``src/repro/models/layers.py:chunked_gqa_attention``).  With none, causal
+masking takes Sq == Skv, the Pallas kernel's self-attention.  ``route``
+picks one by dtype and shape alone:
 
 - ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 inputs with a head
   dim that is a multiple of 8 (so that TMA can read their rows; an input
@@ -50,21 +55,24 @@ SIMT_BLOCK = 64   # query rows of a SIMT block, and KV rows of its tiles
 
 KERNEL = CudaLauncher(
     "flash_attention",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3,
     "src/repro/kernels/flash_attention.py:29",
 )
 WGMMA = CudaLauncher(
     "flash_attention_wgmma",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2,
     "src/repro/kernels/flash_attention.py:29",
 )
 
 
 def _check(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-    block_q: Optional[int], block_kv: Optional[int],
+    block_q: Optional[int], block_kv: Optional[int], q_offset: Optional[int] = None,
 ) -> Tuple[int, int]:
-    """The JAX kernel's argument checks; returns its blocks (bq, bkv)."""
+    """The JAX kernel's argument checks (with no ``q_offset``, causal
+    masking takes Sq == Skv), and a query offset's bound (``0 <= q_offset``,
+    and ``q_offset + Sq <= Skv`` under ``causal``); returns its blocks
+    (bq, bkv)."""
     check_dtypes("flash_attention", q, k, v)
     if q.ndim != 3 or k.ndim != 3 or tuple(k.shape) != tuple(v.shape) \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
@@ -74,8 +82,17 @@ def _check(
         )
     _, sq, d = q.shape
     skv = k.shape[1]
-    if causal and sq != skv:
-        raise ValueError("flash_attention: causal masking assumes self-attention layout (Sq == Skv)")
+    if q_offset is None:
+        if causal and sq != skv:
+            raise ValueError("flash_attention: causal masking assumes self-attention layout "
+                             "(Sq == Skv); a rank's query rows name their q_offset")
+    elif q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be >= 0, got {q_offset}")
+    elif causal and q_offset + sq > skv:
+        raise ValueError(
+            f"flash_attention: causal query rows at q_offset {q_offset} + Sq {sq} run past "
+            f"Skv {skv} (causal masking needs q_offset + Sq <= Skv)"
+        )
     plan = plan_attention(sq, skv, d, dtype_bytes=q.element_size())
     bq = block_q or min(plan.notes["bq"], sq)
     bkv = block_kv or min(plan.notes["bkv"], skv)
@@ -158,30 +175,33 @@ def simt_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     block_q: Optional[int] = None, block_kv: Optional[int] = None,
+    q_offset: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention over (B, S, D) with batch × heads folded into B, scale
-    ``1/sqrt(D)``, by the CUDA kernel ``route`` names.  CUDA tensors only,
-    or meta tensors: those go to the operator ``repro_torch::flash_attention``,
-    whose fake implementation gives the output's shape and dtype and
-    computes nothing (the dry run's, ``launch.dryrun``)."""
-    _check(q, k, v, causal, block_q, block_kv)
+    ``1/sqrt(D)``, query row r at position ``q_offset + r`` (None: 0, and
+    Sq == Skv under ``causal``, the JAX kernel's contract), by the CUDA
+    kernel ``route`` names.  CUDA tensors only, or meta tensors: those go to
+    the operator ``repro_torch::flash_attention``, whose fake implementation
+    gives the output's shape and dtype and computes nothing (the dry run's,
+    ``launch.dryrun``)."""
+    _check(q, k, v, causal, block_q, block_kv, q_offset)
     if q.shape[2] > MAX_HEAD_DIM:
         raise ValueError(
             f"flash_attention: the CUDA kernel takes head dims up to {MAX_HEAD_DIM}, got {q.shape[2]}"
         )
     if q.device.type == "meta":
         require_cuda("flash_attention", q, k, v, meta=True)
-        return _flash_attention_op(q, k, v, causal)
-    return _launch(require_cuda("flash_attention", q, k, v), q, k, v, causal)
+        return _flash_attention_op(q, k, v, causal, q_offset or 0)
+    return _launch(require_cuda("flash_attention", q, k, v), q, k, v, causal, q_offset or 0)
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
 def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool) -> torch.Tensor:
-    return _launch(q.device, q, k, v, causal)
+                        causal: bool, q_offset: int) -> torch.Tensor:
+    return _launch(q.device, q, k, v, causal, q_offset)
 
 
-def _launch(dev: torch.device, q, k, v, causal: bool) -> torch.Tensor:
+def _launch(dev: torch.device, q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
     """The kernel's launch on checked inputs."""
     b, sq, d = q.shape
     skv = k.shape[1]
@@ -189,26 +209,34 @@ def _launch(dev: torch.device, q, k, v, causal: bool) -> torch.Tensor:
     if _route(q) == "wgmma":
         qc, kc, vc = (tma_aligned(t) for t in (q, k, v))
         ptrs = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr())
-        WGMMA(dev, *ptrs, b, sq, skv, d, 1.0 / (d ** 0.5), int(causal))
+        WGMMA(dev, *ptrs, b, sq, skv, d, 1.0 / (d ** 0.5), int(causal), q_offset)
     else:
         qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
         ptrs = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr())
-        KERNEL(dev, *ptrs, b, sq, skv, d, 1.0 / (d ** 0.5), int(causal), DTYPE_CODE[q.dtype])
+        KERNEL(dev, *ptrs, b, sq, skv, d, 1.0 / (d ** 0.5), int(causal), q_offset,
+               DTYPE_CODE[q.dtype])
     return out
 
 
 @_flash_attention_op.register_fake
-def _(q, k, v, causal):
+def _(q, k, v, causal, q_offset):
     return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     block_q: Optional[int] = None, block_kv: Optional[int] = None,
+    q_offset: Optional[int] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version: the Pallas body's blockwise online softmax
-    over (bq, bkv) blocks, KV blocks wholly above the diagonal skipped."""
-    bq, bkv = _check(q, k, v, causal, block_q, block_kv)
+    over (bq, bkv) blocks, query row r at position ``q_offset + r`` (None
+    as in ``flash_attention``), KV blocks wholly above the diagonal skipped.
+    A KV block wholly above one row but not its whole block leaves that
+    row's statistics as they were (its scores are -1e30: exp gives 0 and
+    rescales by 1), so a call on rows [o, o + n) at ``q_offset=o`` is bit
+    for bit the whole call's rows at the same blocks."""
+    bq, bkv = _check(q, k, v, causal, block_q, block_kv, q_offset)
+    q_offset = q_offset or 0
     b, sq, d = q.shape
     skv = k.shape[1]
     scale = 1.0 / (d ** 0.5)
@@ -220,11 +248,11 @@ def flash_attention_plain(
         l = torch.zeros((b, bq, 1), dtype=torch.float32, device=q.device)
         acc = torch.zeros((b, bq, d), dtype=torch.float32, device=q.device)
         for k0 in range(0, skv, bkv):
-            if causal and k0 > q0 + bq - 1:
+            if causal and k0 > q_offset + q0 + bq - 1:
                 continue
             s = torch.matmul(qb, kf[:, k0 : k0 + bkv].transpose(1, 2)) * scale
             if causal:
-                rows = q0 + torch.arange(bq, device=q.device)[:, None]
+                rows = q_offset + q0 + torch.arange(bq, device=q.device)[:, None]
                 cols = k0 + torch.arange(bkv, device=q.device)[None, :]
                 s = torch.where(cols <= rows, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))

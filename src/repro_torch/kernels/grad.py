@@ -41,19 +41,22 @@ def _plain_vjp(plain, inputs: Sequence[torch.Tensor], needs: Sequence[bool], gra
 
 class KernelAttention(torch.autograd.Function):
     """``flash_attention`` forward on the CUDA kernel; backward the VJP of
-    ``flash_attention_plain`` with the same blocks.  Grads for q, k, v."""
+    ``flash_attention_plain`` with the same blocks and query offset.  Grads
+    for q, k, v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, block_q: Optional[int], block_kv: Optional[int]):
+    def forward(ctx, q, k, v, causal: bool, block_q: Optional[int], block_kv: Optional[int],
+                q_offset: Optional[int]):
         ctx.save_for_backward(q, k, v)
-        ctx.kw = {"causal": causal, "block_q": block_q, "block_kv": block_kv}
+        ctx.kw = {"causal": causal, "block_q": block_q, "block_kv": block_kv,
+                  "q_offset": q_offset}
         return _fa.flash_attention(q.detach(), k.detach(), v.detach(), **ctx.kw)
 
     @staticmethod
     def backward(ctx, grad_out):
         grads = _plain_vjp(_fa.flash_attention_plain, ctx.saved_tensors,
                            ctx.needs_input_grad[:3], grad_out, **ctx.kw)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 class KernelSSD(torch.autograd.Function):

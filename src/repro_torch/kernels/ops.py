@@ -48,15 +48,20 @@ def stencil3x3_op(x: torch.Tensor, weights: torch.Tensor, kernels: str = "cuda")
 def attention_op(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, kernels: str = "cuda",
     *, block_q: Optional[int] = None, block_kv: Optional[int] = None,
+    q_offset: Optional[int] = None,
 ) -> torch.Tensor:
     """``block_q`` / ``block_kv`` are the JAX kernel's blocks (each must
-    divide its sequence; the plan's by default); the oracle has none."""
+    divide its sequence; the plan's by default); the oracle has none.
+    ``q_offset``: query row r stands at position ``q_offset + r`` of the
+    keys (a rank's rows of a sequence split over ranks; ``q_offset + Sq <=
+    Skv`` under ``causal``), on every route; None keeps each route's own
+    default (the kernels' Sq == Skv, the oracle's end-aligned diagonal)."""
     fn = _choose(kernels, flash_attention, flash_attention_plain, ref.attention_ref)
     if kernels == "ref":
-        return fn(q, k, v, causal=causal)
+        return fn(q, k, v, causal=causal, q_offset=q_offset)
     if kernels == "cuda" and needs_grad(q, k, v):
-        return KernelAttention.apply(q, k, v, causal, block_q, block_kv)
-    return fn(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv)
+        return KernelAttention.apply(q, k, v, causal, block_q, block_kv, q_offset)
+    return fn(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv, q_offset=q_offset)
 
 
 def ssd_op(x, dt, a, b, c, kernels: str = "cuda", *, chunk: Optional[int] = None) -> torch.Tensor:

@@ -9,6 +9,8 @@ CUDA kernel against them on the card.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -32,15 +34,18 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def attention_ref(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    *, q_offset: Optional[int] = None,
 ) -> torch.Tensor:
-    """q (B, Sq, D), k/v (B, Skv, D) -> (B, Sq, D); under ``causal`` the
-    diagonal is aligned to the *end* of the KV window."""
+    """q (B, Sq, D), k/v (B, Skv, D) -> (B, Sq, D); under ``causal`` query
+    row r stands at position ``q_offset + r``: by default ``Skv - Sq``, the
+    diagonal aligned to the *end* of the KV window, as the JAX oracle's."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if causal:
         sq, skv = q.shape[1], k.shape[1]
-        qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        off = skv - sq if q_offset is None else q_offset
+        qi = torch.arange(sq, device=q.device)[:, None] + off
         ki = torch.arange(skv, device=q.device)[None, :]
         logits = torch.where(ki <= qi, logits, float("-inf"))
     p = torch.softmax(logits, dim=-1)

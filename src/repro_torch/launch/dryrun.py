@@ -5,9 +5,12 @@ package's ``launch/dryrun.py``.
 The JAX dry run lowers and compiles each cell's SPMD program for 256 / 512
 TPU chips it does not have.  Here each cell runs the port's own step, the
 one a user would run, on ``meta`` tensors (nothing is allocated on any
-device, nothing is computed) as rank 0 of a fake world of 256 ranks, the
+device, nothing is computed) as one rank of a fake world of 256 ranks, the
 (16, 16) ``(data, model)`` mesh, or 512, the (2, 16, 16) ``(pod, data,
-model)`` mesh (``launch.mesh.init_distributed("fake", ...)``): the port's
+model)`` mesh (``launch.mesh.init_distributed("fake", ...)``), the one with
+the most work (``trace_rank``: rank 0, but for a ``context`` plan, whose
+model ranks run their own query rows of a causal attention, the last
+``model`` coordinate's, which the report names): the port's
 planner lays the parameters out (``param_shardings``; ZeRO gradient layouts
 ``zero_shardings``), DTensor runs every op on the rank's local shards, and
 ``roofline.dispatch_cost`` counts what that rank dispatches:
@@ -45,6 +48,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import sys
 import traceback
@@ -59,7 +63,7 @@ from repro_torch.distributed.context import sharding_context
 from repro_torch.distributed.sharding import (
     _zip_map, dp_axes, make_plan, param_shardings, placements, zero_shardings,
 )
-from repro_torch.launch.mesh import init_distributed, make_production_mesh
+from repro_torch.launch.mesh import init_distributed, make_abstract_mesh, make_production_mesh
 from repro_torch.models import forward_prefill, init_kv_cache, init_params
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import PREFIX_LEN, _leaves
@@ -121,14 +125,39 @@ def shape_applicable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
 
 
 @contextlib.contextmanager
-def fake_world(size: int) -> Iterator[None]:
+def fake_world(size: int, rank: int = 0) -> Iterator[None]:
     """A fake world of ``size`` ranks in this process, this process its
-    rank 0, destroyed on exit."""
-    init_distributed("fake", world_size=size)
+    rank ``rank``, destroyed on exit."""
+    init_distributed("fake", rank=rank, world_size=size)
     try:
         yield
     finally:
         dist.destroy_process_group()
+
+
+def traced_coordinate(plan) -> Dict[str, int]:
+    """The mesh coordinate whose work a cell reports: the heaviest rank's.
+    Under a ``context`` plan each model rank runs its own query rows of a
+    causal attention, and the last rows keep the most scores: the last
+    ``model`` coordinate, every other 0.  Under any other plan the ranks'
+    work is the same: every coordinate 0."""
+    coord = {a: 0 for a in plan.axes}
+    if plan.attn_strategy == "context":
+        coord["model"] = plan.axes["model"] - 1
+    return coord
+
+
+def trace_rank(arch: str, multi_pod: bool = False) -> int:
+    """The rank of the production fake world (row-major over its mesh)
+    that holds ``traced_coordinate`` of ``arch``'s plan: 15 for a
+    ``context`` plan on either mesh, else 0."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    key = arch.replace("-", "_").replace(".", "_")
+    plan = make_plan(get_config(arch), make_abstract_mesh(shape, names),
+                     **PLAN_OVERRIDES.get(key, {}))
+    coord = traced_coordinate(plan)
+    return sum(coord[a] * math.prod(shape[i + 1:]) for i, a in enumerate(names))
 
 
 def _distribute(tree: Mapping, shardings: Mapping) -> Dict:
@@ -199,9 +228,11 @@ def lower_cell(
     info: Optional[Dict] = None,
 ):
     """Build and trace one cell on this rank of the current fake world
-    (``mesh``: the production mesh of that world by default).  ``info``:
-    the shape's ``kind``, ``seq`` and ``batch`` (``SHAPES[shape]`` by
-    default).  Returns (the rank's ``Cost``, the report dict)."""
+    (``mesh``: the production mesh of that world by default), which must
+    hold the plan's ``traced_coordinate`` (``fake_world(size,
+    rank=trace_rank(arch))``).  ``info``: the shape's ``kind``, ``seq`` and
+    ``batch`` (``SHAPES[shape]`` by default).  Returns (the rank's
+    ``Cost``, the report dict)."""
     cfg = get_config(arch)
     ok, why = shape_applicable(cfg, shape)
     if not ok:
@@ -212,6 +243,13 @@ def lower_cell(
     merged_overrides = dict(PLAN_OVERRIDES.get(key, {}))
     merged_overrides.update(plan_overrides or {})
     plan = make_plan(cfg, mesh, **merged_overrides)
+    coord = dict(zip(mesh.mesh_dim_names, (int(c) for c in mesh.get_coordinate())))
+    if coord != traced_coordinate(plan):
+        raise ValueError(
+            f"{arch} {shape}: a {plan.attn_strategy!r} plan's figures are the rank at "
+            f"{traced_coordinate(plan)}'s, and this one is at {coord}; trace it in "
+            "fake_world(size, rank=trace_rank(arch))"
+        )
     info = info or SHAPES[shape]
     seq, batch = info["seq"], info["batch"]
     chips = mesh.size()
@@ -279,6 +317,7 @@ def lower_cell(
         "multi_pod": multi_pod,
         "chips": chips,
         "mesh": dict(zip(mesh.mesh_dim_names, (int(v) for v in mesh.shape))),
+        "rank": {"rank": dist.get_rank(), "coordinate": coord},
         "plan": {
             "attn": plan.attn_strategy,
             "moe": plan.moe_strategy,
@@ -303,6 +342,9 @@ def lower_cell(
 
 
 def run_cell_cached(arch, shape, multi_pod=False, force=False, **kw):
+    """One production cell's report: the cached one unless ``force``, else
+    the cell traced in a fake world of its own as its ``trace_rank`` (an
+    ``error`` report if anything raises), written to ``RESULTS_DIR``."""
     os.makedirs(RESULTS_DIR, exist_ok=True)
     tag = f"{arch}__{shape}__{'mp' if multi_pod else 'sp'}"
     path = os.path.join(RESULTS_DIR, tag + ".json")
@@ -310,7 +352,8 @@ def run_cell_cached(arch, shape, multi_pod=False, force=False, **kw):
         with open(path) as f:
             return json.load(f)
     try:
-        _, out = lower_cell(arch, shape, multi_pod=multi_pod, **kw)
+        with fake_world(512 if multi_pod else 256, rank=trace_rank(arch, multi_pod)):
+            _, out = lower_cell(arch, shape, multi_pod=multi_pod, **kw)
     except Exception as e:  # record the failure — these are bugs to fix
         out = {
             "arch": arch, "shape": shape, "status": "error",
@@ -343,25 +386,24 @@ def main(argv=None) -> int:
             cells.append((a, s))
 
     errors = 0
-    with fake_world(512 if args.multi_pod else 256):
-        for a, s in cells:
-            out = run_cell_cached(a, s, multi_pod=args.multi_pod, force=args.force)
-            status = out["status"]
-            if status == "ok":
-                r = out["roofline"]
-                print(
-                    f"{a:18s} {s:12s} {'MP' if args.multi_pod else 'SP'} OK  "
-                    f"mem={out['memory']['peak_gb_per_chip']:6.2f}GB "
-                    f"tc={r['t_compute']*1e3:8.3f}ms tm={r['t_memory']*1e3:8.3f}ms "
-                    f"tcoll={r['t_collective']*1e3:8.3f}ms dom={r['dominant']:10s} "
-                    f"frac={r['roofline_fraction']:.3f} trace={out['trace_s']:.1f}s",
-                    flush=True,
-                )
-            elif status == "skipped":
-                print(f"{a:18s} {s:12s} SKIP ({out['why'][:60]}...)", flush=True)
-            else:
-                errors += 1
-                print(f"{a:18s} {s:12s} ERROR {out['error'][:300]}", flush=True)
+    for a, s in cells:
+        out = run_cell_cached(a, s, multi_pod=args.multi_pod, force=args.force)
+        status = out["status"]
+        if status == "ok":
+            r = out["roofline"]
+            print(
+                f"{a:18s} {s:12s} {'MP' if args.multi_pod else 'SP'} OK  "
+                f"mem={out['memory']['peak_gb_per_chip']:6.2f}GB "
+                f"tc={r['t_compute']*1e3:8.3f}ms tm={r['t_memory']*1e3:8.3f}ms "
+                f"tcoll={r['t_collective']*1e3:8.3f}ms dom={r['dominant']:10s} "
+                f"frac={r['roofline_fraction']:.3f} trace={out['trace_s']:.1f}s",
+                flush=True,
+            )
+        elif status == "skipped":
+            print(f"{a:18s} {s:12s} SKIP ({out['why'][:60]}...)", flush=True)
+        else:
+            errors += 1
+            print(f"{a:18s} {s:12s} ERROR {out['error'][:300]}", flush=True)
     return 1 if errors else 0
 
 

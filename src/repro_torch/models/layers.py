@@ -14,8 +14,9 @@ The sharding hints (``distributed.context.hint``) sit at the JAX module's
 sites.  Under a sharding context with DTensor operands both routes first
 redistribute q, k and v to a layout where each rank's attention is
 independent (batch over the data axes, heads over ``model`` where they
-divide it, the sequence whole), run on the local shards and rewrap the
-result (``on_local_heads``).  ``set_attention_impl("ring")``
+divide it, else a ``context`` plan's query rows over ``model`` at their
+offset; keys and values whole along the sequence), run on the local shards
+and rewrap the result (``on_local_heads``).  ``set_attention_impl("ring")``
 sends a ``context``-strategy plan's attention to ``distributed.ring_attention``
 under the JAX module's conditions.
 """
@@ -181,52 +182,60 @@ def _kernel_blocks(s: int) -> Optional[int]:
     return None if s & (s - 1) == 0 else s & -s
 
 
-def _local_kernel_attention(q, k, v, kernels: str) -> torch.Tensor:
-    b, s, hq, d = q.shape
+def _local_kernel_attention(q, k, v, kernels: str, q_offset: int = 0) -> torch.Tensor:
+    """(B, Sq, Hq, D) queries, their row r at position ``q_offset + r``,
+    over (B, Skv, Hkv, D) keys and values through ``ops.attention_op``,
+    each sequence with its own blocks."""
+    b, sq, hq, d = q.shape
     g = hq // k.shape[2]
 
     def fold(t):
-        return t.transpose(1, 2).reshape(b * hq, s, d).contiguous()
+        return t.transpose(1, 2).reshape(b * hq, t.shape[1], d).contiguous()
 
-    blk = _kernel_blocks(s)
     o = ops.attention_op(
         fold(q), fold(k.repeat_interleave(g, dim=2)), fold(v.repeat_interleave(g, dim=2)),
-        causal=True, kernels=kernels, block_q=blk, block_kv=blk,
+        causal=True, kernels=kernels, block_q=_kernel_blocks(sq),
+        block_kv=_kernel_blocks(k.shape[1]), q_offset=q_offset,
     )
-    return o.reshape(b, hq, s, d).transpose(1, 2)
+    return o.reshape(b, hq, sq, d).transpose(1, 2)
 
 
 def on_local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``fn(q, k, v)``, a causal attention of (B, S, Hq, D) queries over
-    (B, S, Hkv, D) keys and values, on each rank's shards.
+    """``fn(q, k, v, q_offset)``, a causal attention of (B, Sq, Hq, D)
+    queries, row r at position ``q_offset + r``, over (B, S, Hkv, D) keys
+    and values, on each rank's shards.
 
     DTensor operands under a sharding context are first redistributed so
     that each rank's work is independent: the batch over the data axes
     where it divides them, the q heads over ``model`` where they divide it
     (the KV heads too where they divide it; else each rank takes the KV
-    heads of its own q heads), and the sequence whole, since a causal
-    attention takes query row i at position i.  A ``context`` plan's q,
-    sharded over S, is so gathered over ``model``: every model rank then
-    runs the whole sequence of its batch shard (replicated work).  Where
-    the KV heads are whole on the model ranks that split the q heads, a
-    rank's gradient of K and V is its part of a sum over those ranks.
-    Plain tensors go to ``fn`` as they are."""
+    heads of its own q heads), and K and V whole along the sequence.  A
+    ``context`` plan's q arrives split along S over ``model``; it stays so,
+    and each model rank runs only its own query rows at their offset (the
+    JAX route's ``q_offset``, on the rows XLA gives each rank), its output
+    split the same way.  Other q is whole along S (offset 0).  Where K and
+    V are whole on the model ranks that split the q heads or the query
+    rows, a rank's gradient of K and V is its part of a sum over those
+    ranks.  Plain tensors go to ``fn`` as they are, at offset 0."""
     c = _ctx.current()
     if c is None or not isinstance(q, DTensor):
-        return fn(q, k, v)
+        return fn(q, k, v, 0)
     b, _, hq, _ = q.shape
     hkv = k.shape[2]
     msize = c.plan.axes["model"]
     lead = c.plan.batch_spec("q", (b,))[0]
     heads = hq % msize == 0
-    q_pl = placements(P(lead, None, "model" if heads else None, None), c.mesh)
+    m = list(c.plan.axes).index("model")
+    rows = c.plan.attn_strategy == "context" and q.placements[m].is_shard(1)
+    q_pl = placements(P(lead, "model" if rows else None, "model" if heads else None, None),
+                      c.mesh)
     kv_pl = placements(P(lead, None, "model" if heads and hkv % msize == 0 else None, None),
                        c.mesh)
-    # KV heads whole on the model ranks that split the q heads: each rank's
-    # gradient of K and V is its own q heads' part of a sum over them
-    m = list(c.plan.axes).index("model")
-    kv_grad = [Partial() if i == m and heads and hkv % msize else p
+    # K and V whole on the model ranks that split the q heads or rows: each
+    # rank's gradient of K and V is its own heads' or rows' part of a sum
+    kv_grad = [Partial() if i == m and (rows or heads and hkv % msize) else p
                for i, p in enumerate(kv_pl)]
+    offset = compute_local_shape_and_global_offset(q.shape, c.mesh, q_pl)[1][1] if rows else 0
     ql = q.redistribute(c.mesh, q_pl).to_local()
     kl = k.redistribute(c.mesh, kv_pl).to_local(grad_placements=kv_grad)
     vl = v.redistribute(c.mesh, kv_pl).to_local(grad_placements=kv_grad)
@@ -236,7 +245,7 @@ def on_local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
         first = c.mesh.get_local_rank("model") * hq_loc
         idx = (first + torch.arange(hq_loc, device=ql.device)) // (hq // hkv)
         kl, vl = kl[:, :, idx], vl[:, :, idx]
-    return DTensor.from_local(fn(ql, kl, vl), c.mesh, q_pl, run_check=False)
+    return DTensor.from_local(fn(ql, kl, vl, offset), c.mesh, q_pl, run_check=False)
 
 
 def kernel_attention(
@@ -246,7 +255,8 @@ def kernel_attention(
     and values through the hand-written kernel: batch and heads folded to
     (B·Hq, S, D), each KV head repeated for its query group; DTensor
     operands on each rank's shards (``on_local_heads``)."""
-    o = on_local_heads(lambda ql, kl, vl: _local_kernel_attention(ql, kl, vl, kernels), q, k, v)
+    o = on_local_heads(lambda ql, kl, vl, off: _local_kernel_attention(ql, kl, vl, kernels, off),
+                       q, k, v)
     ROUTES["attention_op"] += 1
     return o
 
@@ -297,8 +307,8 @@ def attention_block(
     if window is None:
         o = kernel_attention(q, k, v, kernels)
     else:
-        o = on_local_heads(lambda ql, kl, vl: chunked_gqa_attention(
-            ql, kl, vl, window=window, kv_chunk=min(kv_chunk, s)), q, k, v)
+        o = on_local_heads(lambda ql, kl, vl, off: chunked_gqa_attention(
+            ql, kl, vl, q_offset=off, window=window, kv_chunk=min(kv_chunk, s)), q, k, v)
         ROUTES["windowed"] += 1
     o = hint(o, "q_heads")
     return merge_heads(seq_whole(o)) @ p["wo"]

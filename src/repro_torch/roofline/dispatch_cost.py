@@ -248,9 +248,9 @@ class DispatchCostMode(TorchDispatchMode):
 
     def _charge_kernel(self, name: str, args, out) -> None:
         if name == "flash_attention":
-            q, k, v, causal = args[:4]
+            q, k, v, causal, q_offset = args[:5]
             works = [("flash_attention", *kernel_work("flash_attention", (q, k, v), out,
-                                                      causal=causal))]
+                                                      causal=causal, q_offset=q_offset))]
         else:                                  # ssd_scan(x, dt, a, b, c, chunk)
             works = ssd_scan_work(*args[:6])
         for kname, nbytes, ops, peak in works:
@@ -263,11 +263,11 @@ class DispatchCostMode(TorchDispatchMode):
     def plain_vjp(self, run, plain, inputs, needs, grad_out, **kw):
         """``kernels.grad._plain_vjp`` on meta tensors, traced once for each
         signature (the plain version, its inputs' shapes and dtypes, which
-        gradients, its blocks or chunk) and charged that trace's counters
-        and transient peak at every later call, which returns fresh
-        gradients of the same shapes: every layer and microbatch runs the
-        same ops on the same shapes, and tracing them op by op again would
-        take most of a train cell's trace."""
+        gradients, its blocks, query offset or chunk) and charged that
+        trace's counters and transient peak at every later call, which
+        returns fresh gradients of the same shapes: every layer and
+        microbatch runs the same ops on the same shapes, and tracing them op
+        by op again would take most of a train cell's trace."""
         key = (plain.__name__, tuple((tuple(t.shape), t.dtype) for t in inputs), tuple(needs),
                tuple(grad_out.shape), tuple(sorted(kw.items())))
         if key in self._vjps:

@@ -11,10 +11,12 @@ import torch
 from .analysis import PEAK_F32_FLOPS, PEAK_FLOPS
 
 
-def kernel_work(name: str, args, out, chunk=None, causal: bool = True) -> tuple:
+def kernel_work(name: str, args, out, chunk=None, causal: bool = True,
+                q_offset: int = 0) -> tuple:
     """Bytes a hand-written kernel must move (each input read once, the
     output written once), the operations it does on these inputs (only the
-    scores a causal mask keeps; only the lower triangle of each SSD chunk,
+    scores a causal mask keeps: Sq·q_offset + Sq(Sq+1)/2 a head for query
+    rows at ``q_offset``; only the lower triangle of each SSD chunk,
     whose C B^T the SSD read-out kernel reads only there; the additions of
     a split-K matmul's reduction) and the peak rate of the unit they could
     use: bf16 tensor cores for bf16 products, else IEEE f32 (the SSD
@@ -33,7 +35,7 @@ def kernel_work(name: str, args, out, chunk=None, causal: bool = True) -> tuple:
         ops = 2 * m * n * k
     elif name == "flash_attention":               # q.k and p.v per kept score
         b, sq, d = args[0].shape
-        kept = sq * (sq + 1) // 2 if causal else sq * args[1].shape[1]
+        kept = sq * q_offset + sq * (sq + 1) // 2 if causal else sq * args[1].shape[1]
         ops = 4 * d * b * kept
     elif name == "ssd_gram":                      # C B^T of each chunk, lower triangle
         s, n = args[0].shape

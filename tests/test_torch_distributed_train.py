@@ -6,8 +6,12 @@ unsharded port and the JAX package; a two-microbatch AdamW step of
 tinyllama on a 2×2 (data, model) mesh with ZeRO gradient layouts
 (``zero_shardings``) against the unsharded step; greedy decoding of its
 weights with the cache placed by ``kv_cache_specs``, token for token with
-the unsharded engine; and the checkpoint that step wrote on 2×2 restored
-on 1×3 bit for bit.
+the unsharded engine; the checkpoint that step wrote on 2×2 restored on
+1×3 bit for bit; and the loss and gradients of reduced tinyllama on the
+1×3 mesh under the ``context`` plan, where each model rank runs the
+attention on its own S/3 query rows at offsets 0, 8 and 16, against the
+unsharded port and JAX (each gradient leaf relative to its own largest
+value, as the (2, 2, 2) case of ``test_torch_dryrun_multipod.py``).
 
 Tolerances as in ``test_torch_distributed_ranks.py``: 1e-5 against the
 unsharded port, 1e-4 against JAX; the sharded step's loss, gradient norm
@@ -26,8 +30,10 @@ import pytest
 
 from repro.configs import get_config as jax_get_config
 from repro.models import model as jm
-from torch_dist_cases import JAX_TOL, SHARD_TOL, check_model, close, flat, models_case, run_worker
-from torch_dist_worker import B, MOE_ARCH, S, TRAIN_ARCH, TRAIN_OVER
+from torch_dist_cases import (
+    JAX_TOL, SHARD_TOL, check_model, close, flat, model_inputs, models_case, run_worker,
+)
+from torch_dist_worker import B, CONTEXT_ARCH, KV_CHUNK, MOE_ARCH, S, TRAIN_ARCH, TRAIN_OVER
 
 pytestmark = pytest.mark.torch
 
@@ -148,3 +154,45 @@ def test_checkpoint_from_2x2_restores_on_1x3(train_and_restore):
         assert sorted(got) == sorted(want) and got
         for k in got:
             assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.fixture(scope="module")
+def train_context(tmp_path_factory):
+    """(rank 0's output of the worker's ``train-context`` case, the JAX
+    package's loss and gradient leaves on the same parameters and batch)."""
+    cfg, params, batch, inputs = model_inputs("context", CONTEXT_ARCH, {}, 20, B, S)
+    jb = {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()}
+    loss, grads = jax.value_and_grad(
+        lambda p: jm.forward_train(cfg, p, jb, kv_chunk=KV_CHUNK, remat=False)[0])(params)
+    out = run_worker("train-context", tmp_path_factory.mktemp("train-context"), inputs)
+    return out, np.asarray(loss), [np.asarray(g) for g in jax.tree_util.tree_leaves(grads)]
+
+
+def test_context_step_runs_each_ranks_own_query_rows(train_context):
+    """Each of the 3 model ranks runs the attention on its own S/3 = 8
+    query rows over the 24 keys, at offsets 0, 8 and 16 (every layer)."""
+    out = train_context[0]
+    assert str(out["strategy"]) == "context/none"
+    assert out["attention_calls"].tolist() == [[[S // 3, S, r * S // 3]] for r in range(3)]
+
+
+@pytest.mark.parametrize("against,tol", [("unsharded", SHARD_TOL), ("jax", JAX_TOL)])
+def test_context_step_loss_matches(train_context, against, tol):
+    out, jax_loss, _ = train_context
+    close(out["loss"], out["loss_unsharded"] if against == "unsharded" else jax_loss, tol)
+
+
+@pytest.mark.parametrize("against,tol", [("unsharded", SHARD_TOL), ("jax", JAX_TOL)])
+def test_context_step_gradients_match(train_context, against, tol):
+    """Every gradient leaf within ``tol`` of its own largest value: the K
+    and V projections' among them, each rank's part of a sum over the model
+    ranks (a ``Partial`` gradient placement in ``on_local_heads``)."""
+    out, _, jax_grads = train_context
+    n = sum(k.startswith("grad/") for k in out)
+    assert n == len(jax_grads) and n == sum(k.startswith("grad_unsharded/") for k in out)
+    for i in range(n):
+        got = out[f"grad/{i}"]
+        want = out[f"grad_unsharded/{i}"] if against == "unsharded" else jax_grads[i]
+        assert got.shape == want.shape and np.abs(want).max() > 0
+        err = float(np.max(np.abs(got - want))) / float(np.max(np.abs(want)))
+        assert err <= tol, (i, err)

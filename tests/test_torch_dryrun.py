@@ -38,11 +38,14 @@ from pathlib import Path
 
 import jax
 import pytest
+import torch
 
 import repro_torch.launch.dryrun as td
 from repro.configs import get_config as jax_get_config
 from repro_torch.configs import get_config as torch_get_config
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.roofline import dispatch_cost
+from repro_torch.roofline.kernel_cost import kernel_work
 from torch_dist_cases import run_jax
 
 pytestmark = pytest.mark.torch
@@ -240,14 +243,50 @@ def test_cells_trace_where_heads_do_not_divide_the_model_axis(monkeypatch, strat
     decode's query and output where they are reshaped); with 6 query heads
     the plan is ``context`` and the output projection's gradient is gathered
     before its heads are unflattened (``layers.merge_heads``).  The full-size
-    sweep meets both (tinyllama's 4 KV heads, qwen3-14b's 40 heads, over 16)."""
+    sweep meets both (tinyllama's 4 KV heads, qwen3-14b's 40 heads, over 16).
+
+    The context plan's model ranks each run their own 16 query rows of the
+    64 at their offset (``layers.on_local_heads``); the cell is traced as
+    the last one (offset 48), which the report names, and is refused on
+    rank 0.  Its attention kernels are charged ``kernel_work`` at offset 48:
+    16·48 + 16·17/2 scores a head against the whole sequence's 64·65/2
+    that each rank ran before, 0.435 of it (7/16 as S grows)."""
     monkeypatch.setattr(td, "get_config",
                         lambda a: torch_get_config(a).reduced(**UNEVEN[strategy]))
     monkeypatch.setitem(td.SHAPES, kind, CELLS[kind])
-    with td.fake_world(4):
+    charged = []
+
+    def work(name, args, out, *a, **kw):
+        res = kernel_work(name, args, out, *a, **kw)
+        charged.append((tuple(args[0].shape), tuple(args[1].shape), kw.get("q_offset"), res[1]))
+        return res
+
+    monkeypatch.setattr(dispatch_cost, "kernel_work", work)
+    last = 3 if strategy == "context" else 0
+    with td.fake_world(4, rank=last):
         mesh = make_mesh((1, 4), ("data", "model"), device_type="fake")
         cost, got = td.lower_cell("tinyllama_1_1b", kind, mesh=mesh, kv_chunk=KV_CHUNK,
                                   **KW[kind])
     # the plan's note on a context plan takes the "attn" key, as in the JAX report
     assert got["status"] == "ok" and strategy in got["plan"]["attn"]
     assert cost.total_flops > 0 and got["memory"]["fits_80gb"]
+    assert got["rank"] == {"rank": last, "coordinate": {"data": 0, "model": last}}
+    if strategy == "heads":
+        return
+    with td.fake_world(4):
+        mesh = make_mesh((1, 4), ("data", "model"), device_type="fake")
+        with pytest.raises(ValueError, match="trace_rank"):
+            td.lower_cell("tinyllama_1_1b", kind, mesh=mesh, kv_chunk=KV_CHUNK, **KW[kind])
+    if kind == "d":
+        assert not charged        # decode reads the cache, not the kernel
+        return
+    seq = CELLS[kind]["seq"]
+    assert charged and len(charged) == sum(cost.kernels.values())
+    for q_shape, k_shape, off, ops_ in charged:
+        bh, sq, d = q_shape
+        assert (sq, k_shape[1], off) == (seq // 4, seq, 3 * seq // 4)
+        meta = [torch.empty(sh, device="meta") for sh in (q_shape, k_shape, k_shape)]
+        assert ops_ == kernel_work("flash_attention", meta, meta[0], q_offset=off)[1]
+        replicated = 4 * d * bh * seq * (seq + 1) // 2
+        assert ops_ / replicated == pytest.approx((16 * 48 + 16 * 17 / 2) / (64 * 65 / 2))
+        assert ops_ < replicated / 2

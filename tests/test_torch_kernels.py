@@ -861,6 +861,10 @@ def host_simt(tmp_path_factory):
     return libs
 
 
+# the output (b, sq, d) of dtype code `dt`, argument 3 of the SIMT launch
+FLASH_OUT = (3, lambda q, k, v, o, b, sq, skv, d, scale, causal, off, dt:
+             b * sq * d * (4 - 2 * dt))
+
 # (batch, Sq, Skv, D, causal, dtype): how each reaches shared memory follows
 # from dtype, D and alignment (cp.async for f32 with D % 4 == 0, else through
 # registers; bf16 rows as 8-byte quads where D % 4 == 0)
@@ -896,9 +900,7 @@ def test_simt_flash_attention_on_host_matches_plain_version(host_simt, b, sq, sk
     held to ``"simt"`` for bf16 the tensor cores would take), one launch a
     call, against the plain version at the card's tolerances: 2e-3 and each
     row's error within 1e-4 of its norm for f32, 3e-2 for bf16."""
-    # the output (b, sq, d) of dtype code `dt`
-    out = (3, lambda q, k, v, o, b, sq, skv, d, scale, causal, dt: b * sq * d * (4 - 2 * dt))
-    kernel = _HostLauncher(host_simt["flash_attention"], fa_mod.KERNEL, out)
+    kernel = _HostLauncher(host_simt["flash_attention"], fa_mod.KERNEL, FLASH_OUT)
     monkeypatch.setattr(fa_mod, "require_cuda", lambda *a: torch.device("cpu"))
     monkeypatch.setattr(fa_mod, "KERNEL", kernel)
     monkeypatch.setattr(fa_mod, "_route", lambda q: "simt")
@@ -914,6 +916,47 @@ def test_simt_flash_attention_on_host_matches_plain_version(host_simt, b, sq, sk
     assert plan["blocks"] == -(-sq // 64) * b
     assert plan["threads"] == (128 if d <= 64 and plan["copy"] == "cp.async" else 256)
     assert plan["copy"] == ("cp.async" if dtype == torch.float32 and d % 4 == 0 else "registers")
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        rows = (got - want).norm(dim=-1) / want.norm(dim=-1)
+        assert float(rows.max()) <= 1e-4
+
+
+# (batch, Sq, Skv, D, q_offset, dtype): a rank's query rows at their offset,
+# causal: the last rows of the keys, an offset off the 64-row tile (the
+# mask cuts each tile in another place), offset 0 with Sq < Skv (the first
+# rank), a ragged query tile, bf16 quads at D 136
+HOST_FLASH_OFFSET = [
+    (2, 32, 96, 64, 64, torch.float32),
+    (1, 64, 192, 64, 37, torch.float32),
+    (1, 32, 96, 30, 0, torch.bfloat16),
+    (1, 40, 96, 100, 56, torch.float32),
+    (1, 64, 128, 136, 64, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,d,off,dtype", HOST_FLASH_OFFSET, ids=[
+    f"{b}x{sq}at{o}x{skv}x{d}-{str(t)[6:]}" for b, sq, skv, d, o, t in HOST_FLASH_OFFSET])
+def test_simt_flash_attention_on_host_at_an_offset(host_simt, b, sq, skv, d, off, dtype,
+                                                   monkeypatch):
+    """The SIMT kernel's source on the CPU (as above) on query rows [off,
+    off + Sq) of a causal self-attention over Skv keys, at ``q_offset=off``:
+    against the plain version at the same offset and against those rows of
+    the whole call's plain version, at the card's tolerances."""
+    kernel = _HostLauncher(host_simt["flash_attention"], fa_mod.KERNEL, FLASH_OUT)
+    monkeypatch.setattr(fa_mod, "require_cuda", lambda *a: torch.device("cpu"))
+    monkeypatch.setattr(fa_mod, "KERNEL", kernel)
+    monkeypatch.setattr(fa_mod, "_route", lambda q: "simt")
+    rng = np.random.default_rng(sq * d + skv + off)
+    qa, k, v = (ops.to_tensor(rng.standard_normal((b, skv, d)).astype(np.float32), dtype, "cpu")
+                for _ in range(3))
+    q = qa[:, off : off + sq]
+    kw = dict(causal=True, block_q=8, block_kv=32)
+    got = flash_attention(q, k, v, q_offset=off, **kw)
+    want = flash_attention_plain(q, k, v, q_offset=off, **kw)
+    assert kernel.launches == 1 and got.shape == (b, sq, d) and got.dtype == dtype
+    assert torch.equal(want, flash_attention_plain(qa, k, v, **kw)[:, off : off + sq])
     tol = 2e-3 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     if dtype == torch.float32:

@@ -36,6 +36,7 @@ CASES = {
     "train-moe": ((2, 2), ("data", "model")),
     "restore": ((1, 3), ("data", "model")),
     "multipod": ((2, 2, 2), ("pod", "data", "model")),
+    "train-context": ((1, 3), ("data", "model")),
 }
 # the reduced models of each models case: (label, arch, attention impl,
 # overrides of ``reduced()``).  gemma3's single KV head is replicated under
@@ -67,6 +68,9 @@ MULTIPOD_RUNS = (("tinyllama", "tinyllama_1_1b", {}),
                  ("tinyllama-kv1", "tinyllama_1_1b", {"n_kv_heads": 1}),
                  ("mamba2", "mamba2_2_7b", {}))
 MULTIPOD_B = 4
+# the context case: reduced tinyllama, whose 4 q heads do not divide the 3
+# model ranks (the ``context`` plan: each rank's own S/3 query rows)
+CONTEXT_ARCH = "tinyllama_1_1b"
 
 
 def tree_from_flat(flat, prefix):
@@ -280,6 +284,49 @@ def case_multipod(mesh, ins, out):
             [repr(p) for p in engine.cache["k"].placements])
 
 
+def case_train_context(mesh, ins, out):
+    """Loss and gradients of one batch under the ``context`` plan, each
+    against the unsharded port; every rank's attention calls (query rows,
+    keys, offset), gathered to rank 0: each model rank runs its own S/3
+    query rows at their offset (``layers.on_local_heads``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import make_plan, param_shardings
+    from repro_torch.distributed.context import sharding_context
+    from repro_torch.distributed.sharding import distribute_batch, distribute_tree
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import microbatch_grads
+
+    cfg = get_config(CONTEXT_ARCH).reduced()
+    params = tree_from_flat(ins, "params-context")
+    batch = _batch(ins, "batch-context")
+    plan = make_plan(cfg, mesh)
+    dparams = distribute_tree(params, param_shardings(plan, params))
+    calls, attention_op = set(), ops.attention_op
+
+    def noted(q, k, v, *a, **kw):
+        calls.add((q.shape[1], k.shape[1], kw.get("q_offset")))
+        return attention_op(q, k, v, *a, **kw)
+
+    ops.attention_op = noted
+    try:
+        with sharding_context(mesh, plan):
+            loss, grads = microbatch_grads(cfg, dparams, distribute_batch(plan, batch),
+                                           kv_chunk=KV_CHUNK, remat=False, kernels="eager")
+    finally:
+        ops.attention_op = attention_op
+    loss_u, grads_u = microbatch_grads(cfg, params, batch, kv_chunk=KV_CHUNK, remat=False,
+                                       kernels="eager")
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, sorted(calls))
+    out["strategy"] = np.array(f"{plan.attn_strategy}/{plan.moe_strategy}")
+    out["attention_calls"] = np.array(ranks)
+    out["loss"] = _full(loss).numpy()
+    out["loss_unsharded"] = loss_u.numpy()
+    for i, (g, gu) in enumerate(zip(grads, grads_u)):
+        out[f"grad/{i}"] = _full(g).numpy()
+        out[f"grad_unsharded/{i}"] = gu.numpy()
+
+
 def case_restore(mesh, ins, out, root):
     from repro_torch.configs import get_config
     from repro_torch.distributed import make_plan, param_shardings
@@ -330,6 +377,8 @@ def _rank(rank, world, case, root):
             case_train_moe(mesh, ins, out)
         elif case == "multipod":
             case_multipod(mesh, ins, out)
+        elif case == "train-context":
+            case_train_context(mesh, ins, out)
         else:
             case_restore(mesh, ins, out, root)
         if rank == 0:
