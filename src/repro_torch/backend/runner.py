@@ -26,6 +26,7 @@ arrays for differential comparison.
 from __future__ import annotations
 
 import hashlib
+import time
 import warnings
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -34,6 +35,7 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.ubplan import H100_SMEM_PER_BLOCK
 from repro_torch.frontend.expr import refs_in
 from repro_torch.frontend.lower import (
@@ -187,20 +189,24 @@ class TorchPipeline:
         A batched pipeline takes every input with one extra leading dim of
         exactly ``batch`` tiles; when the plan's slot capacity exceeds it,
         the inputs are zero-padded to capacity before the sweep and every
-        returned buffer is sliced back to the ``batch`` valid tiles."""
-        batch = self.plan.notes.get("batch")
-        cap = self.plan.notes.get("batch_capacity", batch)
-        buffers = inputs_to_torch(inputs, self.device, self.pipeline, batch)
-        if batch is not None and cap > batch:
-            buffers = {
-                n: torch.cat([a, a.new_zeros((cap - batch,) + tuple(a.shape[1:]))])
-                for n, a in buffers.items()
-            }
-        for k in self.kernels:
-            buffers[k.name] = k(buffers)
-        if batch is not None and cap > batch:
-            buffers = {n: a[:batch] for n, a in buffers.items()}
-        return buffers
+        returned buffer is sliced back to the ``batch`` valid tiles.
+
+        Span: ``pipeline.run``, the host's time in this call (the kernels
+        are enqueued, not waited for)."""
+        with telemetry.span("pipeline.run"):
+            batch = self.plan.notes.get("batch")
+            cap = self.plan.notes.get("batch_capacity", batch)
+            buffers = inputs_to_torch(inputs, self.device, self.pipeline, batch)
+            if batch is not None and cap > batch:
+                buffers = {
+                    n: torch.cat([a, a.new_zeros((cap - batch,) + tuple(a.shape[1:]))])
+                    for n, a in buffers.items()
+                }
+            for k in self.kernels:
+                buffers[k.name] = k(buffers)
+            if batch is not None and cap > batch:
+                buffers = {n: a[:batch] for n, a in buffers.items()}
+            return buffers
 
     def __call__(self, inputs: Mapping[str, object]) -> torch.Tensor:
         return self.run(inputs)[self.pipeline.output]
@@ -328,12 +334,18 @@ def pipeline_cache_stats() -> Dict[str, int]:
 
 def _kernels(groups, kernels: str) -> List[GroupKernel]:
     """One kernel of the chosen version per planned group; the CUDA kernels
-    of one call share one library."""
+    of one call share one library.  Counter ``compile.build_s``: seconds
+    spent here (lowering, then the plain version's kernels, or the CUDA
+    library's emit, nvcc build and load)."""
+    t = time.perf_counter()
     lowered = [LoweredGroup(kg) for kg in groups]
     if kernels == "eager":
-        return [EagerKernel(lg) for lg in lowered]
-    lib = load_library(emit_library(lowered))
-    return [CudaKernel(lg, lib, str(i)) for i, lg in enumerate(lowered)]
+        out = [EagerKernel(lg) for lg in lowered]
+    else:
+        lib = load_library(emit_library(lowered))
+        out = [CudaKernel(lg, lib, str(i)) for i, lg in enumerate(lowered)]
+    telemetry.add("compile.build_s", time.perf_counter() - t)
+    return out
 
 
 def _check_contract(device, kernels: str) -> torch.device:
@@ -429,7 +441,11 @@ def compile_pipeline(
     the filled keywords enter the plan cache key.  A miss plans the
     heuristic schedule silently; a row measured with other kernels or on
     another device warns ``TunedModeMismatchWarning``; a corrupt db or row
-    degrades to the heuristic schedule with ``ScheduleDBCorruptWarning``."""
+    degrades to the heuristic schedule with ``ScheduleDBCorruptWarning``.
+
+    A compile that misses the cache adds its seconds to the counters
+    ``compile.plan_s``, ``compile.verify_s`` and ``compile.build_s``
+    (:func:`repro_torch.telemetry.counters`); a hit adds nothing."""
     if verify not in (True, False, "auto"):
         raise ValueError(f"verify must be True, False, or 'auto': {verify!r}")
     dev = _check_contract(device, kernels)
@@ -488,11 +504,15 @@ def compile_pipeline(
                 assert_plan_verified(hit.plan)
             return hit
         _CACHE_STATS["misses"] += 1
+    t = time.perf_counter()
     plan = build_pipeline_plan(pipe, **plan_kwargs)
+    telemetry.add("compile.plan_s", time.perf_counter() - t)
     if plan_kwargs.get("line_buffer") is True:
         _warn_lane_carry_degrades(plan)
     if verify is not False:
+        t = time.perf_counter()
         assert_plan_verified(plan)
+        telemetry.add("compile.verify_s", time.perf_counter() - t)
     pp = TorchPipeline(pipe, _kernels(plan.kernels, kernels), plan, dev, kernels, cache_key=key)
     if cache:
         _PIPELINE_CACHE[key] = pp

@@ -31,10 +31,11 @@ the per-fault-class counters and the pipeline-cache counters in one dict.
 
 from __future__ import annotations
 
+import itertools
 import time
 import warnings
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import (
     Callable,
     Deque,
@@ -49,6 +50,7 @@ from typing import (
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.frontend.lower import Pipeline
 from repro_torch.serve.slots import pad_to_slots
 
@@ -76,6 +78,8 @@ from .runner import (
 # drain time and is rejected at submit instead
 _NUMERIC_KINDS = frozenset("fiub")
 
+_request_ids = itertools.count()
+
 
 @dataclass
 class TileRequest:
@@ -85,7 +89,8 @@ class TileRequest:
     (``outputs`` set, ``error`` None) or failed closed (``outputs`` None,
     ``error`` a named :class:`~repro_torch.backend.errors.BackendError`).
     ``deadline`` is an absolute server-clock time; ``None`` means no
-    deadline."""
+    deadline.  ``rid`` is unique in the process; the spans of
+    :mod:`repro_torch.telemetry` name a request by it."""
 
     inputs: Dict[str, np.ndarray]
     outputs: Optional[Dict[str, np.ndarray]] = None
@@ -94,6 +99,9 @@ class TileRequest:
     error: Optional[BackendError] = None
     deadline: Optional[float] = None
     submitted_at: Optional[float] = None
+    rid: int = field(default_factory=_request_ids.__next__, compare=False)
+    # ``time.time_ns()`` at admission, kept only while spans record
+    queued_ns: Optional[int] = field(default=None, repr=False, compare=False)
 
     @property
     def ok(self) -> bool:
@@ -309,11 +317,12 @@ class PipelineServer:
             if isinstance(request, TileRequest)
             else TileRequest(inputs=dict(request))
         )
-        try:
-            key = self._validate_request(req)
-        except RequestError:
-            self.fault_counters["validation_rejects"] += 1
-            raise
+        with telemetry.span("serve.admit", rid=req.rid):
+            try:
+                key = self._validate_request(req)
+            except RequestError:
+                self.fault_counters["validation_rejects"] += 1
+                raise
         if self.max_pending is not None:
             if self.admission == "reject":
                 if len(self.pending) >= self.max_pending:
@@ -333,6 +342,8 @@ class PipelineServer:
         if budget is not None:
             req.deadline = now + budget
         self.pending.append((key, req))
+        if telemetry.recording():
+            req.queued_ns = time.time_ns()
         return req
 
     # -- dispatch + fault handling ------------------------------------------
@@ -351,25 +362,33 @@ class PipelineServer:
     ) -> Dict[str, np.ndarray]:
         """One padded-to-capacity batched execution; returns per-kernel
         stacked host arrays.  Raises whatever the kernels raise — fault
-        handling is the caller's (``_service``) job."""
-        slots = pad_to_slots(
-            reqs, self.batch_slots, lambda: self._zero_request(pipe)
-        )
+        handling is the caller's (``_service``) job.
+
+        Spans: ``serve.stack`` (padding and stacking on the host),
+        ``serve.h2d`` (the copies in) and ``serve.d2h`` (the copies out,
+        which also wait for the dispatch's kernels to finish)."""
+        with telemetry.span("serve.stack"):
+            slots = pad_to_slots(
+                reqs, self.batch_slots, lambda: self._zero_request(pipe)
+            )
+            host = {
+                n: torch.from_numpy(np.stack(
+                    [np.asarray(r.inputs[n], np.float32) for r in slots]
+                ))
+                for n in pipe.inputs
+            }
         # one host-to-device copy per input name per dispatch
-        ins = {
-            n: torch.from_numpy(np.stack(
-                [np.asarray(r.inputs[n], np.float32) for r in slots]
-            )).to(pp.device)
-            for n in pipe.inputs
-        }
+        with telemetry.span("serve.h2d"):
+            ins = {n: t.to(pp.device) for n, t in host.items()}
         bufs = self._run_pipeline(pp, ins)
         self.dispatches += 1
         # one device-to-host copy per kernel per dispatch — slicing per slot
         # on the device tensor would pay a separate sync per tile
-        return {
-            k.name: bufs[k.name].cpu().numpy()
-            for k in pp.kernels
-        }
+        with telemetry.span("serve.d2h"):
+            return {
+                k.name: bufs[k.name].cpu().numpy()
+                for k in pp.kernels
+            }
 
     @staticmethod
     def _poisoned_slots(
@@ -515,7 +534,9 @@ class PipelineServer:
             # ladder exhausted: isolate the poison per tile
             self._quarantine(key, reqs)
             return
-        if self._poisoned_slots(outs, len(reqs)):
+        with telemetry.span("serve.scan"):
+            poisoned = self._poisoned_slots(outs, len(reqs))
+        if poisoned:
             # non-finite output in a live slot: nothing from this dispatch
             # is trustworthy — re-serve every tile from clean bisection
             # dispatches so healthy tiles stay bit-exact
@@ -549,34 +570,47 @@ class PipelineServer:
         queue is empty).  One dispatch serves one shape: the longest
         consecutive same-shape run at the head of the queue (up to
         ``batch_slots``), so mixed-shape traffic completes in submission
-        order."""
-        now = self._clock()
-        finished: List[TileRequest] = list(self._expire(now))
-        if not self.pending:
+        order.
+
+        Spans: ``serve.step`` (the whole call; ``live``, the requests it
+        took, and their ``rids``) and, for each request admitted while
+        spans recorded, ``serve.queued`` from its admission to this call's
+        start, kept only where this call records too: a wait across the
+        end of a profiler session would hold the profiler's own stop."""
+        with telemetry.span("serve.step", live=0) as sp:
+            now = self._clock()
+            finished: List[TileRequest] = list(self._expire(now))
+            if not self.pending:
+                return finished
+            key = self.pending[0][0]
+            reqs: List[TileRequest] = []
+            while (
+                self.pending
+                and len(reqs) < self.batch_slots
+                and self.pending[0][0] == key
+            ):
+                reqs.append(self.pending.popleft()[1])
+            if sp:
+                sp.set(live=len(reqs), rids=[r.rid for r in reqs])
+            for req in reqs:
+                if sp and req.queued_ns is not None:
+                    telemetry.record("serve.queued", req.queued_ns, sp.start_ns, rid=req.rid)
+                req.queued_ns = None
+            self._service(key, reqs)
+            # completed-late check: a request whose deadline passed during the
+            # dispatch fails closed — its computed outputs are discarded, not
+            # returned late as if on time
+            end = self._clock()
+            for req in reqs:
+                if req.ok and req.deadline is not None and end > req.deadline:
+                    self.fault_counters["deadline_misses"] += 1
+                    self._fail(req, DeadlineExceededError(
+                        f"completed {end - req.deadline:.3f}s past the "
+                        f"deadline; late results are discarded",
+                    ))
+            self.served += len(reqs)
+            finished.extend(reqs)
             return finished
-        key = self.pending[0][0]
-        reqs: List[TileRequest] = []
-        while (
-            self.pending
-            and len(reqs) < self.batch_slots
-            and self.pending[0][0] == key
-        ):
-            reqs.append(self.pending.popleft()[1])
-        self._service(key, reqs)
-        # completed-late check: a request whose deadline passed during the
-        # dispatch fails closed — its computed outputs are discarded, not
-        # returned late as if on time
-        end = self._clock()
-        for req in reqs:
-            if req.ok and req.deadline is not None and end > req.deadline:
-                self.fault_counters["deadline_misses"] += 1
-                self._fail(req, DeadlineExceededError(
-                    f"completed {end - req.deadline:.3f}s past the "
-                    f"deadline; late results are discarded",
-                ))
-        self.served += len(reqs)
-        finished.extend(reqs)
-        return finished
 
     def run(
         self, requests: List[Union[TileRequest, Mapping[str, np.ndarray]]]
