@@ -4,14 +4,17 @@ A :class:`PipelineServer` owns one pipeline compiled at full slot capacity
 (``batch = batch_capacity = batch_slots``, so every service step reuses the
 same cached kernels), queues :class:`TileRequest`\\ s, and each ``step()``
 packs up to ``batch_slots`` pending tiles into a single batched dispatch:
-one kernel launch per kernel group instead of one per tile.  Each input
-name is stacked into one device tensor per dispatch, and each kernel's
-output comes back to the host in one copy per dispatch.
+one kernel launch per kernel group instead of one per tile.  Each shape
+keeps its transfer buffers for the server's life (:class:`_Staging`, pinned
+on a CUDA device): a dispatch casts its live tiles into their slots of the
+host buffer, copies those slots in with one copy per input name, and
+copies those slots of each kernel's output back with one copy per kernel,
+into arrays the requests then own.
 
-Raggedness is handled by the serve layer, not the kernel: a short final
-batch is padded to capacity with zero tiles (``serve.slots.pad_to_slots``)
-and the filler slots' outputs are discarded, so a valid slot's result is
-the per-tile pipeline's, bit for bit.
+Raggedness is handled by the serve layer, not the kernel: a short batch
+runs at capacity with its filler slots zeroed on the device on every
+dispatch, and their outputs are never copied back, so a valid slot's
+result is the per-tile pipeline's, bit for bit.
 
 One server can juggle several tile shapes: :meth:`PipelineServer.register`
 adds another pipeline to a per-shape dispatch table, ``submit`` routes each
@@ -52,7 +55,6 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.frontend.lower import Pipeline
-from repro_torch.serve.slots import pad_to_slots
 
 from .errors import (
     BackendError,
@@ -95,7 +97,6 @@ class TileRequest:
     inputs: Dict[str, np.ndarray]
     outputs: Optional[Dict[str, np.ndarray]] = None
     done: bool = False
-    filler: bool = False              # capacity padding; outputs discarded
     error: Optional[BackendError] = None
     deadline: Optional[float] = None
     submitted_at: Optional[float] = None
@@ -120,6 +121,72 @@ def _fault_counter_zeros() -> Dict[str, int]:
         "quarantine_dispatches": 0,    # bisection probe dispatches
         "poisoned_tiles": 0,           # requests failed as poisoned
     }
+
+
+class _Staging:
+    """One dispatch-table entry's transfer buffers, kept for the server's
+    life: a host buffer and a device tensor per input name, each
+    ``[slots, *tile]`` f32, and a host buffer per kernel output, made on
+    its first copy back.  On a CUDA device the host buffers are pinned, so
+    both copies run asynchronously to the host; on the CPU they are plain
+    tensors and the same steps run in order."""
+
+    def __init__(self, pipe: Pipeline, slots: int, device: torch.device) -> None:
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self.host = {
+            n: torch.empty(
+                (slots, *PipelineServer._tile_shape(pipe, n)),
+                dtype=torch.float32, pin_memory=self.pinned,
+            )
+            for n in pipe.inputs
+        }
+        self.views = {n: t.numpy() for n, t in self.host.items()}
+        self.dev = {n: torch.empty_like(t, device=device) for n, t in self.host.items()}
+        self.out: Dict[str, torch.Tensor] = {}
+        # recorded after each dispatch's copies in: the host buffers are
+        # rewritten only once it has passed, raise or no raise in between
+        self._h2d: Optional[torch.cuda.Event] = None
+
+    def stage(self, reqs: List[TileRequest]) -> None:
+        """Cast each live request's inputs into its slot of the host
+        buffers (``np.asarray(x, np.float32)``'s values)."""
+        if self._h2d is not None:
+            self._h2d.synchronize()
+            self._h2d = None
+        for n, view in self.views.items():
+            for b, req in enumerate(reqs):
+                np.copyto(view[b], req.inputs[n], casting="unsafe")
+
+    def to_device(self, n_live: int) -> Dict[str, torch.Tensor]:
+        """Copy the live slots in and zero the filler slots on the device,
+        so no slot carries one dispatch's data into the next."""
+        for n, host in self.host.items():
+            dev = self.dev[n]
+            dev[:n_live].copy_(host[:n_live], non_blocking=True)
+            dev[n_live:].zero_()
+        if self.pinned:
+            self._h2d = torch.cuda.Event()
+            self._h2d.record(torch.cuda.current_stream(self.device))
+        return dict(self.dev)
+
+    def from_device(
+        self, bufs: Mapping[str, torch.Tensor], names: List[str], n_live: int
+    ) -> Dict[str, np.ndarray]:
+        """Copy the live slots of each named buffer back, wait for them
+        (and so for the dispatch's kernels), and return fresh host arrays:
+        a request's outputs never alias a buffer the next dispatch reuses."""
+        for name in names:
+            buf = bufs[name]
+            out = self.out.get(name)
+            if out is None:
+                out = self.out[name] = torch.empty(
+                    buf.shape, dtype=buf.dtype, pin_memory=self.pinned
+                )
+            out[:n_live].copy_(buf[:n_live], non_blocking=True)
+        if self.pinned:
+            torch.cuda.current_stream(self.device).synchronize()
+        return {name: self.out[name][:n_live].numpy().copy() for name in names}
 
 
 class PipelineServer:
@@ -187,6 +254,11 @@ class PipelineServer:
         self._table: Dict[
             Tuple, Tuple[Pipeline, TorchPipeline, Dict]
         ] = {}
+        # per shape signature: the transfer buffers, made on its first
+        # dispatch and dropped when the shape is registered again
+        self._staging: Dict[Tuple, _Staging] = {}
+        self.staging_allocs = 0
+        self.filler_slots = 0
         self.pipeline: TorchPipeline = self.register(pipe, **compile_kwargs)
         self.pending: Deque[Tuple[Tuple, TileRequest]] = deque()
         self.served = 0
@@ -223,18 +295,10 @@ class PipelineServer:
             batch_capacity=self.batch_slots,
             **compile_kwargs,
         )
-        self._table[self._shape_key(pipe)] = (pipe, pp, dict(compile_kwargs))
+        key = self._shape_key(pipe)
+        self._table[key] = (pipe, pp, dict(compile_kwargs))
+        self._staging.pop(key, None)
         return pp
-
-    @staticmethod
-    def _zero_request(pipe: Pipeline) -> TileRequest:
-        return TileRequest(
-            inputs={
-                n: np.zeros(PipelineServer._tile_shape(pipe, n), np.float32)
-                for n in pipe.inputs
-            },
-            filler=True,
-        )
 
     def _validate_request(self, req: TileRequest) -> Tuple:
         """Admission checks; returns the routed shape key or raises a
@@ -358,44 +422,38 @@ class PipelineServer:
         return pp.run(ins)
 
     def _dispatch(
-        self, pipe: Pipeline, pp: TorchPipeline, reqs: List[TileRequest]
+        self, key: Tuple, pp: TorchPipeline, reqs: List[TileRequest]
     ) -> Dict[str, np.ndarray]:
-        """One padded-to-capacity batched execution; returns per-kernel
-        stacked host arrays.  Raises whatever the kernels raise — fault
-        handling is the caller's (``_service``) job.
+        """One capacity-wide batched execution of ``reqs`` through the
+        shape's staging buffers (made on its first dispatch); returns
+        per-kernel host arrays of the live slots only.  Raises whatever the
+        kernels raise — fault handling is the caller's (``_service``) job.
 
-        Spans: ``serve.stack`` (padding and stacking on the host),
-        ``serve.h2d`` (the copies in) and ``serve.d2h`` (the copies out,
-        which also wait for the dispatch's kernels to finish)."""
+        Spans: ``serve.stack`` (the live tiles cast into the host buffers),
+        ``serve.h2d`` (the live slots' copies in, the fillers zeroed on the
+        device) and ``serve.d2h`` (the live slots' copies out, the wait for
+        the dispatch's kernels, the copy into the returned arrays)."""
+        st = self._staging.get(key)
+        if st is None:
+            st = self._staging[key] = _Staging(self._table[key][0], self.batch_slots, pp.device)
+            self.staging_allocs += 1
+        n_live = len(reqs)
         with telemetry.span("serve.stack"):
-            slots = pad_to_slots(
-                reqs, self.batch_slots, lambda: self._zero_request(pipe)
-            )
-            host = {
-                n: torch.from_numpy(np.stack(
-                    [np.asarray(r.inputs[n], np.float32) for r in slots]
-                ))
-                for n in pipe.inputs
-            }
-        # one host-to-device copy per input name per dispatch
+            st.stage(reqs)
         with telemetry.span("serve.h2d"):
-            ins = {n: t.to(pp.device) for n, t in host.items()}
+            ins = st.to_device(n_live)
+        self.filler_slots += self.batch_slots - n_live
         bufs = self._run_pipeline(pp, ins)
         self.dispatches += 1
-        # one device-to-host copy per kernel per dispatch — slicing per slot
-        # on the device tensor would pay a separate sync per tile
         with telemetry.span("serve.d2h"):
-            return {
-                k.name: bufs[k.name].cpu().numpy()
-                for k in pp.kernels
-            }
+            return st.from_device(bufs, [k.name for k in pp.kernels], n_live)
 
     @staticmethod
     def _poisoned_slots(
         outs: Dict[str, np.ndarray], n_live: int
     ) -> List[int]:
         """Live slot indices whose outputs contain NaN/Inf (filler slots
-        run on zero inputs and are never read back)."""
+        run on zero inputs and are never copied back)."""
         bad: List[int] = []
         for b in range(n_live):
             for arr in outs.values():
@@ -407,7 +465,7 @@ class PipelineServer:
     def _complete(
         self, reqs: List[TileRequest], outs: Dict[str, np.ndarray]
     ) -> None:
-        for b, req in enumerate(reqs):  # filler slots are never read back
+        for b, req in enumerate(reqs):
             req.outputs = {name: a[b] for name, a in outs.items()}
             req.error = None
             req.done = True
@@ -455,7 +513,7 @@ class PipelineServer:
         pipe, pp, _kw = self._table[key]
         self.fault_counters["quarantine_dispatches"] += 1
         try:
-            outs = self._dispatch(pipe, pp, reqs)
+            outs = self._dispatch(key, pp, reqs)
         except Exception as e:
             if len(reqs) == 1:
                 self.fault_counters["poisoned_tiles"] += 1
@@ -508,16 +566,16 @@ class PipelineServer:
         dispatch → (on raise) recompile fresh → recompile heuristic →
         quarantine bisection.  On return every request in ``reqs`` is
         ``done`` — completed or failed closed with a named error."""
-        pipe, pp, _kw = self._table[key]
+        pp = self._table[key][1]
         outs: Optional[Dict[str, np.ndarray]] = None
         try:
-            outs = self._dispatch(pipe, pp, reqs)
+            outs = self._dispatch(key, pp, reqs)
         except Exception as first_err:
             self.fault_counters["dispatch_failures"] += 1
             for heuristic in (False, True):
                 try:
                     fresh = self._recompile(key, heuristic=heuristic)
-                    outs = self._dispatch(pipe, fresh, reqs)
+                    outs = self._dispatch(key, fresh, reqs)
                 except Exception:
                     continue
                 self.fault_counters["degraded_dispatches"] += 1
@@ -627,11 +685,16 @@ class PipelineServer:
     def stats(self) -> Dict[str, int]:
         """Serving counters, per-fault-class health counters, plus the
         process-wide pipeline-cache stats (hits/misses/evictions/entries)
-        the warm path depends on."""
+        the warm path depends on.  ``staging_allocs`` counts the staging
+        sets made (one per registered shape, on its first dispatch),
+        ``filler_slots`` the slots zeroed on the device instead of staged
+        and copied."""
         return {
             "served": self.served,
             "failed": self.failed,
             "dispatches": self.dispatches,
+            "staging_allocs": self.staging_allocs,
+            "filler_slots": self.filler_slots,
             "batch_slots": self.batch_slots,
             "shapes": len(self._table),
             "pending": len(self.pending),

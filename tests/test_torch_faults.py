@@ -609,3 +609,31 @@ def test_poisoned_tile_quarantined_on_card():
         else:
             _assert_bit_exact(req, tile, ref, out)
     assert srv.stats()["poisoned_tiles"] == 1
+
+
+@pytest.mark.gpu
+def test_pinned_staging_on_card_through_raises_and_ragged_subsets():
+    """On the card the staging is pinned and its copies run asynchronously:
+    a marker raise after the copies in, the ladder's recompiles and
+    quarantine's ragged subsets all reuse the one staging set, and every
+    clean tile is bit for bit the per-tile pipeline's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; run on the GPU machine")
+    app = make_app("gaussian", size=13)
+    srv = PipelineServer(app.pipeline, batch_slots=4, block_h=4)
+    tiles = _tiles(app, 7)
+    mark_poison(tiles[5])
+    with kernel_raise(srv, on_marker=True):
+        done = srv.run(tiles)
+    ref = compile_pipeline(app.pipeline, block_h=4)
+    out = app.pipeline.output
+    for i, (req, tile) in enumerate(zip(done, tiles)):
+        if i == 5:
+            assert isinstance(req.error, PoisonedTileError)
+        else:
+            _assert_bit_exact(req, tile, ref, out)
+    (st,) = srv._staging.values()
+    assert all(t.is_pinned() for t in (*st.host.values(), *st.out.values()))
+    s = srv.stats()
+    assert s["staging_allocs"] == 1 and s["recompiles"] == 2
+    assert s["poisoned_tiles"] == 1

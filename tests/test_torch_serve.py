@@ -5,9 +5,13 @@ plain version — the only one the CPU runs).  The contract is the JAX serve
 bridge's: ragged drain order is kept, every served tile is bit-exact
 against the per-tile port pipeline and against the JAX ``PipelineServer``
 on integer inputs, admission errors carry the same named classes, and the
-recovery ladder and quarantine behave alike.
+recovery ladder and quarantine behave alike.  The port's own staging
+(buffers reused for the server's life, fillers zeroed on the device, only
+live slots copied) is held to the same per-tile results, to outputs that
+never alias it, and to its two counters.
 """
 
+import contextlib
 import warnings
 
 import numpy as np
@@ -24,6 +28,7 @@ from repro_torch.backend import (
     compile_pipeline,
     pipeline_cache_stats,
 )
+from repro_torch.backend.faults import kernel_raise, mark_poison, poison_output
 from repro_torch.serve import pad_to_slots
 
 pytestmark = pytest.mark.torch
@@ -151,6 +156,114 @@ def test_quarantine_isolates_poisoned_tile():
         assert done[i].ok
         assert np.array_equal(done[i].outputs["gaussian"], per_tile(tiles[i]).numpy())
     assert srv.stats()["poisoned_tiles"] == 1
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int64], ids=["uint8", "int64"])
+@pytest.mark.parametrize("live", range(1, 9))
+def test_every_live_count_is_bit_exact_vs_per_tile(live, dtype):
+    """After a full dispatch of other data, ``live`` integer tiles through
+    eight slots: each is cast into its slot as ``np.asarray(x, float32)``
+    would, and comes back bit-equal to the per-tile pipeline."""
+    app = make_app("gaussian", size=9)
+    srv = PipelineServer(app.pipeline, batch_slots=8, **CPU)
+    assert all(r.ok for r in srv.run(_tiles(app, 8, seed=SWEEP_SEED + 100)))
+    tiles = [{n: a.astype(dtype) for n, a in t.items()} for t in _tiles(app, live)]
+    done = srv.run(tiles)
+    per_tile = compile_pipeline(app.pipeline, **CPU)
+    for req, tile in zip(done, tiles):
+        assert req.ok
+        assert np.array_equal(req.outputs["gaussian"], per_tile(tile).numpy())
+    assert srv.stats()["filler_slots"] == 8 - live
+
+
+@pytest.mark.parametrize("later", [1, 3, 8], ids=["then-1", "then-3", "then-8"])
+def test_outputs_survive_later_dispatches(later):
+    """A request owns its outputs: dispatches of other data through the
+    same staging leave them as they were, and they share no memory with
+    the staging buffers."""
+    app = make_app("camera", size=6)
+    srv = PipelineServer(app.pipeline, batch_slots=4, **CPU)
+    first = srv.run(_tiles(app, 3))
+    kept = [{k: a.copy() for k, a in r.outputs.items()} for r in first]
+    for i in range(3):
+        srv.run(_tiles(app, later, seed=SWEEP_SEED + 50 + 10 * i))
+    (st,) = srv._staging.values()
+    staged = [t.numpy() for t in (*st.host.values(), *st.dev.values(), *st.out.values())]
+    for req, want in zip(first, kept):
+        assert req.outputs.keys() == want.keys()
+        for k, a in req.outputs.items():
+            assert np.array_equal(a, want[k])
+            assert not any(np.shares_memory(a, s) for s in staged)
+
+
+@pytest.mark.parametrize("inject", [
+    lambda srv: kernel_raise(srv, on_marker=True),
+    lambda srv: poison_output(srv),
+], ids=["kernel-raise", "poison-output"])
+def test_filler_slots_are_zeroed_every_dispatch(inject):
+    """A marker staged in slot 7 by a full dispatch must not survive into
+    the next, ragged dispatch's filler slots: under the marker-driven
+    fault, three clean tiles complete from one clean dispatch.  A marked
+    tile in a later full dispatch is still failed alone by quarantine."""
+    app = make_app("gaussian", size=9)
+    srv = PipelineServer(app.pipeline, batch_slots=8, **CPU)
+    tiles = _tiles(app, 8)
+    mark_poison(tiles[7])
+    assert all(r.ok for r in srv.run(tiles))
+    per_tile = compile_pipeline(app.pipeline, **CPU)
+    with inject(srv):
+        clean = _tiles(app, 3, seed=SWEEP_SEED + 40)
+        done = srv.run(clean)
+        assert all(r.ok for r in done)
+        assert srv.stats()["dispatch_failures"] == 0
+        assert srv.stats()["quarantine_dispatches"] == 0
+        again = _tiles(app, 8, seed=SWEEP_SEED + 60)
+        mark_poison(again[5])
+        done += srv.run(again)
+    clean += again
+    for i, (req, tile) in enumerate(zip(done, clean)):
+        if i == 3 + 5:
+            assert isinstance(req.error, PoisonedTileError)
+        else:
+            assert req.ok
+            assert np.array_equal(req.outputs["gaussian"], per_tile(tile).numpy())
+    assert srv.stats()["poisoned_tiles"] == 1
+
+
+@pytest.mark.parametrize("case,allocs", [
+    ("one-shape", 1), ("two-shapes", 2), ("recompiled", 1), ("re-registered", 2),
+])
+def test_staging_counters(case, allocs):
+    """``staging_allocs`` stays at one set per shape across many
+    dispatches, recompiles included, and a shape registered again starts
+    a fresh set; ``filler_slots`` is the sum of the slots each dispatch
+    left empty."""
+    app = make_app("gaussian", size=9)
+    srv = PipelineServer(app.pipeline, batch_slots=4, **CPU)
+    tiles = _tiles(app, 11)
+    if case == "two-shapes":
+        other = make_app("gaussian", size=11)
+        srv.register(other.pipeline, **CPU)
+        wide = _tiles(other, 11)
+        # runs of 5, 2, 3 and 1 tiles of each shape in turn
+        tiles = tiles[:5] + wide[:2] + tiles[5:8] + wide[2:3] + wide[3:9] + tiles[8:]
+    for t in tiles:
+        srv.submit(t)
+    fault = (kernel_raise(srv, at_dispatch=2) if case == "recompiled"
+             else contextlib.nullcontext())
+    empty = 0
+    with fault, warnings.catch_warnings():
+        warnings.simplefilter("ignore", DegradedModeWarning)
+        while srv.pending:
+            empty += 4 - len(srv.step())
+            if case == "re-registered" and srv.dispatches == 1:
+                srv.register(app.pipeline, **CPU)
+    s = srv.stats()
+    assert s["served"] == len(tiles) and s["failed"] == 0
+    assert s["recompiles"] == (case == "recompiled")
+    assert s["staging_allocs"] == allocs
+    assert s["shapes"] == (2 if case == "two-shapes" else 1)
+    assert s["filler_slots"] == empty
 
 
 def test_register_hits_the_plan_cache():
