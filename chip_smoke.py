@@ -289,6 +289,9 @@ FULL = [
     ("resnet", "resnet", {"img": 56, "cin": 64, "cout": 64}, True),
     # MobileNet v1: depthwise 3x3 on 112x112x32, then pointwise 32 -> 64
     ("mobilenet", "mobilenet", {"img": 112, "cin": 32, "cout": 64}, True),
+    # MobileNet v1's 14x14x512 block: one fused group planned against shared
+    # memory, the pointwise weights staged in panels of output channels
+    ("mobilenet14x512", "mobilenet", {"img": 14, "cin": 512, "cout": 512}, True),
     # a grid reduction with a masked K-tail (1000 = 7 x 128 + 104)
     ("matmul", "matmul", {"m": 256, "n": 256, "k": 1000}, True),
     # a 2K stencil: lane grid, column rings and lane line buffers
@@ -559,7 +562,7 @@ def library_check(label: str, bufs, out):
         call = lambda: torch.matmul(a, b)  # noqa: E731
         err = float((call() - out).abs().max())
         return call, torch.equal(call(), out), f"max|cuda - torch.matmul| = {err!r} (exact)"
-    if label == "mobilenet":
+    if label.startswith("mobilenet"):
         # ifmap [slot][y][x][c] -> NCHW; depthwise 3x3 per channel, then a
         # 1x1 convolution per slot; the output is [slot][y][x][co]
         x, wd, wp = bufs["ifmap"], bufs["dw_weights"], bufs["pw_weights"]
@@ -582,7 +585,7 @@ def two_calls(label: str, bufs):
     not a ``library_ms``; None for any other configuration."""
     import torch.nn.functional as F
 
-    if label != "mobilenet":
+    if not label.startswith("mobilenet"):
         return None
     x, wd, wp = bufs["ifmap"], bufs["dw_weights"], bufs["pw_weights"]
     nb, _, _, c = x.shape

@@ -43,3 +43,24 @@ __device__ __forceinline__ float ub_sel(float c, float t, float f) {
 __device__ __forceinline__ float ub_load(const float* __restrict__ p, bool ok, int idx) {
   return ok ? p[idx] : 0.f;
 }
+
+// A 4-byte copy from global to shared memory that does not wait for its
+// data (cp.async, sm_80 and later): a thread issues all its copies of a
+// staged panel back to back, so they are in flight together, then
+// ub_copy_wait() waits for them; a __syncthreads() after it makes every
+// thread's copies visible to the block.  Elsewhere a plain copy.
+__device__ __forceinline__ void ub_copy_async(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void ub_copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}

@@ -69,7 +69,11 @@ block-by-block transliteration:
   register tiles (:func:`output_tile`): lanes along the output's innermost
   axis, each thread several positions by several of those elements, its
   programs interleaved and a reduction's chain rolled, so each fused value
-  or weight is loaded once for the elements that share it.
+  or weight is loaded once for the elements that share it.  Where the
+  weights do not fit whole (``KernelGroup.panels``: MobileNet v1's blocks
+  from 56x56x128 on), the reduction's weight is staged one panel of its
+  reduction axis at a time, by asynchronous copies, and each thread keeps
+  its whole tile's sums in registers across the panels.
 * **Element-parallel groups get a thread map of their own**
   (:func:`element_map`): a group with no rings, no fused scratch and no
   carry (resnet's lane grid, matmul's grid reduction, upsample) shares
@@ -124,7 +128,7 @@ from .eager import (
     record_eval_sites,
 )
 from .errors import EmitError
-from .plan import KernelGroup, StagePlan
+from .plan import KernelGroup, StagePlan, staged_strides
 
 # threads per block: a carried group sweeps its steps inside one block, so
 # it takes the most threads a block may have at a comfortable register
@@ -159,6 +163,9 @@ ROLL_UNROLL = 4
 # innermost axis, each thread at most OUT_TILE_MAX output elements
 OUT_LANES = 32
 OUT_TILE_MAX = 16
+# a group whose weight is staged in panels keeps every accumulator of its
+# tile across the panels: at most this many a thread
+PANEL_TILE_MAX = 32
 
 # the TPU kernel this emitter replaces, for reports
 REPLACES = "src/repro/backend/codegen.py:755"
@@ -695,13 +702,17 @@ class StagedInput:
     is ``w<slot>`` at float ``offset`` of the block's shared memory, axis
     ``a`` at float stride ``strides[a]``: each extent after the first
     padded to an odd count, so that 32 threads reading 32 consecutive
-    indices of any one axis hit 32 banks."""
+    indices of any one axis hit 32 banks.  A weight staged in panels
+    (``KernelGroup.panels``) has ``panel`` = (axis, block): the copy holds
+    ``block`` entries of that axis, panel ``kc`` of the reduction the block
+    is accumulating, and is made again for each panel."""
 
     buffer: str
     slot: int
     extents: Tuple[int, ...]
     strides: Tuple[int, ...]
     offset: int
+    panel: Optional[Tuple[int, int]] = None
 
     @property
     def nbytes(self) -> int:
@@ -719,10 +730,14 @@ def staged_inputs(lg: LoweredGroup) -> List[StagedInput]:
     (none for any other group), while they fit beside the group's scratch
     in the H100's shared memory per block: each buffer all of whose loads
     vary with no row step, lane step or chunk and stay inside its required
-    extents."""
+    extents.  A group planned against shared memory (``kg.panels``) stages
+    every buffer its plan counts, the panel weight one panel at a time, or
+    raises :class:`EmitError`."""
     if not carries_nothing(lg):
         return []
     kg = lg.kg
+    pn = kg.panels
+    panel_buffer = kg.groups[pn.group].buffer if pn is not None else None
     need = kg.required_extents()
     taps: Dict[int, List[Tuple[Tap, Tuple[int, ...]]]] = {}
     for prog, shape in _stage_programs(lg):
@@ -746,12 +761,21 @@ def staged_inputs(lg: LoweredGroup) -> List[StagedInput]:
         ext = tuple(need[buf])
         if b not in taps or not all(invariant(t) and inside(t, sh, ext) for t, sh in taps[b]):
             continue
-        padded = [e if a == 0 or e % 2 else e + 1 for a, e in enumerate(ext)]
-        strides = tuple(math.prod(padded[a + 1:]) for a in range(len(ext)))
-        st = StagedInput(buf, b, ext, strides, off // 4)
+        panel = None
+        if buf == panel_buffer:
+            panel = (pn.axis, pn.block)
+            ext = tuple(pn.block if a == pn.axis else e for a, e in enumerate(ext))
+        st = StagedInput(buf, b, ext, staged_strides(ext), off // 4, panel)
         if off + st.smem_bytes <= H100_SMEM_PER_BLOCK:
             out.append(st)
             off += st.smem_bytes
+    if pn is not None:
+        got = {st.buffer: st.extents for st in out}
+        if got != kg.staged_extents():
+            raise EmitError(
+                f"stages {got}, where the plan counts {kg.staged_extents()}",
+                kernel=kg.name,
+            )
     return out
 
 
@@ -795,6 +819,8 @@ def output_tile(lg: LoweredGroup) -> Optional[OutputTile]:
     shape = lg.panel_shape(lg.kg.output)
     n = len(shape)
     outer, inner = math.prod(shape[:-1]), shape[-1]
+    if lg.kg.panels is not None:
+        return _panel_tile(outer, inner)
     last = f"p{n - 1}"
     taps = [op[1] for op in lg.programs[(lg.kg.output.name, 0, 0)] if op[0] == "tap"]
 
@@ -814,6 +840,27 @@ def output_tile(lg: LoweredGroup) -> Optional[OutputTile]:
         passes = -(-want // max(OUT_TILE_MAX // cols, 1))
         rows = -(-want // passes)
     return OutputTile(lanes, cols, groups, rows, outer, inner)
+
+
+def _panel_tile(outer: int, inner: int) -> OutputTile:
+    """The register tile of a group whose weight is staged in panels: each
+    thread's accumulators live across all the panels, so the tile covers
+    the output panel in as few passes as ``PANEL_TILE_MAX`` elements a
+    thread allow, and among those with the fewest loads a reduction step
+    (a thread loads ``rows`` fused values and ``cols`` weights for ``rows``
+    x ``cols`` products), then the fewest idle elements.  Runs of 32 lanes
+    or more, so that a warp shares its fused value."""
+    best = None
+    for lanes in (32, 64, 128, 256):
+        groups = THREADS_GRID // lanes
+        cols = min(-(-inner // lanes), PANEL_TILE_MAX)
+        rows = max(1, min(-(-outer // groups), PANEL_TILE_MAX // cols))
+        passes = -(-outer // (groups * rows)) * -(-inner // (lanes * cols))
+        idle = passes * groups * rows * lanes * cols - outer * inner
+        key = (passes, rows + cols, idle, lanes)
+        if best is None or key < best[0]:
+            best = (key, OutputTile(lanes, cols, groups, rows, outer, inner))
+    return best[1]
 
 
 def shared_bytes(lg: LoweredGroup) -> int:
@@ -869,6 +916,8 @@ class _GroupEmitter:
         self.staged = {st.slot: st for st in staged_inputs(lg)}
         self.smem += sum(st.smem_bytes for st in self.staged.values())
         self.tile = output_tile(lg)
+        # what ``r`` stands for in the panel chain's terms (``panel_chain``)
+        self.rsub: Optional[str] = None
         # the panel coordinates' ranges of the program being emitted
         self.prng: Dict[str, Tuple[int, int]] = {}
 
@@ -884,12 +933,24 @@ class _GroupEmitter:
         its required extents, then a barrier."""
         out: List[str] = []
         for b, st in self.staged.items():
-            n = len(st.extents)
-            dims = [f"D{b}_{a}" for a in range(n)]
-            lin = _affine(0, [(s, f"p{a}") for a, s in enumerate(st.strides)])
-            val = f"g{b}[{_horner([f'p{a}' for a in range(n)], dims)}]"
-            out += self.loop(st.extents, [f"w{b}[{lin}] = {val};"])
+            if st.panel is None:
+                out += self.copy(b, st)
         return out + ["__syncthreads();"]
+
+    def copy(self, b: int, st: StagedInput) -> List[str]:
+        """The copy of staged input ``b``; of a panel weight, panel ``kc``."""
+        n = len(st.extents)
+        dims = [f"D{b}_{a}" for a in range(n)]
+        lin = _affine(0, [(s, f"p{a}") for a, s in enumerate(st.strides)])
+        src = [f"p{a}" for a in range(n)]
+        if st.panel is None:
+            val = f"g{b}[{_horner(src, dims)}]"
+            return self.loop(st.extents, [f"w{b}[{lin}] = {val};"])
+        # a panel's copies all in flight at once, then waited for
+        axis, block = st.panel
+        src[axis] = f"kc * {block} + p{axis}"
+        body = [f"ub_copy_async(w{b} + {lin}, g{b} + {_horner(src, dims)});"]
+        return self.loop(st.extents, body) + ["ub_copy_wait();"]
 
     @staticmethod
     def index(ax: AxisIndex, sub: Optional[Mapping[str, str]] = None) -> str:
@@ -927,6 +988,10 @@ class _GroupEmitter:
                 for c, v in terms:
                     if c:
                         coef[v] = coef.get(v, 0) + s * c
+            if st.panel is not None:
+                # the copy holds panel ``kc`` of the axis
+                axis, block = st.panel
+                coef["kc"] = -st.strides[axis] * block
             sub = sub or {}
             val = f"w{b}[{_affine(const, [(c, sub.get(v, v)) for v, c in sorted(coef.items())])}]"
             ok = [f"{self.index(ax, sub)} < {lim}" for ax, lim in t.bounds
@@ -1485,6 +1550,8 @@ class _GroupEmitter:
         def sub(t: int, u: int) -> Dict[str, str]:
             out = {v: f"{v}_{t}" for v in outer}
             out[last] = f"{last}_{u}"
+            if self.rsub is not None:
+                out["r"] = self.rsub
             return out
 
         def emit(k: int, op: Op, ref: Callable[[int, int, int], str]) -> List[str]:
@@ -1500,8 +1567,14 @@ class _GroupEmitter:
                     lines.append(f"const float {name(k, t, u)} = {rhs};")
             return lines
 
-        rag_o = ot.outer % (ot.groups * ot.rows) != 0
-        rag_i = ot.inner % (ot.lanes * ot.cols) != 0
+        pn = self.kg.panels
+        # passes over the outer positions and over the innermost axis (a
+        # panel group's tile covers its panel in as few as it can; any
+        # other group's threads loop until the panel is covered)
+        p_o = -(-ot.outer // (ot.groups * ot.rows))
+        p_i = -(-ot.inner // (ot.lanes * ot.cols))
+        rag_o = p_o * ot.groups * ot.rows != ot.outer
+        rag_i = p_i * ot.lanes * ot.cols != ot.inner
         body: List[str] = []
         for t in range(ot.rows):
             body.append(f"const int o{t} = ob + {ot.groups * t};")
@@ -1523,7 +1596,21 @@ class _GroupEmitter:
                         + (f"min(c{u}, {ot.inner - 1});" if rag_i else f"c{u};"))
         self.prng = self.block_ranges(shape)
         chain = _chain(ops)
-        if chain is None:
+        if pn is not None:
+            # the chain, then on a padded grid the mask of its tail rows
+            k = len(ops) - 1
+            masked = ops[k][0] == "mask" and ops[k][1] == k - 1
+            chain = _chain(ops[:k]) if masked else chain
+            if chain is None:
+                raise EmitError("a panel-staged weight outside a reduction's chain",
+                                kernel=self.kg.name)
+            body += self.panel_chain(ops, chain, tiles, emit, name)
+            vals = {(t, u): f"ch{t}_{u}" for t, u in tiles}
+            if masked:
+                body += emit(k, ops[k], lambda j, t, u: vals[(t, u)] if j == k - 1
+                             else name(j, t, u))
+                vals = {(t, u): name(k, t, u) for t, u in tiles}
+        elif chain is None:
             for k, op in enumerate(ops):
                 body += emit(k, op, name)
             vals = {(t, u): name(len(ops) - 1, t, u) for t, u in tiles}
@@ -1560,6 +1647,17 @@ class _GroupEmitter:
             conds = ([f"o{t} < {ot.outer}"] if rag_o else []) + (
                 [f"c{u} < {ot.inner}"] if rag_i else [])
             body += self.out_store(conds, sub(t, u), f"o{t} * {ot.inner} + c{u}", vals[(t, u)])
+        if pn is not None:
+            # every thread runs every pass, to the panels' barriers
+            ob = f"threadIdx.x / {ot.lanes}"
+            cb = f"threadIdx.x % {ot.lanes}"
+            if p_o > 1:
+                ob += f" + pass / {p_i} * {ot.groups * ot.rows}"
+            if p_i > 1:
+                cb += f" + pass % {p_i} * {ot.lanes * ot.cols}"
+            return ([f"for (int pass = 0; pass < {p_o * p_i}; ++pass) {{",
+                     f"  const int ob = {ob};", f"  const int cb = {cb};"]
+                    + _indent(body) + ["}"])
         loops = [
             f"for (int ob = threadIdx.x / {ot.lanes}; ob < {ot.outer}; "
             f"ob += {ot.groups * ot.rows}) {{",
@@ -1569,6 +1667,50 @@ class _GroupEmitter:
         if ot.groups * ot.lanes < self.nt:
             return [f"if (threadIdx.x < {ot.groups * ot.lanes}) {{"] + _indent(loops) + ["}"]
         return loops
+
+    def panel_chain(self, ops, chain, tiles, emit, name) -> List[str]:
+        """The reduction chain of a group whose weight is staged in panels
+        (``KernelGroup.panels``): its head, then for each panel ``kc`` in
+        turn the panel's copy between two barriers and the chain's terms
+        over it, one loop over ``r`` of the panel's ``block`` reduction
+        steps; the sums stay in ``ch<t>_<u>`` across the panels, each
+        element's terms added in the chain's order.  The chain must be one
+        run of terms over the whole reduction, the run ``tiled_output``
+        would roll."""
+        pn = self.kg.panels
+        head, ends = chain
+        starts = [head] + [e + 1 for e in ends[:-1]]
+        sigs = [_term_signature(ops, a, e, head, self.tile_checks) for a, e in zip(starts, ends)]
+        runs = _runs(sigs)
+        if len(runs) != 1 or runs[0][1] != pn.extent or pn.extent < 2:
+            raise EmitError(
+                f"the chain's runs {[(s0, n) for s0, n, _ in runs]} are not one run over "
+                f"the {pn.extent} steps of the panel-staged reduction", kernel=self.kg.name)
+        _s0, cnt, step = runs[0]
+        out: List[str] = []
+        for k in range(head):
+            out += emit(k, ops[k], name)
+        out.append("float " + ", ".join(
+            f"ch{t}_{u} = {name(head - 1, t, u)}" for t, u in tiles) + ";")
+        a, e = starts[0], ends[0]
+        it = iter(step)
+        self.prng["r"] = (0, cnt - 1)
+        self.rsub = f"(kc * {pn.block} + r)"
+
+        def ref(x, t, u):
+            return f"ch{t}_{u}" if x == a - 1 else name(x, t, u)
+        term = []
+        for k in range(a, e + 1):
+            term += emit(k, _roll_op(ops[k], it), ref)
+        term += [f"ch{t}_{u} = {name(e, t, u)};" for t, u in tiles]
+        del self.prng["r"]
+        self.rsub = None
+        b, st = next((b, st) for b, st in self.staged.items() if st.panel is not None)
+        return (out + [f"for (int kc = 0; kc < {pn.count}; ++kc) {{", "  __syncthreads();"]
+                + _indent(self.copy(b, st)) + ["  __syncthreads();",
+                                               f"  #pragma unroll {ROLL_UNROLL}",
+                                               f"  for (int r = 0; r < {pn.block}; ++r) {{"]
+                + _indent(_indent(term)) + ["  }", "}"])
 
     def tile_checks(self, op: Op) -> List[bool]:
         """Which bounds of a staged load some element of the panel can
@@ -1602,6 +1744,7 @@ class _GroupEmitter:
             ot = self.tile
             lines.append(
                 f"// carries nothing: staged {[(st.buffer, st.strides) for st in self.staged.values()]}"
+                + (f", {kg.panels.count} panels of {kg.panels.block}" if kg.panels else "")
                 + (f", output tile {ot.rows} x {ot.cols} a thread, {ot.lanes} lanes along the "
                    f"innermost axis, {ot.groups} groups" if ot is not None else "")
             )

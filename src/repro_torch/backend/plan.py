@@ -115,6 +115,42 @@ class FusionInfeasible(PlanError):
     code = "PLAN-FUSION"
 
 
+def staged_strides(extents: Sequence[int]) -> Tuple[int, ...]:
+    """Float strides of a copy of ``extents`` staged in shared memory: each
+    extent after the first padded to an odd count, so that 32 threads
+    reading 32 consecutive indices of any one axis hit 32 banks."""
+    padded = [e if a == 0 or e % 2 else e + 1 for a, e in enumerate(extents)]
+    return tuple(math.prod(padded[a + 1:]) for a in range(len(extents)))
+
+
+def staged_bytes(extents: Sequence[int]) -> int:
+    """Shared-memory bytes of a staged copy of ``extents``, padding included."""
+    return ELEM_BYTES * extents[0] * staged_strides(extents)[0]
+
+
+@dataclass(frozen=True)
+class WeightPanels:
+    """A fused group planned against shared memory as the CUDA kernel fills
+    it, where the Pallas working-set model (every view double-buffered in
+    VMEM) cannot hold it: the group carries nothing, reads its row-blocked
+    views straight from global memory, keeps its fused panels in shared
+    memory, stages every grid-invariant input there whole, except view
+    group ``group`` (the weight of the output stage's reduction, indexed
+    along ``axis`` by the reduction's variable), which is staged ``block``
+    entries of that axis at a time.  Each block of the kernel evaluates its
+    fused panels once, then accumulates its output over the panels in
+    turn, each element's sum in the reduction's order."""
+
+    group: int
+    axis: int
+    block: int
+    extent: int
+
+    @property
+    def count(self) -> int:
+        return self.extent // self.block
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -540,6 +576,9 @@ class KernelGroup:
     # batch boundaries (re-fire their step-0 warm-up), they are not
     # re-allocated, so the VMEM footprint is batch-invariant
     batch_grid: Optional[PaddedGrid] = None
+    # planned against the CUDA kernel's shared memory, its weight staged in
+    # panels (see :class:`WeightPanels`); None for a Pallas-model plan
+    panels: Optional[WeightPanels] = None
 
     @property
     def output(self) -> StagePlan:
@@ -641,6 +680,20 @@ class KernelGroup:
                 tuple(max(a, b) for a, b in zip(prev, need)) if prev else tuple(need)
             )
         return out
+
+    def staged_extents(self) -> Dict[str, Tuple[int, ...]]:
+        """Under :attr:`panels`, the extents of each buffer the kernel
+        stages in shared memory (:func:`_staged_hull`), the panel buffer's
+        axis cut to one panel; empty for a Pallas-model plan."""
+        if self.panels is None:
+            return {}
+        pn = self.panels
+        panel_buffer = self.groups[pn.group].buffer
+        return {
+            buf: tuple(pn.block if buf == panel_buffer and a == pn.axis else e
+                       for a, e in enumerate(ext))
+            for buf, ext in (_staged_hull(self.groups) or {}).items()
+        }
 
     def validate_buffers(self, buffers: Mapping[str, object]) -> None:
         """Check the arrays backing this kernel's view streams against the
@@ -775,12 +828,23 @@ class KernelGroup:
                     if cond and ax < len(self.base_grid)
                 )
             blk = g.block_shape(self.bh, self.bw)
+            if self.panels is not None:
+                # read straight from global memory, or through the staged
+                # copy listed below: nothing of the view is resident
+                streams.append(StreamPlan(
+                    f"{g.buffer}[{k}]", blk, axes, 0, double_buffered=False,
+                ))
+                continue
             streams.append(StreamPlan(
                 f"{g.buffer}[{k}]",
                 blk,
                 axes,
                 ELEM_BYTES * math.prod(blk),
                 double_buffered=bool(axes),
+            ))
+        for buf, ext in self.staged_extents().items():
+            streams.append(StreamPlan(
+                f"staged:{buf}", ext, (), staged_bytes(ext), double_buffered=False,
             ))
         for r in self.rings:
             tag = "lane:" if r.lane else ""
@@ -797,10 +861,16 @@ class KernelGroup:
                 ELEM_BYTES * math.prod(shape), double_buffered=False,
             ))
         out = self.output
-        streams.append(StreamPlan(
-            "out", out.panel_shape(self.bh), (bofs,) if out.streamed else (),
-            out.panel_bytes(self.bh),
-        ))
+        if self.panels is not None:
+            # evaluated in registers and stored straight to global memory
+            streams.append(StreamPlan(
+                "out", out.panel_shape(self.bh), (bofs,), 0, double_buffered=False,
+            ))
+        else:
+            streams.append(StreamPlan(
+                "out", out.panel_shape(self.bh), (bofs,) if out.streamed else (),
+                out.panel_bytes(self.bh),
+            ))
         notes = {
             "bh": self.bh,
             "streamed": out.streamed,
@@ -829,6 +899,11 @@ class KernelGroup:
         if self.rings:
             notes["rings"] = tuple(
                 (r.buffer, r.lo, r.hi, r.stride0) for r in self.rings
+            )
+        if self.panels is not None:
+            pn = self.panels
+            notes["weight_panels"] = (
+                self.groups[pn.group].buffer, pn.axis, pn.block, pn.count,
             )
         resident = [g.buffer for g in self.groups if g.resident]
         if resident:
@@ -969,6 +1044,23 @@ class PipelinePlan:
 
     def hbm_bytes(self) -> int:
         return sum(kg.hbm_bytes() for kg in self.kernels)
+
+    def spill_bytes(self) -> int:
+        """Bytes a tile's kernels write to HBM for another kernel of the plan
+        to read back: each group output that a later group reads, once
+        written and once read by each group that reads it.  0 where every
+        intermediate stays in its group's on-chip scratch."""
+        total = 0
+        for kg in self.kernels:
+            readers = sum(
+                any(g.buffer == kg.name for g in other.groups)
+                for other in self.kernels if other is not kg
+            )
+            if readers:
+                total += (1 + readers) * ELEM_BYTES * math.prod(
+                    kg.output.nstage.pure_extents
+                )
+        return total
 
 
 # ---------------------------------------------------------------------------
@@ -1440,6 +1532,109 @@ def _lane_ring_rewrite(
         for gi in idxs:
             ring_map[gi] = (r, (groups[gi].l0 - lo) // lstride)
     return new_groups, rings, gmap, ring_map
+
+
+def _staged_hull(groups: Sequence[ViewGroup]) -> Optional[Dict[str, Tuple[int, ...]]]:
+    """Per buffer read only through grid-invariant views (none of them
+    row-blocked), the hull of those views from 0: what a group planned
+    against shared memory stages.  None where a buffer is read both
+    row-blocked and grid-invariant."""
+    direct = {g.buffer for g in groups if g.blocked_axis is not None}
+    hull: Dict[str, Tuple[int, ...]] = {}
+    for g in groups:
+        if g.blocked_axis is not None:
+            continue
+        if g.buffer in direct:
+            return None
+        need = tuple(b + n for b, n in zip(g.base, g.span))
+        prev = hull.get(g.buffer)
+        hull[g.buffer] = tuple(map(max, prev, need)) if prev else need
+    return hull
+
+
+def _weight_panels(
+    members: List[Tuple[NormalizedStage, List[LoadAccess], bool]],
+    plans: Mapping[str, StagePlan],
+    groups: Sequence[ViewGroup],
+    rings: Sequence[RingStream],
+    red_grid: Optional[RedGrid],
+    *,
+    vmem_budget: int,
+    block_h: Optional[int],
+    cost: Optional[Callable[[int], float]],
+    align_tpu: bool,
+) -> Optional[Tuple[WeightPanels, int, int, int]]:
+    """Plan a fused group that the Pallas working-set model cannot hold
+    against shared memory as the CUDA kernel fills it (see
+    :class:`WeightPanels`), or None where the group does not qualify.
+
+    It qualifies where it carries nothing (no ring, line buffer or grid
+    reduction), each fused producer is demanded at its consumer's own rows
+    (shift 0, so no halo is recomputed), every buffer is read either only
+    through row-blocked views (read from global memory) or only through
+    grid-invariant ones (staged), and one grid-invariant view group, read
+    by the output stage alone, indexes one axis exactly by the output's
+    one reduction variable over the reduction's whole extent: the weight
+    staged in panels.  Its working set is the fused panels' rows
+    (``bytes_per_row``) and the staged copies, padding included
+    (``fixed``), under the same ``2 * bytes_per_row * bh + fixed <=
+    vmem_budget`` rule.  The panel is the widest divisor of the reduction's
+    extent at which some block height fits; the block height is then
+    chosen as for any other group.  Returns the panels, the working set and
+    the block height."""
+    out_ns = members[-1][0]
+    stages = [plans[ns.name] for ns, _, _ in members]
+    if rings or red_grid is not None or any(sp.line_buffer is not None for sp in stages):
+        return None
+    if any(sp.shifts != (0,) or sp.lane_shifts != (0,) for sp in stages[:-1]):
+        return None
+    if any(g.pinned or g.lane_axis is not None or g.red_axis is not None for g in groups):
+        return None
+    if len(out_ns.red_dims) != 1:
+        return None
+    red, extent = out_ns.red_dims[0], out_ns.red_extents[0]
+    hull = _staged_hull(groups)
+    if hull is None:
+        return None
+    out_sp = stages[-1]
+    best: Optional[Tuple[int, int, int]] = None
+    for gi, g in enumerate(groups):
+        if g.buffer not in hull or sum(h.buffer == g.buffer for h in groups) != 1:
+            continue
+        if any(gi in b.values() for sp in stages[:-1] for b in sp.view_binding):
+            continue
+        loads = [la for la, b in zip(out_sp.accesses, out_sp.view_binding) if gi in b.values()]
+        for a in range(g.ndim):
+            if g.base[a] == 0 and g.span[a] == extent and loads and all(
+                la.axes[a].pure_dim is None and la.axes[a].const == 0
+                and la.axes[a].red_coeffs == ((red, 1),)
+                for la in loads
+            ):
+                size = math.prod(g.span)
+                if best is None or size > best[0]:
+                    best = (size, gi, a)
+    if best is None:
+        return None
+    _size, gi, axis = best
+    panel_buffer = groups[gi].buffer
+    e0 = out_ns.pure_extents[0]
+    scratch = ELEM_BYTES * sum(math.prod(ns.pure_extents[1:]) for ns, _, _ in members[:-1])
+    for block in (d for d in range(extent, 0, -1) if extent % d == 0):
+        fixed = sum(
+            staged_bytes([block if b == panel_buffer and j == axis else e
+                          for j, e in enumerate(ext)])
+            for b, ext in hull.items()
+        )
+        if block_h is not None:
+            bh = min(block_h, e0)
+        else:
+            bh = plan_affine_stage(
+                e0, scratch, fixed, vmem_budget=vmem_budget, cost=cost,
+                align_tpu=align_tpu,
+            )
+        if 2 * scratch * bh + fixed <= vmem_budget:
+            return WeightPanels(gi, axis, block, extent), scratch, fixed, bh
+    return None
 
 
 def _build_kernel_group(
@@ -1915,10 +2110,18 @@ def _build_kernel_group(
                 vmem_budget=vmem_budget, cost=cost, align_tpu=align_tpu,
             )
 
+        panels: Optional[WeightPanels] = None
         if multi and 2 * bytes_per_row * bh + fixed_bytes > vmem_budget:
-            raise FusionInfeasible(
-                f"group ending at {out_ns.name}: live range exceeds VMEM budget"
+            staged = None if lane else _weight_panels(
+                members, plans, groups, rings, red_grid,
+                vmem_budget=vmem_budget, block_h=block_h, cost=cost,
+                align_tpu=align_tpu,
             )
+            if staged is None:
+                raise FusionInfeasible(
+                    f"group ending at {out_ns.name}: live range exceeds VMEM budget"
+                )
+            panels, bytes_per_row, fixed_bytes, bh = staged
 
         padded_grid: Optional[PaddedGrid] = None
         lane_grid: Optional[PaddedGrid] = None
@@ -1954,6 +2157,7 @@ def _build_kernel_group(
             bw=bw if lane else None,
             lane_grid=lane_grid,
             ws=(bytes_per_row, fixed_bytes),
+            panels=panels,
         )
 
     # -- mode selection: recompute fusion vs cross-grid-step carry -----------
@@ -2367,6 +2571,9 @@ __all__ = [
     "ViewGroup",
     "StagePlan",
     "RedGrid",
+    "WeightPanels",
+    "staged_bytes",
+    "staged_strides",
     "PaddedGrid",
     "KernelGroup",
     "PipelinePlan",

@@ -445,7 +445,9 @@ def compile_pipeline(
 
     A compile that misses the cache adds its seconds to the counters
     ``compile.plan_s``, ``compile.verify_s`` and ``compile.build_s``
-    (:func:`repro_torch.telemetry.counters`); a hit adds nothing."""
+    (:func:`repro_torch.telemetry.counters`), 1 to ``compile.plans`` and
+    the plan's :meth:`~repro_torch.backend.plan.PipelinePlan.spill_bytes`
+    to ``compile.spill_bytes_per_img``; a hit adds nothing."""
     if verify not in (True, False, "auto"):
         raise ValueError(f"verify must be True, False, or 'auto': {verify!r}")
     dev = _check_contract(device, kernels)
@@ -507,6 +509,8 @@ def compile_pipeline(
     t = time.perf_counter()
     plan = build_pipeline_plan(pipe, **plan_kwargs)
     telemetry.add("compile.plan_s", time.perf_counter() - t)
+    telemetry.add("compile.plans", 1)
+    telemetry.add("compile.spill_bytes_per_img", plan.spill_bytes())
     if plan_kwargs.get("line_buffer") is True:
         _warn_lane_carry_degrades(plan)
     if verify is not False:

@@ -108,6 +108,8 @@ RULES: Dict[str, str] = {
     "UB401": "VMEM re-summation: stream/ring/scratch bytes match vmem_bytes()",
     "UB402": "VMEM budget: the working set fits the recorded budget",
     "UB403": "working-set drift: re-derived (bytes_per_row, fixed) match ws",
+    "UB404": "weight panels: a group planned against shared memory carries "
+             "nothing and its panels cut its reduction's weight axis evenly",
     "UB501": "batch grid: leading dim, unit block, occupancy and notes agree",
     "UB502": "batch isolation: no ring/line-buffer state crosses a batch step",
     "UB503": "per-batch exactly-once: each slot evaluates the full per-tile rows",
@@ -1093,11 +1095,48 @@ def _check_eval_accounting(kg: KernelGroup, out: List[PlanViolation]) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _staged_copies(kg: KernelGroup) -> int:
+    """Shared-memory bytes of what a group planned against shared memory
+    (``kg.panels``) stages: each buffer read only through grid-invariant
+    views, over the hull of those views, the panel buffer's axis cut to one
+    panel, every extent after the first padded to an odd count as the CUDA
+    kernel lays the copy out."""
+    pn = kg.panels
+    direct = {g.buffer for g in kg.groups if g.blocked_axis is not None}
+    hull: Dict[str, List[int]] = {}
+    for g in kg.groups:
+        if g.buffer in direct:
+            continue
+        need = [g.base[j] + g.span[j] for j in range(g.ndim)]
+        prev = hull.get(g.buffer)
+        hull[g.buffer] = [max(a, b) for a, b in zip(prev, need)] if prev else need
+    if 0 <= pn.group < len(kg.groups):
+        ext = hull.get(kg.groups[pn.group].buffer)
+        if ext is not None and 0 <= pn.axis < len(ext):
+            ext[pn.axis] = pn.block
+    return sum(
+        ELEM_BYTES * math.prod(e if a == 0 or e % 2 else e + 1 for a, e in enumerate(ext))
+        for ext in hull.values()
+    )
+
+
+def _scratch_rows(kg: KernelGroup) -> int:
+    """Elements of one panel row of every recompute-mode scratch entry."""
+    rows = 0
+    for sp in kg.stages[:-1]:
+        sh = list(sp.nstage.pure_extents[1:])
+        rows += len(sp.shifts) * len(sp.lane_shifts) * (math.prod(sh) if sh else 1)
+    return rows
+
+
 def _resummed_vmem_bytes(kg: KernelGroup) -> int:
     """Independent re-summation of the kernel's VMEM residency under the
     declared double-buffering rules: grid-advanced view streams are double
     buffered, pinned/resident views, rings, and scratch are single, the
-    output panel is pipelined (double)."""
+    output panel is pipelined (double).  A group planned against shared
+    memory (``kg.panels``) holds its scratch and its staged copies only."""
+    if kg.panels is not None:
+        return kg.bh * _scratch_rows(kg) * ELEM_BYTES + _staged_copies(kg)
     total = 0
     for g in kg.groups:
         advanced = not g.pinned and (
@@ -1123,7 +1162,11 @@ def _resummed_ws(kg: KernelGroup) -> Tuple[int, int]:
     """Independent re-derivation of the planner's working-set accounting:
     ``bytes_per_row`` (everything that scales with the block height: the
     output panel, blocked view streams, ring bodies, scratch rows) and
-    ``fixed`` (pinned warm-ups, broadcast/resident views, carried halos)."""
+    ``fixed`` (pinned warm-ups, broadcast/resident views, carried halos).
+    For a group planned against shared memory (``kg.panels``): its scratch
+    rows, and its staged copies."""
+    if kg.panels is not None:
+        return _scratch_rows(kg) * ELEM_BYTES, _staged_copies(kg)
     lane = kg.bw is not None
     out_ns = kg.output.nstage
     inner_shape = list(out_ns.pure_extents[1:])
@@ -1180,6 +1223,62 @@ def _resummed_ws(kg: KernelGroup) -> Tuple[int, int]:
             scratch_rows += len(sp.shifts) * len(sp.lane_shifts) * inner
     bpr += scratch_rows * ELEM_BYTES
     return bpr, fixed
+
+
+def _check_panels(kg: KernelGroup, out: List[PlanViolation]) -> None:
+    """UB404: a group planned against shared memory (``kg.panels``) is one
+    the CUDA kernel runs as planned: it carries nothing (no ring, line
+    buffer, grid reduction or lane grid; no pinned, lane- or
+    reduction-tiled view), no buffer is read both through row-blocked views
+    (read from global memory) and grid-invariant ones (staged), and its
+    panel view is one grid-invariant view group, read by the output stage
+    alone, whose panel axis spans the output stage's one reduction from 0,
+    is indexed by that reduction's variable alone at stride 1, and is cut
+    into panels that divide it."""
+    pn = kg.panels
+    if pn is None:
+        return
+
+    def bad(msg: str, *witness: int) -> None:
+        out.append(PlanViolation("UB404", kg.name, msg, witness=tuple(witness)))
+
+    if kg.rings or kg.line_buffered or kg.red_grid is not None or kg.lane_grid is not None:
+        bad("weight panels in a group that carries rows, columns or chunks")
+    if any(g.pinned or g.lane_axis is not None or g.red_axis is not None for g in kg.groups):
+        bad("weight panels beside a pinned, lane- or reduction-tiled view")
+    direct = {g.buffer for g in kg.groups if g.blocked_axis is not None}
+    mixed = sorted({g.buffer for g in kg.groups if g.blocked_axis is None} & direct)
+    if mixed:
+        bad(f"buffers {mixed} read both row-blocked and grid-invariant")
+    out_ns = kg.output.nstage
+    if len(out_ns.red_dims) != 1:
+        bad(f"weight panels on an output stage with reductions {out_ns.red_dims}")
+        return
+    red, extent = out_ns.red_dims[0], out_ns.red_extents[0]
+    if not 0 <= pn.group < len(kg.groups):
+        bad(f"panel view group {pn.group} does not exist", pn.group)
+        return
+    g = kg.groups[pn.group]
+    if g.blocked_axis is not None or not 0 <= pn.axis < g.ndim:
+        bad(f"panel view {g.buffer!r} is row-blocked or has no axis {pn.axis}", pn.axis)
+        return
+    if pn.extent != extent or g.base[pn.axis] != 0 or g.span[pn.axis] != extent:
+        bad(f"panel axis of {g.buffer!r} [{g.base[pn.axis]}, +{g.span[pn.axis]}) "
+            f"is not the reduction's extent {extent}", pn.extent, extent)
+    if pn.block < 1 or extent % pn.block:
+        bad(f"panel of {pn.block} does not divide the extent {extent}", pn.block, extent)
+    if sum(h.buffer == g.buffer for h in kg.groups) != 1:
+        bad(f"panel buffer {g.buffer!r} is read through more than one view")
+    for sp in kg.stages:
+        for la, binding in zip(sp.accesses, sp.view_binding):
+            if pn.group not in binding.values():
+                continue
+            ax = la.axes[pn.axis]
+            if sp is not kg.output:
+                bad(f"panel view {g.buffer!r} read by fused stage {sp.name!r}")
+            elif (ax.pure_dim, ax.const, ax.red_coeffs) != (None, 0, ((red, 1),)):
+                bad(f"a load of {g.buffer!r} indexes its panel axis by {ax}, "
+                    f"not by {red!r} alone")
 
 
 def _check_budget(
@@ -1323,6 +1422,7 @@ def verify_plan(plan: PipelinePlan) -> List[PlanViolation]:
         _check_write_once(kg, out)
         _check_eval_accounting(kg, out)
         _check_batch(kg, plan.notes, out)
+        _check_panels(kg, out)
         _check_budget(kg, budget, out)
     return out
 

@@ -100,6 +100,27 @@ CASES = [
     # channels: the tile's second column holds one channel, 31 lanes idle
     ("mobilenet-odd", "mobilenet", {"img": 7, "cin": 7, "cout": 33},
      {"block_h": 2, "line_buffer": False}, False, None),
+    # budgets too small for the fused group's Pallas working set: planned
+    # against shared memory, the pointwise weights staged in panels of the
+    # input channels its reduction runs over (plan.WeightPanels), every
+    # output's sum kept in registers across them.  Two panels of 8, two
+    # rows a block
+    ("mobilenet-panels", "mobilenet", {"img": 4, "cin": 16, "cout": 64},
+     {"vmem_budget": 4000}, False, None),
+    # two panels of 4, padded rows (5 = 3 x 2 - 1, the tail rows masked
+    # after the chain), a tile of 64 lanes
+    ("mobilenet-panels-padded", "mobilenet", {"img": 5, "cin": 8, "cout": 48},
+     {"vmem_budget": 2600, "block_h": 2}, False, None),
+    # batch slots, the last padded: each block stages its own slot's panels
+    ("mobilenet-panels-batched", "mobilenet", {"img": 5, "cin": 8, "cout": 48},
+     {"vmem_budget": 2000, "batch": 3, "batch_capacity": 4}, False, None),
+    # an odd input width: the whole reduction one panel of 7, unpadded
+    ("mobilenet-panels-odd", "mobilenet", {"img": 5, "cin": 7, "cout": 40},
+     {"vmem_budget": 2000}, False, None),
+    # 10 x 900 outputs a block, more than 256 threads' tiles hold: two
+    # passes over the two panels of 2
+    ("mobilenet-panels-passes", "mobilenet", {"img": 10, "cin": 4, "cout": 900},
+     {"vmem_budget": 12000}, False, None),
 ]
 # row-carried groups, their sweep cut into bands of 1, 2 and 3 row steps:
 # every band after the first warms its rings and line buffers up itself

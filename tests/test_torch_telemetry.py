@@ -193,3 +193,31 @@ def test_compile_counters_rise_on_a_miss_only():
     compile_pipeline(app.pipeline, cache=True, verify=True, **CPU)   # a hit
     assert telemetry.counters() == warm
     assert telemetry.spans() == []                             # counters only
+
+
+def test_plan_counters_count_plans_and_their_spills():
+    """A compile that misses the cache adds 1 to ``compile.plans`` and the
+    plan's spill to ``compile.spill_bytes_per_img``; a hit adds nothing.
+    MobileNet v1's 14x14x512 block fuses into one group (its depthwise
+    output stays in shared memory: no spill); forced to split, the
+    depthwise output is written once and read back once."""
+    keys = ("compile.plans", "compile.spill_bytes_per_img")
+
+    def delta(before):
+        after = telemetry.counters()
+        return tuple(after.get(k, 0.0) - before.get(k, 0.0) for k in keys)
+
+    block = make_app("mobilenet", img=14, cin=512, cout=512)
+    before = telemetry.counters()
+    pp = compile_pipeline(block.pipeline, batch=32, batch_capacity=32, cache=True, **CPU)
+    assert len(pp.kernels) == 1
+    assert delta(before) == (1.0, 0.0)
+    before = telemetry.counters()
+    compile_pipeline(block.pipeline, batch=32, batch_capacity=32, cache=True, **CPU)  # a hit
+    assert delta(before) == (0.0, 0.0)
+
+    small = make_app("mobilenet", img=6, cin=8, cout=8)
+    before = telemetry.counters()
+    pp = compile_pipeline(small.pipeline, fuse=False, cache=False, **CPU)
+    assert [k.name for k in pp.kernels] == ["dw_conv", "mobilenet"]
+    assert delta(before) == (1.0, 2 * 4 * 6 * 6 * 8)
