@@ -2677,6 +2677,9 @@ def main() -> int:
                 "bands": len(bands) if bands else None,
                 "band_steps": bands[0][1] if bands else None,
                 "tile": em.tile if em is not None else None,
+                "run": em.run if em is not None else None,
+                "tiled_staged_bytes": (sum(st.nbytes for st in em.staged)
+                                       if em is not None else None),
                 "smem_bytes": smem,
                 "blocks_per_sm": per_sm,
                 "barriers_per_lane_step": lane[1] if lane else None,
@@ -2694,7 +2697,8 @@ def main() -> int:
             }
             if em is not None:
                 thread_map = (f"element-parallel, thread axis {em.thread_axis}, tile {em.tile} "
-                              f"along {em.tile_axis}")
+                              f"along {em.tile_axis}, run {em.run} ({em.lanes} lanes apart), "
+                              f"staged {[(st.buffer, st.nbytes) for st in em.staged]}")
             elif bands:
                 thread_map = (f"element loop, row sweep in {len(bands)} bands of "
                               f"{bands[0][1]} row steps ({k.lg.steps} in all) a slot")

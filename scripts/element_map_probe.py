@@ -12,10 +12,14 @@ built (one nvcc per variant, all started together), held bit for bit
 against the plain PyTorch version on the same CUDA inputs, and timed: one
 call between CUDA events (median of 10) and per call over replays of a
 CUDA graph behind an L2-evicting write (``chip_smoke.graph_ms``).  A
-variant is ``<threads>x<tile>`` (threads per block, the most elements one
-thread evaluates together), optionally followed by ``b<blocks>`` (the cap
-on blocks per slot), ``u<n>`` (the unroll of a rolled run of reduction
-terms) and ``r<n>`` (the shortest run rolled); or ``t<n>``, the most
+variant is ``<threads>x<tile>`` (the most threads per block, the most
+elements of the tile axis one thread evaluates together), optionally
+followed by ``b<blocks>`` (the cap on blocks per slot), ``u<n>`` (the
+unroll of a rolled run of reduction terms), ``r<n>`` (the shortest run
+rolled), ``R<n>`` (the longest run of thread-axis positions a thread,
+``RUN_MAX``), ``F<n>`` (the blocks an SM the launch aims at,
+``FILL_BLOCKS``) and ``S<n>`` (KiB a block may stage, ``TILED_SMEM_MAX``;
+``S0`` stages nothing); or ``t<n>``, the most
 output elements a thread of mobilenet's tiled output panel evaluates
 (``OUT_TILE_MAX``); or ``loop``: the element loop every carried or fused
 group uses, which these groups took before their own thread map (for
@@ -53,6 +57,7 @@ def emit(app, batch: int, variant: str):
     plan = build_pipeline_plan(app.pipeline, vmem_budget=H100_SMEM_PER_BLOCK, **kw)
     lowered = [LoweredGroup(kg) for kg in plan.kernels]
     knobs = ("THREADS_ELEMENT", "TILE_MAX", "MAX_BLOCKS_PER_SLOT", "ROLL_UNROLL", "ROLL_MIN",
+             "RUN_MAX", "FILL_BLOCKS", "TILED_SMEM_MAX",
              "element_map", "output_tile", "staged_inputs", "OUT_TILE_MAX")
     saved = {k: getattr(cc, k) for k in knobs}
     try:
@@ -64,17 +69,35 @@ def emit(app, batch: int, variant: str):
         elif tiled:
             cc.OUT_TILE_MAX = int(tiled.group(1))
         else:
-            m = re.fullmatch(r"(\d+)x(\d+)(?:b(\d+))?(?:u(\d+))?(?:r(\d+))?", variant)
+            m = re.fullmatch(r"(\d+)x(\d+)(?:b(\d+))?(?:u(\d+))?(?:r(\d+))?(?:R(\d+))?"
+                             r"(?:F(\d+))?(?:S(\d+))?", variant)
             if m is None:
                 raise SystemExit(f"bad variant {variant!r}")
             for k, v in zip(knobs, m.groups()):
                 if v:
-                    setattr(cc, k, int(v))
+                    setattr(cc, k, int(v) * (1024 if k == "TILED_SMEM_MAX" else 1))
         maps = [(cc.element_map(lg), cc.output_tile(lg), cc.staged_inputs(lg)) for lg in lowered]
         return lowered, maps, cc.emit_library(lowered)
     finally:
         for k, v in saved.items():
             setattr(cc, k, v)
+
+
+def back_to_back_ms(fn, reps: int = 100) -> float:
+    """Milliseconds a call of ``fn`` over ``reps`` calls launched back to
+    back between two CUDA events, as a resident batch stream runs them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def main() -> int:
@@ -130,11 +153,14 @@ def main() -> int:
             "app": name, "batch": batch, "variant": variant,
             "thread_axis": em.thread_axis if em else None,
             "tile": em.tile if em else None, "threads": em.threads if em else None,
+            "run": em.run if em else None, "chunks": em.chunks if em else None,
+            "staged_bytes": sum(st.nbytes for st in em.staged) if em else None,
             "blocks": (em.blocks if em else None), "bit_equal": bool(same),
             "output_tile": [ot.rows, ot.cols] if ot else None,
             "staged": [[st.buffer, st.smem_bytes] for st in staged],
             "blocks_per_sm": k.blocks_per_sm(),
             "ms": time_ms(lambda: k(bufs), 10), "graph_ms": graph_ms(lambda: k(bufs)),
+            "back_to_back_ms": back_to_back_ms(lambda: k(bufs)),
             "nvcc_s": secs.get(digest(src)), **usage, "card": card,
         }
         rows.append(row)

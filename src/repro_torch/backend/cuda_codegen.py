@@ -85,11 +85,28 @@ block-by-block transliteration:
   which that input does not vary (resnet's output channels, matmul's
   rows): a load that does not depend on the tile axis is issued once for
   the tile, and the tile's programs are interleaved statement by
-  statement, independent chains for the scheduler.  Under a grid reduction
-  the chunk loop runs inside the thread with the tile's accumulators in
-  registers: each output still has one thread and one chain, in the plan's
-  order.  A load that no element of the launch can take outside its
-  buffer or its view's valid rows and lanes is not bounded.
+  statement, independent chains for the scheduler.  A group with a
+  reduction whose other input does not vary along the thread axis (the
+  weights, A) takes a two-axis tile: each thread evaluates a run of up to
+  ``RUN_MAX`` positions of the thread axis, ``lanes`` apart so that each
+  load of a warp is still one run of memory, by its tile; a load of the
+  heavy input is issued once per run position for the whole tile, and a
+  value of the other input once for the whole run.  That input is staged
+  in shared memory once a block (:class:`TiledInput`), by a coalesced,
+  asynchronous copy: a block holds one value of each axis its loads vary
+  with (resnet's 8 output channels of a row step, matmul's 8 rows), so it
+  copies only that chunk's values, laid out so that one reduction term's
+  values for the tile lie together and are read as 16-byte broadcasts.
+  The run and the threads a block come from the shape alone
+  (:func:`_run_shape`): the longest run whose launch still gives every SM
+  ``FILL_BLOCKS`` blocks where the slots allow.  A group with no
+  reduction, or no load a run could share (upsample), keeps the one-axis
+  map.  Under a grid reduction the chunk loop runs inside the thread with
+  the tile's accumulators in registers: each output still has one thread
+  and one chain, in the plan's order, so the two-axis tile changes no
+  operation and no order of the plain version's.  A load that no element
+  of the launch can take outside its buffer or its view's valid rows and
+  lanes is not bounded.
 
 What bounds it on the H100: a stencil group does a few operations per byte
 of f32 image, so it is bound by HBM bytes (``KernelGroup.hbm_bytes`` over
@@ -102,7 +119,13 @@ times its halo in rows, so the rows warmed up again stay under an eighth;
 inside a block each row step still lands, syncs and computes in turn, with
 no copy in flight.  A column-carried group runs one block per row step and
 slot.  The carried and fused groups re-read view taps from global memory
-(through L1/L2) once per tap; every group uses scalar f32 operations.
+(through L1/L2) once per tap; every group uses scalar f32 operations.  An
+element-parallel convolution or matmul on the two-axis tile issues, a
+reduction term and thread, ``run`` global loads and ``tile / 4`` 16-byte
+shared loads for ``2 * run * tile`` FP32 instructions (resnet: 6 loads for
+64), where the one-axis map issued ``1 + tile`` loads for ``2 * tile``; so
+it is bound by the FP32 pipe, not by load issue, as long as an SM holds
+enough of its warps to hide the loads' latency.
 
 The library is compiled by ``build.py`` with ``-fmad=false`` and IEEE
 division, so the kernel and the plain PyTorch version (``eager.py``) run the
@@ -154,6 +177,16 @@ BAND_STEPS: Optional[int] = None
 THREADS_ELEMENT = 128
 TILE_MAX = 8
 MAX_BLOCKS_PER_SLOT = 4096
+# one with a reduction and a load that does not vary along its thread axis
+# takes a two-axis tile: the inputs read along the tile staged in shared
+# memory a block (at most TILED_SMEM_MAX bytes), each thread up to RUN_MAX
+# positions of the thread axis by its tile while the launch leaves every SM
+# WARPS_SM warps, and blocks cut so that it gives each SM FILL_BLOCKS blocks
+# where the slots allow
+RUN_MAX = 4
+WARPS_SM = 20
+FILL_BLOCKS = 8
+TILED_SMEM_MAX = 48 * 1024
 # a run of at least ROLL_MIN reduction terms that differ only in constants
 # is emitted as a loop, unrolled ROLL_UNROLL times
 ROLL_MIN = 8
@@ -478,18 +511,59 @@ def element_parallel(lg: LoweredGroup) -> bool:
 
 
 @dataclass(frozen=True)
+class TiledInput:
+    """An input of an element-parallel group whose loads do not vary with
+    the thread axis (a convolution's weights, a matmul's A), staged in
+    shared memory once a block.  A block holds one value of each work axis
+    the input's loads vary with (``ElementMap.chunk``), so it copies only
+    what that chunk reads: the buffer's ``dims`` from ``lo`` over
+    ``extents`` (their indices move with the reduction alone), then,
+    innermost, ``entries`` values of ``tile_dim``, whose index
+    (``index``, the same in every load) moves with the chunk's axes: the
+    tile's ``tile`` elements where it moves with the tile axis, else one.
+    So one reduction term's values for the whole tile are contiguous, read
+    as 16-byte broadcasts.  The copy is ``w<slot>`` at float ``offset`` of
+    the block's shared memory; indices outside the buffer hold 0, as the
+    bounded global load reads."""
+
+    buffer: str
+    slot: int
+    dims: Tuple[int, ...]
+    lo: Tuple[int, ...]
+    extents: Tuple[int, ...]
+    tile_dim: Optional[int]
+    index: Optional[AxisIndex]
+    entries: int
+    offset: int
+
+    @property
+    def size(self) -> int:
+        """Floats of the copy."""
+        return math.prod(self.extents) * self.entries
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * self.size
+
+
+@dataclass(frozen=True)
 class ElementMap:
     """How an element-parallel group's output elements map to threads.
 
-    ``axes`` are the work axes of one batch slot, fastest first, each a C
-    variable (``i0``, ``j`` or a panel coordinate ``p<q>``) and its extent:
-    the thread axis ``axes[0]``, then the other axes in the output's memory
-    order; the tile axis ``tile_axis`` appears divided by ``tile``.  Work
-    item ``w`` of a slot is decoded from these axes; its thread evaluates
-    the ``tile`` output elements ``tile_axis = (w's tile index) * tile +
-    t``, their programs interleaved statement by statement.  ``fixed``
-    variables have one value.  Threads stride over the ``work`` items,
-    ``blocks`` blocks of ``threads`` per slot."""
+    ``axes`` are the work axes of one block's chunk, fastest first, each a
+    C variable (``i0``, ``j`` or a panel coordinate ``p<q>``) and its
+    extent: the thread axis ``axes[0]``, then the other axes in the
+    output's memory order; the tile axis ``tile_axis`` appears divided by
+    ``tile``.  ``chunk`` are the axes a block holds one value of (those
+    its staged inputs, ``staged``, vary with), decoded from the block
+    index; ``fixed`` variables have one value.  Work item ``w`` of a chunk
+    is decoded from ``axes``; its thread evaluates ``run`` positions of the
+    thread axis, ``lanes`` apart (the thread axis appears as its ``lanes``
+    first positions; a position past ``extent`` is evaluated at the last
+    and not stored) by the ``tile`` output elements ``tile_axis = (w's
+    tile index) * tile + t``, their programs interleaved statement by
+    statement.  ``work`` items of a slot, ``blocks`` blocks of
+    ``threads`` per slot, ``blocks / chunks`` of them a chunk."""
 
     axes: Tuple[Tuple[str, int], ...]
     tile_axis: Optional[str]
@@ -498,10 +572,28 @@ class ElementMap:
     work: int
     threads: int
     blocks: int
+    run: int = 1
+    extent: int = 1
+    chunk: Tuple[Tuple[str, int], ...] = ()
+    staged: Tuple[TiledInput, ...] = ()
 
     @property
     def thread_axis(self) -> str:
         return self.axes[0][0] if self.axes else "none"
+
+    @property
+    def lanes(self) -> int:
+        return -(-self.extent // self.run)
+
+    @property
+    def chunks(self) -> int:
+        return math.prod(e for _v, e in self.chunk)
+
+    @property
+    def tiled(self) -> bool:
+        """Whether the group took the two-axis tile: a run of positions
+        a thread, or an input staged a block."""
+        return self.run > 1 or bool(self.staged)
 
 
 def _span(ax: AxisIndex, rng: Mapping[str, Tuple[int, int]]) -> Tuple[int, int]:
@@ -614,11 +706,108 @@ def element_map(lg: LoweredGroup) -> Optional[ElementMap]:
         if e > 1 or v == thread:
             axes.append((v, e))
     axes.sort(key=lambda a: a[0] != thread)     # stable: the thread axis first
-    work = math.prod(e for _v, e in axes)
-    blocks = min(-(-work // THREADS_ELEMENT), MAX_BLOCKS_PER_SLOT)
-    return ElementMap(
-        tuple(axes), tile_axis, tile, tuple(fixed), work, THREADS_ELEMENT, blocks,
+    reduces = kg.red_grid is not None or _chain(lg.programs[(out.name, 0, 0)]) is not None
+    if thread is None or not reduces or all(varies(t, thread) for t in taps):
+        # nothing a run of positions could share
+        work = math.prod(e for _v, e in axes)
+        blocks = min(-(-work // THREADS_ELEMENT), MAX_BLOCKS_PER_SLOT)
+        return ElementMap(
+            tuple(axes), tile_axis, tile, tuple(fixed), work, THREADS_ELEMENT, blocks,
+            extent=axes[0][1] if axes else 1,
+        )
+    staged, moved = _tiled_inputs(lg, axes, tile_axis, tile, fixed, taps, varies)
+    chunk = tuple((v, e) for v, e in axes[1:] if v in moved)
+    free = [(v, e) for v, e in axes[1:] if v not in moved]
+    extent = axes[0][1]
+    nchunks = math.prod(e for _v, e in chunk)
+    run, threads, per_chunk = _run_shape(
+        extent, math.prod(e for _v, e in free), nchunks, kg.batch_steps,
+        sum(st.nbytes for st in staged),
     )
+    lanes = -(-extent // run)
+    work = lanes * math.prod(e for _v, e in free) * nchunks
+    return ElementMap(
+        ((thread, lanes), *free), tile_axis, tile, tuple(fixed), work, threads,
+        per_chunk * nchunks, run, extent, chunk, tuple(staged),
+    )
+
+
+def _tiled_inputs(lg: LoweredGroup, axes, tile_axis: Optional[str], tile: int, fixed,
+                  taps: Sequence[Tap], varies) -> Tuple[List[TiledInput], set]:
+    """The inputs an element-parallel group stages a block (``TiledInput``),
+    and the work axes they vary with, which each block then holds one
+    value of.  An input qualifies where no load of it varies with the
+    thread axis, the indices of all but one of its dimensions move with the
+    reduction alone, and that one (the tile dimension) has the same index
+    in every load, moving with no reduction chunk; while the copies fit in
+    ``TILED_SMEM_MAX`` bytes a block."""
+    kg = lg.kg
+    thread = axes[0][0]
+    moving = [v for v, _e in axes[1:]]
+    if tile > 1 and tile_axis not in moving:
+        moving.append(tile_axis)
+    rng: Dict[str, Tuple[int, int]] = {v: (val, val) for v, val in fixed}
+    rng["k"] = (0, lg.red_steps - 1)
+    by_slot: Dict[int, List[Tap]] = {}
+    for t in taps:
+        by_slot.setdefault(lg.slot_of[kg.groups[t.src].buffer], []).append(t)
+    out: List[TiledInput] = []
+    moved: set = set()
+    off = 0
+    for b, ts in sorted(by_slot.items()):
+        if any(varies(t, thread) for t in ts):
+            continue
+        dims_moving = {d for t in ts for d, ax in enumerate(t.axes)
+                       if any(_uses(ax, v) for v in moving)}
+        if len(dims_moving) > 1:
+            continue
+        td = next(iter(dims_moving), None)
+        index = ts[0].axes[td] if td is not None else None
+        if index is not None and (index.kstep or any(t.axes[td] != index for t in ts)):
+            continue
+        dims = tuple(d for d in range(len(ts[0].axes)) if d != td)
+        spans = [[_span(t.axes[d], rng) for t in ts] for d in dims]
+        lo = tuple(min(a for a, _b in sp) for sp in spans)
+        ext = tuple(max(b_ for _a, b_ in sp) - low + 1 for sp, low in zip(spans, lo))
+        entries = tile if index is not None and tile > 1 and _uses(index, tile_axis) else 1
+        st = TiledInput(kg.groups[ts[0].src].buffer, b, dims, lo, ext, td, index, entries, off)
+        if 4 * (off + st.size) > TILED_SMEM_MAX:
+            continue
+        out.append(st)
+        off += -(-st.size // 4) * 4          # the next copy on a 16-byte boundary
+        moved |= {v for t in ts for v in moving if varies(t, v)}
+    return out, moved
+
+
+def _run_shape(extent: int, free: int, chunks: int, slots: int,
+               smem: int) -> Tuple[int, int, int]:
+    """``(run, threads, blocks a chunk)`` of a tiled element map, from the
+    shape alone.  The run is the longest up to ``RUN_MAX`` (each of its
+    positions valid for some lane) whose launch still gives the SMs
+    ``WARPS_SM`` warps each to hide the loads' latency with; where none
+    does, a run of one.  A block has the most threads up to
+    ``THREADS_ELEMENT``, and no fewer than the blocks its staged bytes let
+    an SM hold (``smem``, with the 1 KiB the runtime keeps back for each)
+    need to carry ``WARPS_SM`` warps, that still give the launch
+    ``FILL_BLOCKS`` blocks an SM (one slot asks for one an SM, ``n`` slots
+    for ``n``, up to ``FILL_BLOCKS``), so waves stay short and even; else
+    the fewest.  ``free`` work items of a chunk besides the thread axis's
+    lanes; a chunk's blocks at most fill ``MAX_BLOCKS_PER_SLOT``."""
+    def lanes(run: int) -> int:
+        return -(-extent // run)
+
+    runs = [r for r in range(min(RUN_MAX, extent), 1, -1) if lanes(r) * (r - 1) < extent]
+    run = next((r for r in runs if lanes(r) * free * chunks * slots
+                >= SM_COUNT * 32 * WARPS_SM), 1)
+    per_sm = max(SMEM_PER_SM // (smem + 1024), 1)
+    least = min(max(32 * -(-WARPS_SM // per_sm), 32), THREADS_ELEMENT)
+    want = SM_COUNT * min(slots, FILL_BLOCKS)
+
+    def per_chunk(threads: int) -> int:
+        return min(-(-lanes(run) * free // threads), max(MAX_BLOCKS_PER_SLOT // chunks, 1))
+    sizes = range(THREADS_ELEMENT, least - 1, -32)
+    threads = next((t for t in sizes if per_chunk(t) * chunks * slots >= want), sizes[-1])
+    return run, threads, per_chunk(threads)
 
 
 def _row_halos(kg: KernelGroup) -> Tuple[int, int]:
@@ -863,10 +1052,18 @@ def _panel_tile(outer: int, inner: int) -> OutputTile:
     return best[1]
 
 
+def _tiled_bytes(em: Optional[ElementMap]) -> int:
+    """The shared memory of an element map's staged inputs."""
+    if em is None or not em.staged:
+        return 0
+    return 4 * max(st.offset + st.size for st in em.staged)
+
+
 def shared_bytes(lg: LoweredGroup) -> int:
     """A group's dynamic shared memory: its scratch (``smem_layout``) and
-    its staged inputs (``staged_inputs``)."""
-    return smem_layout(lg.kg)[2] + sum(st.smem_bytes for st in staged_inputs(lg))
+    its staged inputs (``staged_inputs``, or an element map's)."""
+    return (smem_layout(lg.kg)[2] + sum(st.smem_bytes for st in staged_inputs(lg))
+            + _tiled_bytes(element_map(lg)))
 
 
 def lane_layout(lg: LoweredGroup) -> Optional[Tuple[int, int]]:
@@ -899,6 +1096,8 @@ class _GroupEmitter:
             self.rng = self.ep_ranges()
             req = kg.required_extents()
             self.need = [req[b] for b in lg.buffer_order]
+            self.tiled = {st.slot: st for st in self.em.staged}
+            self.elems = [(u, t) for u in range(self.em.run) for t in range(self.em.tile)]
         self.ranks = []
         for b in lg.buffer_order:
             self.ranks.append(next(g.ndim for g in kg.groups if g.buffer == b))
@@ -914,7 +1113,7 @@ class _GroupEmitter:
         self.s_shapes = [sp.scratch_shape(kg.bh, key) for sp, key in lg.entries]
         self.r_shapes = [r.ring_shape(kg.bh, kg.bw) for r in kg.rings]
         self.staged = {st.slot: st for st in staged_inputs(lg)}
-        self.smem += sum(st.smem_bytes for st in self.staged.values())
+        self.smem += sum(st.smem_bytes for st in self.staged.values()) + _tiled_bytes(self.em)
         self.tile = output_tile(lg)
         # what ``r`` stands for in the panel chain's terms (``panel_chain``)
         self.rsub: Optional[str] = None
@@ -1246,74 +1445,145 @@ class _GroupEmitter:
             for ax, limit in bounds if _span(ax, self.rng)[1] >= limit
         ]
 
-    def ep_deps(self, ops: Sequence[Op]) -> List[bool]:
-        """Whether each op depends on the tile axis (and is evaluated once
-        per element of the tile, not once for the tile)."""
+    def ep_deps(self, ops: Sequence[Op]) -> List[Tuple[bool, bool]]:
+        """Whether each op depends on the thread axis inside a run (and is
+        evaluated once per run position, not once for the run) and on the
+        tile axis (once per element of the tile, not once for the tile)."""
         em = self.em
+        xa = em.thread_axis if em.run > 1 else None
         ta = em.tile_axis if em.tile > 1 else None
 
-        def varies(axes) -> bool:
-            return ta is not None and any(_uses(ax, ta) for ax in axes)
+        def varies(axes) -> Tuple[bool, bool]:
+            axes = list(axes)
+            return (xa is not None and any(_uses(ax, xa) for ax in axes),
+                    ta is not None and any(_uses(ax, ta) for ax in axes))
 
-        dep: List[bool] = []
+        dep: List[Tuple[bool, bool]] = []
         for op in ops:
             kind = op[0]
             if kind == "iter":
                 d = varies([op[1]])
             elif kind == "tap":
-                d = varies(op[1].axes) or varies([ax for ax, _l in op[1].bounds])
+                d = varies(list(op[1].axes) + [ax for ax, _l in op[1].bounds])
             elif kind == "mask":
-                d = dep[op[1]] or varies([ax for ax, _l in op[2]])
+                u, t = varies(ax for ax, _l in op[2])
+                d = (u or dep[op[1]][0], t or dep[op[1]][1])
             elif kind in ("bin", "sel"):
-                d = any(dep[x] for x in _operands(op))
+                xs = _operands(op)
+                d = (any(dep[x][0] for x in xs), any(dep[x][1] for x in xs))
             else:
-                d = kind == "acc" and ta is not None
+                d = (kind == "acc" and xa is not None, kind == "acc" and ta is not None)
             dep.append(d)
         return dep
 
-    def ep_op(self, op: Op, i: int, dep: Sequence[bool], ref: Callable[[int, int], str],
-              acc: Sequence[str] = ()) -> List[str]:
-        """Op ``i`` for each element of the tile it depends on; ``ref(j,
-        t)`` names op ``j``'s value for element ``t``."""
+    def ep_sfx(self, u: int, t: int) -> str:
+        """The suffix of element ``(u, t)``'s chain and accumulator."""
+        return f"{t}" if self.em.run == 1 else f"{u}_{t}"
+
+    def ep_sub(self, u: int, t: int, du: bool = True, dt: bool = True) -> Dict[str, str]:
+        """The variables of run position ``u`` and tile element ``t``."""
         em = self.em
-        ta = em.tile_axis
+        sub = {}
+        if dt and em.tile > 1:
+            sub[em.tile_axis] = f"{em.tile_axis}_{t}"
+        if du and em.run > 1:
+            sub[em.thread_axis] = f"{em.thread_axis}_{u}"
+        return sub
+
+    def ep_op(self, op: Op, i: int, dep: Sequence[Tuple[bool, bool]],
+              ref: Callable[[int, int, int], str],
+              acc: Optional[Mapping[Tuple[int, int], str]] = None) -> List[str]:
+        """Op ``i`` for each run position and tile element it depends on;
+        ``ref(j, u, t)`` names op ``j``'s value for element ``(u, t)``."""
+        em = self.em
+        du, dt = dep[i]
+        if op[0] == "tap" and op[1].kind == "view":
+            st = self.tiled.get(self.lg.slot_of[self.kg.groups[op[1].src].buffer])
+            if st is not None:
+                return self.ep_staged(op[1], i, st, dt, ref)
         lines = []
-        for t in range(em.tile) if dep[i] else (0,):
-            sub = {ta: f"{ta}_{t}"} if dep[i] and em.tile > 1 else {}
-            rhs = _rhs(op, lambda j, t=t: ref(j, t), lambda ax, s=sub: self.index(ax, s),
-                       lambda tp, s=sub: self.ep_load(tp, s), lambda b, s=sub: self.ep_bounds(b, s),
-                       acc[t] if op[0] == "acc" else "")
-            lines.append(f"const float {ref(i, t)} = {rhs};")
+        for u in range(em.run) if du else (0,):
+            for t in range(em.tile) if dt else (0,):
+                sub = self.ep_sub(u, t, du, dt)
+                rhs = _rhs(op, lambda j, u=u, t=t: ref(j, u, t),
+                           lambda ax, s=sub: self.index(ax, s),
+                           lambda tp, s=sub: self.ep_load(tp, s),
+                           lambda b, s=sub: self.ep_bounds(b, s),
+                           acc[(u, t)] if op[0] == "acc" else "")
+                lines.append(f"const float {ref(i, u, t)} = {rhs};")
+        return lines
+
+    def ep_staged(self, tap: Tap, i: int, st: TiledInput, dt: bool,
+                  ref: Callable[[int, int, int], str]) -> List[str]:
+        """A load of a staged input: the term's ``entries`` values, which
+        lie together in the shared copy, read 16 (or 8) bytes at a time
+        that the whole warp reads alike; a valid-row bound that some
+        element of the launch fails keeps its 0."""
+        b = st.slot
+        strides = [math.prod(st.extents[a + 1:]) * st.entries for a in range(len(st.dims))]
+        coef: Dict[str, int] = {}
+        const = 0
+        for d, s, low in zip(st.dims, strides, st.lo):
+            ax = tap.axes[d]
+            const += s * (ax.const - low)
+            terms = [(ax.step, "i0"), (ax.lstep, "j"), (ax.kstep, "k"),
+                     (getattr(ax, "rstep", 0), "r")]
+            if ax.q is not None:
+                terms.append((ax.stride, f"p{ax.q}"))
+            for c, v in terms:
+                if c:
+                    coef[v] = coef.get(v, 0) + s * c
+        at = _affine(const, [(c, v) for v, c in sorted(coef.items())])
+        if not dt:
+            ok = self.ep_bounds(tap.bounds, {})
+            val = f"w{b}[{at}]"
+            val = f"({' && '.join(ok)}) ? {val} : 0.f" if ok else val
+            return [f"const float {ref(i, 0, 0)} = {val};"]
+        width = 4 if st.entries % 4 == 0 else 2 if st.entries % 2 == 0 else 1
+        lines = []
+        if width > 1:
+            vec = f"float{width}"
+            for g in range(st.entries // width):
+                ptr = f"w{b} + {at}" + (f" + {g * width}" if g else "")
+                lines.append(f"const {vec} v{i}q{g} = *reinterpret_cast<const {vec}*>({ptr});")
+        for t in range(st.entries):
+            val = (f"v{i}q{t // width}.{'xyzw'[t % width]}" if width > 1
+                   else f"w{b}[{at} + {t}]")
+            ok = self.ep_bounds(tap.bounds, self.ep_sub(0, t, False, True))
+            val = f"({' && '.join(ok)}) ? {val} : 0.f" if ok else val
+            lines.append(f"const float {ref(i, 0, t)} = {val};")
         return lines
 
     def ep_program(
-        self, ops: Sequence[Op], acc: Sequence[str] = ()
+        self, ops: Sequence[Op], acc: Optional[Mapping[Tuple[int, int], str]] = None
     ) -> Tuple[List[str], List[str]]:
-        """``ops`` for the thread's ``tile`` elements, interleaved statement
-        by statement: an op that does not depend on the tile axis is
-        evaluated once for all of them.  A reduction's accumulation chain
-        keeps each element's sum in ``ch<t>``, and each run of at least
+        """``ops`` for the thread's ``run`` x ``tile`` elements, interleaved
+        statement by statement: an op that does not depend on the thread
+        axis is evaluated once for the run, one that does not depend on the
+        tile axis once for the tile.  A reduction's accumulation chain keeps
+        each element's sum in ``ch<sfx>``, and each run of at least
         ``ROLL_MIN`` terms that differ only in constants advancing by the
         same step is one loop over ``r``.  Returns the lines and each
-        element's value."""
-        em = self.em
+        element's value, in the order of ``elems``."""
         dep = self.ep_deps(ops)
-        tiles = range(em.tile)
+        elems = self.elems
 
-        def name(j: int, t: int) -> str:
-            return f"v{j}_{t}" if dep[j] else f"v{j}"
+        def name(j: int, u: int, t: int) -> str:
+            du, dt = dep[j]
+            return f"v{j}" + (f"_{t}" if dt else "") + (f"_r{u}" if du else "")
 
         chain = _chain(ops)
         if chain is None:
             lines = []
             for i, op in enumerate(ops):
                 lines += self.ep_op(op, i, dep, name, acc)
-            return lines, [name(len(ops) - 1, t) for t in tiles]
+            return lines, [name(len(ops) - 1, u, t) for u, t in elems]
         head, ends = chain
         lines = []
         for i in range(head):
             lines += self.ep_op(ops[i], i, dep, name, acc)
-        lines.append(f"float {', '.join(f'ch{t} = {name(head - 1, t)}' for t in tiles)};")
+        lines.append("float " + ", ".join(
+            f"ch{self.ep_sfx(u, t)} = {name(head - 1, u, t)}" for u, t in elems) + ";")
         starts = [head] + [e + 1 for e in ends[:-1]]
         sigs = [_term_signature(ops, a, e, head, self.ep_checks) for a, e in zip(starts, ends)]
         for s, n, step in _runs(sigs):
@@ -1325,7 +1595,7 @@ class _GroupEmitter:
                 for j in range(n):
                     a, e = starts[s + j], ends[s + j]
                     lines += ["{"] + _indent(self.ep_term(ops, a, e, dep, name)) + ["}"]
-        return lines, [f"ch{t}" for t in tiles]
+        return lines, [f"ch{self.ep_sfx(u, t)}" for u, t in elems]
 
     def ep_checks(self, op: Op) -> List[bool]:
         """Which of a load's or mask's checks some element of the launch
@@ -1349,58 +1619,161 @@ class _GroupEmitter:
         self.rng["r"] = (0, n - 1)
         for i in range(a, e + 1):
             op = ops[i] if step is None else _roll_op(ops[i], it)
-            body += self.ep_op(op, i, dep, lambda j, t: f"ch{t}" if j == a - 1 else name(j, t))
+            body += self.ep_op(op, i, dep, lambda j, u, t: (
+                f"ch{self.ep_sfx(u, t)}" if j == a - 1 else name(j, u, t)))
         del self.rng["r"]
-        return body + [f"ch{t} = {name(e, t)};" for t in range(self.em.tile)]
+        return body + [f"ch{self.ep_sfx(u, t)} = {name(e, u, t)};" for u, t in self.elems]
 
     def ep_store(self, vals: Sequence[str]) -> List[str]:
         """Each element's value into its place in the output, where the
-        element lies inside the output's extents."""
+        element lies inside the output's extents (and its run position
+        inside the thread axis)."""
         lg, kg, em = self.lg, self.kg, self.em
         out_sp = kg.output
         ext = out_sp.nstage.pure_extents
         n = len(ext)
         lines = []
-        for t, v in enumerate(vals):
-            sub = {em.tile_axis: f"{em.tile_axis}_{t}"} if em.tile > 1 else {}
+        for (u, t), v in zip(self.elems, vals):
+            sub = self.ep_sub(u, t)
             ps = [sub.get(f"p{q}", f"p{q}") for q in range(n)]
             bounds = []
             if lg.streamed(out_sp):
-                ps[0] = f"i0 * {kg.bh} + {ps[0]}"
+                ps[0] = f"{sub.get('i0', 'i0')} * {kg.bh} + {ps[0]}"
                 bounds.append((AxisIndex(0, 0, 1, kg.bh), kg.e0))
             if lg.lane_blocked(out_sp):
-                ps[-1] = f"j * {kg.bw} + {ps[-1]}"
+                ps[-1] = f"{sub.get('j', 'j')} * {kg.bw} + {ps[-1]}"
                 bounds.append((AxisIndex(n - 1, 0, 1, lstep=kg.bw), kg.e1))
             ok = self.ep_bounds(tuple(bounds), sub)
+            if em.lanes * (u + 1) > em.extent:
+                ok.insert(0, f"{em.thread_axis}l + {em.lanes * u} < {em.extent}")
             st = f"out[{_horner(ps, ext)}] = {v};"
             lines.append(f"if ({' && '.join(ok)}) {st}" if ok else st)
         return lines
 
-    def ep_body(self) -> List[str]:
-        """One work item: decode it, evaluate its elements, store them."""
-        lg, kg, em = self.lg, self.kg, self.em
-        out: List[str] = []
-        if em.axes:
-            out.append("int rem = w;")
-        for i, (v, e) in enumerate(em.axes):
-            var = f"{v}t" if v == em.tile_axis else v
-            if i == len(em.axes) - 1:
-                out.append(f"const int {var} = rem;")
+    def ep_var(self, v: str) -> str:
+        """The C variable a work or chunk axis is decoded into: the tile
+        axis's tile index, the thread axis's lane under a run."""
+        em = self.em
+        if v == em.tile_axis:
+            return f"{v}t"
+        if v == em.thread_axis and em.run > 1:
+            return f"{v}l"
+        return v
+
+    def ep_decode(self, src: str, rem: str, axes) -> List[str]:
+        """Decode ``src`` into ``axes``, fastest first."""
+        out = [f"int {rem} = {src};"] if len(axes) > 1 else []
+        for i, (v, e) in enumerate(axes):
+            var = self.ep_var(v)
+            if i == len(axes) - 1:
+                out.append(f"const int {var} = {rem if len(axes) > 1 else src};")
             else:
-                out.append(f"const int {var} = rem % {e}; rem /= {e};")
-        for v, val in em.fixed:
-            out.append(f"const int {v} = {val};")
-        if em.tile > 1:
-            ta = em.tile_axis
-            base = f"{ta}t * {em.tile} + " if any(v == ta for v, _e in em.axes) else ""
-            out += [f"const int {ta}_{t} = {base}{t};" for t in range(em.tile)]
+                out.append(f"const int {var} = {rem} % {e}; {rem} /= {e};")
+        return out
+
+    def ep_tile_value(self, t: str) -> str:
+        """The tile axis at element ``t`` of the tile."""
+        em = self.em
+        held = any(v == em.tile_axis for v, _e in em.axes + em.chunk)
+        return f"{em.tile_axis}t * {em.tile} + {t}" if held else t
+
+    def ep_tiles(self) -> List[str]:
+        """The tile's values of the tile axis."""
+        em = self.em
+        return [f"const int {em.tile_axis}_{t} = {self.ep_tile_value(str(t))};"
+                for t in range(em.tile) if em.tile > 1]
+
+    def ep_copy(self, st: TiledInput) -> List[str]:
+        """The block's coalesced, asynchronous copy of staged input ``st``:
+        entry ``e`` reads the buffer in its own order (the tile dimension
+        outermost); an index outside the buffer writes 0."""
+        em = self.em
+        b = st.slot
+        size = math.prod(st.extents)
+        body: List[str] = []
+        if st.entries > 1:
+            body += [f"const int t = e / {size};", f"const int at = e - t * {size};"]
+            dst = f"at * {st.entries} + t"
+        else:
+            body.append("const int at = e;")
+            dst = "at"
+        body += self.ep_decode("at", "rem", [(f"c{a}", n) for a, n in reversed(
+            list(enumerate(st.extents)))])
+        idx: Dict[int, str] = {}
+        ok = []
+        for a, (d, low) in enumerate(zip(st.dims, st.lo)):
+            idx[d] = _affine(low, [(1, f"c{a}")])
+            if low < 0 or low + st.extents[a] > self.need[b][d]:
+                ok.append(f"(unsigned)({idx[d]}) < (unsigned)D{b}_{d}")
+        if st.index is not None:
+            sub = {em.tile_axis: f"({self.ep_tile_value('t')})"} if st.entries > 1 else {}
+            idx[st.tile_dim] = self.index(st.index, sub)
+            lo, hi = _span(st.index, self.rng)
+            if lo < 0 or hi >= self.need[b][st.tile_dim]:
+                ok.append(f"(unsigned)({idx[st.tile_dim]}) < (unsigned)D{b}_{st.tile_dim}")
+        rank = len(st.dims) + (st.index is not None)
+        src = _horner([idx[d] for d in range(rank)], [f"D{b}_{d}" for d in range(rank)])
+        copy = f"ub_copy_async(w{b} + {dst}, g{b} + {src});"
+        if ok:
+            body += [f"if ({' && '.join(ok)}) {copy}", f"else w{b}[{dst}] = 0.f;"]
+        else:
+            body.append(copy)
+        return ([f"for (int e = threadIdx.x; e < {st.size}; e += {em.threads}) {{"]
+                + _indent(body) + ["}"])
+
+    def ep_kernel(self) -> List[str]:
+        """The kernel body of an element-parallel group: under staged
+        inputs, the block's chunk, its copies and a barrier; then the
+        threads stride over the chunk's work items."""
+        em = self.em
+        out: List[str] = []
+        items = em.work // em.chunks
+        per_chunk = em.blocks // em.chunks
+        if not em.staged:
+            out.append(
+                f"for (int w = blockIdx.x * {em.threads} + threadIdx.x; w < {items}; "
+                f"w += gridDim.x * {em.threads}) {{"
+            )
+            return out + _indent(self.ep_body(True))
+        if em.chunk:
+            src = f"blockIdx.x / {per_chunk}" if per_chunk > 1 else "blockIdx.x"
+            out += self.ep_decode(src, "crem", em.chunk)
+        out += [f"const int {v} = {val};" for v, val in em.fixed]
+        if not any(v == em.tile_axis for v, _e in em.axes):
+            out += self.ep_tiles()
+        for st in em.staged:
+            out += self.ep_copy(st)
+        out += ["ub_copy_wait();", "__syncthreads();"]
+        first = (f"blockIdx.x % {per_chunk} * {em.threads} + threadIdx.x" if per_chunk > 1
+                 else "threadIdx.x")
+        out.append(f"for (int w = {first}; w < {items}; w += {per_chunk * em.threads}) {{")
+        return out + _indent(self.ep_body(False))
+
+    def ep_body(self, whole: bool) -> List[str]:
+        """One work item: decode it, evaluate its elements, store them.
+        ``whole``: the block holds no chunk, so the fixed variables and the
+        tile's values are set here."""
+        lg, kg, em = self.lg, self.kg, self.em
+        out = self.ep_decode("w", "rem", em.axes)
+        if whole:
+            out += [f"const int {v} = {val};" for v, val in em.fixed]
+        if whole or any(v == em.tile_axis for v, _e in em.axes):
+            out += self.ep_tiles()
+        if em.run > 1:
+            xa = em.thread_axis
+            for u in range(em.run):
+                pos = f"{xa}l + {em.lanes * u}" if u else f"{xa}l"
+                if em.lanes * (u + 1) > em.extent:
+                    pos = f"min({pos}, {em.extent - 1})"
+                out.append(f"const int {xa}_{u} = {pos};")
         rg = kg.red_grid
         if rg is None:
             body, vals = self.ep_program(lg.programs[(kg.output.name, 0, 0)])
             return out + body + self.ep_store(vals)
-        accs = [f"acc{t}" for t in range(em.tile)]
+        accs = [f"acc{self.ep_sfx(u, t)}" for u, t in self.elems]
         init, iv = self.ep_program(lg.init_program)
-        chunk, cv = self.ep_program(lg.programs[(kg.output.name, 0, 0)], accs)
+        chunk, cv = self.ep_program(lg.programs[(kg.output.name, 0, 0)],
+                                    dict(zip(self.elems, accs)))
         out.append(f"float {', '.join(accs)};")
         out += ["{"] + _indent(init + [f"{a} = {v};" for a, v in zip(accs, iv)]) + ["}"]
         out.append(f"for (int k = 0; k < {rg.steps}; ++k) {{")
@@ -1739,6 +2112,9 @@ class _GroupEmitter:
                 f"// element-parallel: thread axis {em.thread_axis}, tile {em.tile} along "
                 f"{em.tile_axis}, work axes {list(em.axes)}, {em.work} work items in "
                 f"{em.blocks} blocks of {em.threads} per slot"
+                + (f"; run {em.run} of {em.extent} positions, {em.lanes} lanes apart; "
+                   f"a block holds one value of {list(em.chunk)}, staged "
+                   f"{[st.buffer for st in em.staged]}" if em.tiled else "")
             )
         if self.tile is not None or self.staged:
             ot = self.tile
@@ -1778,11 +2154,12 @@ class _GroupEmitter:
                          f"{st.extents}, strides {st.strides}")
         em = self.em
         if em is not None:
-            lines.append(
-                f"  for (int w = blockIdx.x * {em.threads} + threadIdx.x; w < {em.work}; "
-                f"w += gridDim.x * {em.threads}) {{"
-            )
-            body = self.ep_body()
+            for st in em.staged:
+                lines.append(f"  float* const w{st.slot} = ub_smem + {st.offset};  // {st.buffer} "
+                             f"dims {st.dims} from {st.lo} over {st.extents}, then "
+                             f"{st.entries} of dim {st.tile_dim}")
+            lines += ["  " + ln for ln in self.ep_kernel()]
+            body = []
         elif lg.row_carried:
             bands = row_bands(lg)
             length = bands[0][1]

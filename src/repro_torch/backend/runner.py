@@ -44,7 +44,7 @@ from repro_torch.frontend.lower import (
 
 from .access import UnsupportedAccessError, decompose_stage
 from .build import load_library
-from .cuda_codegen import CudaKernel, emit_library
+from .cuda_codegen import CudaKernel, element_map, emit_library
 from .eager import EagerKernel, GroupKernel, LoweredGroup
 from .errors import LaneCarryDegradeWarning, TunedModeMismatchWarning
 from .plan import (
@@ -336,9 +336,16 @@ def _kernels(groups, kernels: str) -> List[GroupKernel]:
     """One kernel of the chosen version per planned group; the CUDA kernels
     of one call share one library.  Counter ``compile.build_s``: seconds
     spent here (lowering, then the plain version's kernels, or the CUDA
-    library's emit, nvcc build and load)."""
+    library's emit, nvcc build and load).  Counters ``compile.ep_groups``
+    and ``compile.ep_tiled_groups``: the groups the CUDA emitter maps as
+    element-parallel, and those of them that take its two-axis tile
+    (``cuda_codegen.element_map``), counted for either version, as the
+    plan decides them."""
     t = time.perf_counter()
     lowered = [LoweredGroup(kg) for kg in groups]
+    maps = [m for m in map(element_map, lowered) if m is not None]
+    telemetry.add("compile.ep_groups", len(maps))
+    telemetry.add("compile.ep_tiled_groups", sum(m.tiled for m in maps))
     if kernels == "eager":
         out = [EagerKernel(lg) for lg in lowered]
     else:

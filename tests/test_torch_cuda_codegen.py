@@ -7,8 +7,8 @@ plan's scratch; it refuses, with :class:`EmitError`, an input ring on a
 non-leading axis and a scratch footprint over the H100's shared memory per
 block; the kernel wrapper refuses CPU tensors; and ``compile_pipeline``
 defaults to the card and raises without one instead of running on the
-CPU.  The one test that builds and launches the kernels is marked ``gpu``
-and skips here.
+CPU.  The tests that build and launch the kernels are marked ``gpu`` and
+skip here.
 """
 
 import dataclasses
@@ -26,7 +26,8 @@ from repro_torch.backend import EmitError, compile_pipeline
 from repro_torch.backend.build import build_many
 from repro_torch.backend import cuda_codegen
 from repro_torch.backend.cuda_codegen import (
-    CudaKernel, _flit, element_map, emit_kernel, emit_library, grid_x, row_bands, smem_layout,
+    CudaKernel, _flit, element_map, emit_kernel, emit_library, grid_x, row_bands, shared_bytes,
+    smem_layout,
 )
 from repro_torch.backend.eager import LoweredGroup
 from repro_torch.backend.plan import build_pipeline_plan
@@ -181,11 +182,12 @@ def test_ported_variants_emit(name, kw, ckw, variant):
     deterministic sources in their launch geometry: the threads of a lane
     grid that carries nothing stride over (element, lane step, row step)
     work items, fastest along the lanes; a column-carried group gets a
-    block per (row step, slot) looping over its lane steps; the threads of
-    a grid reduction stride over (column, row tile, row step) work items,
-    each looping over the chunks for its tile of rows.  Dynamic shared
-    memory is the plan's scratch, column rings included, less the rows that
-    row-shifted rings and line buffers of a column-carried group share."""
+    block per (row step, slot) looping over its lane steps; each block of
+    a grid reduction holds one row step, whose tile of A's rows it stages,
+    and its threads stride over the columns, each looping over the chunks
+    for its tile of rows.  Dynamic shared memory is the plan's scratch,
+    column rings included, less the rows that row-shifted rings and line
+    buffers of a column-carried group share, and the staged A."""
     plan = build_pipeline_plan(make_app(name, **kw).pipeline, **ckw)
     kg = next(k for k in plan.kernels if k.lane_grid is not None or k.red_grid is not None)
     src = emit_kernel(kg)
@@ -200,6 +202,7 @@ def test_ported_variants_emit(name, kw, ckw, variant):
         assert smem < kg.scratch_bytes
     else:
         assert smem == kg.scratch_bytes
+    smem = shared_bytes(LoweredGroup(kg))
     assert f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});" in src
     steps, lanes = kg.steps0, kg.lane_steps
     em = element_map(LoweredGroup(kg))
@@ -216,7 +219,9 @@ def test_ported_variants_emit(name, kw, ckw, variant):
         assert rg is not None and rg.steps > 1
         assert em.thread_axis == "p1" and em.tile_axis == "p0" and em.tile == kg.bh
         assert f"<<<dim3({em.blocks}, 1), {em.threads}," in src
-        assert "const int i0 = rem;" in src
+        # a block holds one row step and stages its 5 rows of A (70 wide)
+        assert em.chunk == (("i0", steps),) and "const int i0 = blockIdx.x;" in src
+        assert smem == 4 * kg.bh * 70
         assert f"for (int k = 0; k < {rg.steps}; ++k) {{" in src
         assert "for (int j" not in src and "for (int i0" not in src
     else:
@@ -234,46 +239,65 @@ def test_ported_variants_emit(name, kw, ckw, variant):
     assert any(k.kg.lane_grid is not None or k.kg.red_grid is not None for k in pp.kernels)
 
 
-# (app, app kwargs, thread axis, tile axis, tile, least blocks at batch 1
-#  and at batch 8): chip_smoke.py's full-size resnet and matmul groups
+# (app, app kwargs, thread axis, tile axis, tile, staged input and its
+#  bytes, least blocks at batch 1 and at batch 8): chip_smoke.py's
+#  full-size resnet and matmul groups
 FULL_ELEMENT_PARALLEL = [
-    ("resnet", {"img": 56, "cin": 64, "cout": 64}, "j", "p0", 8, (132, 8 * 132)),
-    ("matmul", {"m": 256, "n": 256, "k": 1000}, "p1", "p0", 8, (64, 512)),
+    ("resnet", {"img": 56, "cin": 64, "cout": 64}, "j", "p0", 8, ("weights", 8 * 64 * 9 * 4),
+     (132, 8 * 132)),
+    ("matmul", {"m": 256, "n": 256, "k": 1000}, "p1", "p0", 8, ("A", 8 * 1024 * 4), (64, 512)),
 ]
+# (app, batch): the run of thread-axis positions a thread and the threads a
+# block.  resnet at batch 8 has work for runs of 2 (24 warps an SM) and
+# blocks of 96 give 8 an SM; at batch 1, and matmul at either, a run of 2
+# would leave an SM under 20 warps
+RUNS = {("resnet", 1): (1, 128), ("resnet", 8): (2, 96),
+        ("matmul", 1): (1, 128), ("matmul", 8): (1, 128)}
 
 
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize(
-    "name,kw,thread,tile_axis,tile,least", FULL_ELEMENT_PARALLEL,
+    "name,kw,thread,tile_axis,tile,staged,least", FULL_ELEMENT_PARALLEL,
     ids=[c[0] for c in FULL_ELEMENT_PARALLEL],
 )
-def test_element_parallel_launch_at_full_size(name, kw, thread, tile_axis, tile, least, batch):
+def test_element_parallel_launch_at_full_size(name, kw, thread, tile_axis, tile, staged, least,
+                                              batch):
     """resnet's lane grid and matmul's grid reduction at the sizes
     ``chip_smoke.py`` serves: threads run along the axis on which the
     heavy input reads consecutive floats (resnet's x, matmul's columns),
-    each thread evaluates a tile of output elements along the axis on which
-    that input does not vary (output channels, rows), and the launch fills
-    the card at batch 1 and at batch 8.  Every output element of a slot is
-    one work item's, and the source is deterministic."""
+    each thread evaluates a run of those positions by a tile of output
+    elements along the axis on which that input does not vary (output
+    channels, rows), the other input (weights, A) staged in shared memory
+    a block, one chunk's tile of it, and the launch fills the card at
+    batch 1 and at batch 8.  Every output element of a slot is one work
+    item's, and the source is deterministic."""
     ckw = {"batch": batch, "batch_capacity": batch} if batch > 1 else {}
     (kg,) = _plan(name, kw, ckw).kernels
     assert not (kg.rings or kg.line_buffered) and (kg.red_grid is None) == (name == "resnet")
     lg = LoweredGroup(kg)
     em = element_map(lg)
     assert (em.thread_axis, em.tile_axis, em.tile) == (thread, tile_axis, tile)
+    assert (em.run, em.threads) == RUNS[(name, batch)] and em.tiled
+    assert [(st.buffer, st.nbytes, st.entries) for st in em.staged] == [(*staged, tile)]
+    assert em.chunks == math.prod(lg.panel_shape(kg.output)[:1]) // tile * lg.steps
     assert em.blocks * kg.batch_steps >= least[batch > 1]
-    assert em.work * em.tile == (
+    assert em.work * em.run * em.tile == (
         math.prod(lg.panel_shape(kg.output)) * lg.steps * lg.lane_steps
     )
     src = emit_kernel(kg)
     assert src == emit_kernel(_plan(name, kw, ckw).kernels[0])
-    assert f"<<<dim3({em.blocks}, {kg.batch_steps}), {em.threads}, 0," in src
-    # the tile's programs are interleaved: a load of the input read along
-    # the thread axis (ifmap, B) is issued once for the whole tile, the
-    # other input's (weights, A) once per element
-    heavy = 0 if name == "resnet" else 1
-    loads = [src.count(f"g{b}[") + src.count(f"ub_load(g{b},") for b in (0, 1)]
-    assert loads[1 - heavy] == tile * loads[heavy]
+    assert f"<<<dim3({em.blocks}, {kg.batch_steps}), {em.threads}, {staged[1]}," in src
+    # a reduction term issues one load of the input read along the thread
+    # axis (ifmap, B) per run position, for the whole tile, and reads the
+    # tile's values of the staged input (weights, A) as 16-byte shared
+    # loads, for the whole run; the staged input's one global read is its
+    # copy
+    heavy, light = (0, 1) if name == "resnet" else (1, 0)
+    body = src[src.index("__syncthreads();"):]
+    loops = body.count("for (int r = 0;")
+    assert body.count(f"g{heavy}[") + body.count(f"ub_load(g{heavy},") == loops * em.run
+    assert body.count(f"reinterpret_cast<const float4*>(w{light} + ") == loops * tile // 4
+    assert f"g{light}" not in body and src.count(f"ub_copy_async(w{light} + ") == 1
     assert f"const int {tile_axis}_{tile - 1} = " in src
     # the reduction's runs of terms are loops: resnet's 64 input channels
     # for each of the 9 taps; matmul's 1000 = 7 x 128 + 104 in chunks of
@@ -283,6 +307,21 @@ def test_element_parallel_launch_at_full_size(name, kw, thread, tile_axis, tile,
     if name == "resnet":
         # every load of the launch lies inside its buffer: none is bounded
         assert "ub_load" not in src
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_element_parallel_without_a_reduction_keeps_the_one_axis_map(batch):
+    """upsample at its full size: no reduction, so no load a run could
+    share; one output position a thread by its tile of 2 output rows,
+    nothing staged, no barrier, as before the two-axis tile."""
+    ckw = {"batch": batch, "batch_capacity": batch} if batch > 1 else {}
+    (kg,) = _plan("upsample", {"size": 1024}, ckw).kernels
+    em = element_map(LoweredGroup(kg))
+    assert (em.thread_axis, em.tile_axis, em.tile) == ("p3", "p1", 2)
+    assert (em.run, em.staged, em.chunk, em.threads) == (1, (), (), 128) and not em.tiled
+    src = emit_kernel(kg)
+    assert "__syncthreads" not in src and "ub_copy_async" not in src
+    assert f"<<<dim3({em.blocks}, {kg.batch_steps}), 128, 0," in src
 
 
 def test_input_ring_on_a_non_leading_axis_raises():
@@ -384,6 +423,43 @@ def test_cuda_kernels_match_plain_version_on_card():
         for k in pp.kernels:
             assert got[k.name].is_cuda and k.launches == 1
             assert torch.equal(got[k.name], want[k.name]), (name, k.name)
+
+
+# (app, app kwargs, batch): the two-axis tile's groups at full size, at
+# batch 1 and 8, and a resnet whose 57 x positions are no multiple of its
+# run of 2 (each run's second position past the row for the last lane)
+TILED_ON_CARD = [
+    ("resnet", {"img": 56, "cin": 64, "cout": 64}, 1),
+    ("resnet", {"img": 56, "cin": 64, "cout": 64}, 8),
+    ("matmul", {"m": 256, "n": 256, "k": 1000}, 1),
+    ("matmul", {"m": 256, "n": 256, "k": 1000}, 8),
+    ("resnet", {"img": 57, "cin": 64, "cout": 64}, 8),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kw,batch", TILED_ON_CARD,
+                         ids=[f"{c[0]}{c[1].get('img', '')}-b{c[2]}" for c in TILED_ON_CARD])
+def test_tiled_element_map_matches_plain_version_on_card(name, kw, batch):
+    """resnet's and matmul's groups on the two-axis tile (runs of
+    thread-axis positions by the tile, the weights or A staged a block by
+    ``cp.async``), one launch each, bit for bit with the plain version on
+    the same real-valued CUDA inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; run on the GPU machine")
+    app = make_app(name, **kw)
+    ckw = {"batch": batch, "batch_capacity": batch} if batch > 1 else {}
+    pp = compile_pipeline(app.pipeline, **ckw)
+    plain = compile_pipeline(app.pipeline, kernels="eager", **ckw)
+    (k,) = pp.kernels
+    em = element_map(k.lg)
+    assert em.tiled and em.staged
+    if kw.get("img") == 57:
+        assert em.run > 1 and em.lanes * em.run > em.extent
+    ins = sweep_inputs(app, 6, "f32", batch=ckw.get("batch"))
+    got, want = pp.run(ins), plain.run(ins)
+    assert got[k.name].is_cuda and k.launches == 1
+    assert torch.equal(got[k.name], want[k.name])
 
 
 @pytest.mark.gpu

@@ -21,6 +21,7 @@ timing are the card's tests' and ``chip_smoke.py``'s.
 from __future__ import annotations
 
 import ctypes
+import math
 import re
 import shutil
 import subprocess
@@ -122,6 +123,44 @@ CASES = [
     ("mobilenet-panels-passes", "mobilenet", {"img": 10, "cin": 4, "cout": 900},
      {"vmem_budget": 12000}, False, None),
 ]
+# element-parallel groups on the two-axis tile (cuda_codegen.element_map:
+# runs of thread-axis positions by the tile, the weights or A staged a
+# block), which test sizes take where the launch need fill one SM with no
+# warps to spare (``PATCHES``)
+TILED_CASES = [
+    # runs of 3 of the 6 x positions, 2 lanes apart, by 8 output channels;
+    # each block stages its 8 channels' weights
+    ("resnet-bw1-run", "resnet", {"img": 6, "cin": 8, "cout": 16}, {"block_w": 1}, True, None),
+    # 3 of 5 positions: the last run position past the row for one lane
+    ("resnet-ytile-run", "resnet", {"img": 5, "cin": 8, "cout": 11}, {"block_w": 1}, True, None),
+    # no tile: 4 of 11 positions, one output channel's weights a block
+    ("resnet-untiled-run", "resnet", {"img": 11, "cin": 8, "cout": 11},
+     {"block_w": 1, "block_h": 11}, True, None),
+    # 4 of 7 positions
+    ("resnet-tail-run", "resnet", {"img": 7, "cin": 8, "cout": 16}, {"block_w": 1}, True, None),
+    # one block a chunk, two passes of its threads over the chunk's items
+    ("resnet-passes", "resnet", {"img": 24, "cin": 4, "cout": 16}, {"block_w": 1}, True, None),
+    # batch slots, the last padded
+    ("resnet-run-batched", "resnet", {"img": 6, "cin": 8, "cout": 16},
+     {"block_w": 1, "batch": 3, "batch_capacity": 4}, True, None),
+    # A staged over the K-tail (its copy 0 past K) by a tile of 6 rows,
+    # runs of 4 of the 13 columns, padded rows
+    ("matmul-resident-run", "matmul", {"m": 8, "n": 13, "k": 149},
+     {"red_grid_threshold": 64, "block_h": 6}, True, None),
+    # chunk-streamed operands: the staged A holds every chunk's columns
+    ("matmul-streamed-run", "matmul", {"m": 19, "n": 13, "k": 70},
+     {"red_grid_threshold": 64, "red_resident": False}, True, None),
+    # runs with nothing staged (no room a block): the weights from global
+    # memory, each once for the run
+    ("resnet-run-unstaged", "resnet", {"img": 7, "cin": 8, "cout": 16}, {"block_w": 1}, True,
+     None),
+]
+CASES += TILED_CASES
+# module constants patched while a case's library is emitted
+PATCHES = {c[0]: {"SM_COUNT": 1, "WARPS_SM": 0} for c in TILED_CASES}
+PATCHES["resnet-passes"]["MAX_BLOCKS_PER_SLOT"] = 2
+PATCHES["resnet-run-unstaged"]["TILED_SMEM_MAX"] = 0
+
 # row-carried groups, their sweep cut into bands of 1, 2 and 3 row steps:
 # every band after the first warms its rings and line buffers up itself
 ROW_CASES = [
@@ -275,6 +314,8 @@ def libraries(gxx, tmp_path_factory):
         src = root / f"{cid}.cpp"
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(cuda_codegen, "BAND_STEPS", band)
+            for k, v in PATCHES.get(cid, {}).items():
+                mp.setattr(cuda_codegen, k, v)
             src.write_text(host_source(emit_library(lowered)))
         so = root / f"lib{cid}.so"
         cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
@@ -347,6 +388,33 @@ def test_emitted_kernel_equals_plain_version_bit_for_bit(libraries, cid, name, k
             f"{float((got - want).abs().max())}"
         )
         bufs[lg.kg.name] = got
+
+
+@pytest.mark.parametrize("cid", [c[0] for c in TILED_CASES])
+def test_tiled_cases_take_runs_and_stage(libraries, cid):
+    """Under their patches the tiled cases take runs of thread-axis
+    positions and stage the input read along the tile (the weights, A) in
+    shared memory, one chunk's values of it a block (but the case left no
+    room to stage); where the runs' lanes overshoot the thread axis, the
+    last run positions are guarded."""
+    lowered, _lib = libraries[cid]
+    (lg,) = lowered
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in PATCHES[cid].items():
+            mp.setattr(cuda_codegen, k, v)
+        em = element_map(lg)
+        assert em.tiled and em.run > 1
+        assert [st.buffer for st in em.staged] == (
+            [] if cid == "resnet-run-unstaged" else ["A"] if lg.kg.name == "matmul"
+            else ["weights"])
+        assert shared_bytes(lg) == sum(st.nbytes for st in em.staged)
+        assert em.work == em.lanes * math.prod(e for _v, e in em.axes[1:]) * em.chunks
+        ragged = em.lanes * em.run > em.extent
+        assert ragged == (cid in ("resnet-ytile-run", "resnet-untiled-run", "resnet-tail-run",
+                                  "matmul-resident-run", "matmul-streamed-run",
+                                  "resnet-run-unstaged"))
+        if cid == "resnet-passes":
+            assert em.blocks == em.chunks and em.work // em.chunks > em.threads
 
 
 @pytest.mark.parametrize("cid", ["harris-lane-carried", "harris-lane-partial",

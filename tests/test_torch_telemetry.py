@@ -221,3 +221,24 @@ def test_plan_counters_count_plans_and_their_spills():
     pp = compile_pipeline(small.pipeline, fuse=False, cache=False, **CPU)
     assert [k.name for k in pp.kernels] == ["dw_conv", "mobilenet"]
     assert delta(before) == (1.0, 2 * 4 * 6 * 6 * 8)
+
+
+def test_element_parallel_counters_count_the_tiled_groups():
+    """A compile adds its element-parallel groups to ``compile.ep_groups``
+    and those that take the two-axis tile to ``compile.ep_tiled_groups``:
+    ResNet-18's conv2_x (a reduction over input channels and taps, whose
+    weights do not vary along the thread axis) adds 1 to each; upsample
+    (no reduction) 0 and 1."""
+    keys = ("compile.ep_groups", "compile.ep_tiled_groups")
+
+    def delta(before):
+        after = telemetry.counters()
+        return tuple(after.get(k, 0.0) - before.get(k, 0.0) for k in keys)
+
+    conv = make_app("resnet", img=56, cin=64, cout=64)
+    before = telemetry.counters()
+    compile_pipeline(conv.pipeline, batch=8, batch_capacity=8, cache=False, **CPU)
+    assert delta(before) == (1.0, 1.0)
+    before = telemetry.counters()
+    compile_pipeline(make_app("upsample", size=64).pipeline, cache=False, **CPU)
+    assert delta(before) == (1.0, 0.0)
