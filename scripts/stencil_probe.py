@@ -3,7 +3,7 @@
 work, on one GPU.
 
     python3 scripts/stencil_probe.py [--size 1080,1920] [--dtypes f32,bf16]
-        [--variants plan,regs160x8,ring160x8s4] [--baseline FILE.cu] [--host 200]
+        [--variants plan,regs160x8] [--baseline FILE.cu] [--host 200]
         [--out FILE]
 
 Each variant is built (one nvcc per source, all started together), held
@@ -19,10 +19,6 @@ over replays of a CUDA graph behind an L2-evicting write
   block, every input row of a band in registers before its first sum, its
   source built with bands of ``R`` rows (``ROWS``) where ``R`` is not the
   shipped 4;
-- ``ring<threads>x<R>s<S>``: the shared-memory line buffer
-  (``scripts/stencil3x3_ring.cu``): bands of ``R`` rows swept through a
-  ring of ``S`` (4, 6, 8 or 12) row panels filled by 4-byte ``cp.async``
-  ``S - 2`` rows ahead;
 - ``clone``: ``x.clone()``, which reads and writes as many bytes as the
   stencil (not checked): the floor of this timing for those bytes;
 - with ``--baseline FILE.cu``, ``base``: another source with the C entry
@@ -49,7 +45,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-RING = Path(__file__).resolve().parent / "stencil3x3_ring.cu"
 GAUSS_W = [[1, 2, 1], [2, 4, 2], [1, 2, 1]]
 
 
@@ -154,7 +149,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", default="1080,1920", help="H,W of the output")
     ap.add_argument("--dtypes", default="f32,bf16")
-    ap.add_argument("--variants", default="plan,regs160x8,ring160x8s4")
+    ap.add_argument("--variants", default="plan,regs160x8")
     ap.add_argument("--baseline", default=None)
     ap.add_argument("--host", type=int, default=0)
     ap.add_argument("--out", default=None)
@@ -168,7 +163,7 @@ def main() -> int:
         return 2
     from chip_smoke import card_line, graph_ms, time_ms
     from repro_torch.backend.build import build_many, digest, load_library, ptxas_usage
-    from repro_torch.kernels import _cuda, stencil as st
+    from repro_torch.kernels import stencil as st
     from repro_torch.kernels._cuda import DTYPE_CODE
 
     card = card_line()
@@ -182,10 +177,6 @@ def main() -> int:
         if (m := re.fullmatch(r"regs\d+x(\d+)", variant)) and int(m.group(1)) != st.ROWS:
             sources[f"rows{m.group(1)}"] = shipped.replace(
                 rows_line, f"constexpr int ROWS = {m.group(1)};")
-    if any(v.startswith("ring") for v in variants):
-        # the ring's #include "cp_async.cuh" spliced in, as CudaLauncher.source does
-        sources["ring"] = _cuda._INCLUDE.sub(lambda m: (_cuda.CSRC / m.group(1)).read_text(),
-                                             RING.read_text())
     if args.baseline:
         sources["base"] = Path(args.baseline).read_text()
         variants.append("base")
@@ -208,7 +199,6 @@ def main() -> int:
         want = st.stencil3x3_plain(x, wts)
         for variant in variants:
             out = torch.empty((h, wd), dtype=dtype, device=dev)
-            smem = ctypes.c_int(0)
             info = {}
             if variant == "clone":
                 row = {"variant": "clone", "dtype": dname, "shape": [h, wd],
@@ -234,16 +224,6 @@ def main() -> int:
                 call = lambda fn=fn, out=out, t=threads: fn(  # noqa: E731
                     x.data_ptr(), wts.data_ptr(), out.data_ptr(), h, wd, code, t, stream())
                 info = {"threads": threads, "rows": rows}
-            elif m := re.fullmatch(r"ring(\d+)x(\d+)s(\d+)", variant):
-                threads, rows, stages = map(int, m.groups())
-                fn = libs["ring"].stencil3x3_ring_launch
-                fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                               + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-                call = lambda fn=fn, out=out, t=threads, r=rows, s=stages: fn(  # noqa: E731
-                    x.data_ptr(), wts.data_ptr(), out.data_ptr(), h, wd, code, t, r, s,
-                    ctypes.byref(smem), stream())
-                info = {"threads": threads, "rows": rows, "stages": stages}
-                src = "ring"
             else:
                 raise SystemExit(f"bad variant {variant!r}")
             res = call()
@@ -262,7 +242,6 @@ def main() -> int:
             usage = ptxas_usage(sources[src])
             row = {"variant": variant, "dtype": dname, "shape": [h, wd], "bit_equal": same,
                    "ms": time_ms(call, 10), "graph_ms": graph_ms(call), **info,
-                   "smem_bytes": smem.value,
                    "ptxas": usage, "nvcc_s": secs.get(digest(sources[src])), "card": card}
             rows_out.append(row)
             print(json.dumps(row), flush=True)

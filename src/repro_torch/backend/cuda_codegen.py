@@ -107,6 +107,16 @@ block-by-block transliteration:
   operation and no order of the plain version's.  A load that no element
   of the launch can take outside its buffer or its view's valid rows and
   lanes is not bounded.
+* **One register tile, two maps.**  The carries-nothing map (rows by
+  columns) and the element-parallel map (run positions by tile) each
+  describe a thread's elements as a :class:`RegisterTile`, two axes, outer
+  then inner, and keep their own thread mapping, passes, staged copies,
+  load bounds and stores.  One emitter (``tile_program``) writes either
+  tile's programs: an op once for each element of an axis whose variables
+  it reads, once for the axis otherwise, and a reduction's chain with each
+  element's sum in a register, every run of terms that differ only in
+  constants one loop; a panel-staged weight's chain is the same terms,
+  over each panel in turn.
 
 What bounds it on the H100: a stencil group does a few operations per byte
 of f32 image, so it is bound by HBM bytes (``KernelGroup.hbm_bytes`` over
@@ -139,7 +149,7 @@ import ctypes
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -417,27 +427,6 @@ def _chain(ops: Sequence[Op]) -> Optional[Tuple[int, List[int]]]:
     return head, ends
 
 
-def _runs(sigs: Sequence[Tuple[tuple, tuple]]) -> List[Tuple[int, int, Optional[tuple]]]:
-    """A chain's terms, by their ``(signature, constants)``, as runs
-    ``(first, count, step)``: each the longest run of terms from ``first``
-    whose signatures agree and whose constants advance by the same
-    ``step`` a term (None for a run of one)."""
-    out = []
-    s = 0
-    while s < len(sigs):
-        n, step = 1, None
-        while s + n < len(sigs) and sigs[s + n][0] == sigs[s][0]:
-            d = tuple(y - x for x, y in zip(sigs[s][1], sigs[s + n][1]))
-            if step is None:
-                step = d
-            if d != tuple(n * x for x in step):
-                break
-            n += 1
-        out.append((s, n, step))
-        s += n
-    return out
-
-
 def _roll_op(op: Op, it) -> Op:
     """``op`` inside a loop over ``r``: each index constant, in signature
     order, advances by the next step of ``it`` per iteration."""
@@ -501,6 +490,79 @@ def _term_signature(ops: Sequence[Op], a: int, e: int, head: int,
             sig.append(("acc",))
     sig.append(tuple(kept))
     return tuple(sig), tuple(consts)
+
+
+def _chain_runs(
+    ops: Sequence[Op], chain: Tuple[int, List[int]], checks: Callable[[Op], List[bool]],
+) -> List[Tuple[List[Tuple[int, int]], Optional[tuple]]]:
+    """A chain's terms, as ``(first op, last op)``, in runs ``(terms,
+    step)``: each the longest run of terms whose signatures
+    (``_term_signature``) agree and whose constants advance by the same
+    ``step`` a term (None for a run of one)."""
+    head, ends = chain
+    terms = list(zip([head] + [e + 1 for e in ends[:-1]], ends))
+    sigs = [_term_signature(ops, a, e, head, checks) for a, e in terms]
+    out = []
+    s = 0
+    while s < len(sigs):
+        n, step = 1, None
+        while s + n < len(sigs) and sigs[s + n][0] == sigs[s][0]:
+            d = tuple(y - x for x, y in zip(sigs[s][1], sigs[s + n][1]))
+            if step is None:
+                step = d
+            if d != tuple(n * x for x in step):
+                break
+            n += 1
+        out.append((terms[s:s + n], step))
+        s += n
+    return out
+
+
+@dataclass(frozen=True)
+class TileAxis:
+    """One axis of a thread's register tile: ``extent`` elements; element
+    ``i`` renames each C variable of ``vars`` to ``<var>_<i>`` in an index,
+    and a value that varies along the axis carries ``_<tag><i>`` in its
+    name."""
+
+    extent: int
+    vars: Tuple[str, ...]
+    tag: str
+
+
+@dataclass(frozen=True)
+class RegisterTile:
+    """The output elements one thread evaluates together, ``outer`` by
+    ``inner``, outer-major: an element map's run positions by its tile, an
+    output tile's rows by its columns."""
+
+    outer: TileAxis
+    inner: TileAxis
+
+    @property
+    def elems(self) -> List[Tuple[int, int]]:
+        return [(o, i) for o in range(self.outer.extent) for i in range(self.inner.extent)]
+
+    def sub(self, o: int, i: int) -> Dict[str, str]:
+        """The variables of element ``(o, i)``."""
+        return {**{v: f"{v}_{o}" for v in self.outer.vars},
+                **{v: f"{v}_{i}" for v in self.inner.vars}}
+
+    def name(self, k: int, dep: Tuple[bool, bool], o: int, i: int) -> str:
+        """Op ``k``'s value for element ``(o, i)``, varying along the axes
+        ``dep`` marks."""
+        return (f"v{k}" + (f"_{self.outer.tag}{o}" if dep[0] else "")
+                + (f"_{self.inner.tag}{i}" if dep[1] else ""))
+
+
+class _TileIO(NamedTuple):
+    """How a map writes its register tile's loads (``load(tap, sub)``) and
+    masks (``bounds(bounds, sub)``), and which checks of a load or mask it
+    writes (``checks(op)``, for ``_term_signature``)."""
+
+    load: Callable[[Tap, Mapping[str, str]], str]
+    bounds: Callable[[Bounds, Mapping[str, str]], List[str]]
+    checks: Callable[[Op], List[bool]]
 
 
 def element_parallel(lg: LoweredGroup) -> bool:
@@ -595,18 +657,32 @@ class ElementMap:
         a thread, or an input staged a block."""
         return self.run > 1 or bool(self.staged)
 
+    @property
+    def register_tile(self) -> RegisterTile:
+        """A thread's ``run`` positions of the thread axis by its ``tile``
+        elements of the tile axis."""
+        return RegisterTile(
+            TileAxis(self.run, (self.thread_axis,) if self.run > 1 else (), "r"),
+            TileAxis(self.tile, (self.tile_axis,) if self.tile > 1 else (), "t"),
+        )
+
+
+def _terms(ax: AxisIndex) -> List[Tuple[int, str]]:
+    """The variables of ``ax`` (a panel coordinate as ``p<q>``), each
+    with its coefficient, where that is not 0."""
+    terms = [(ax.step, "i0"), (ax.lstep, "j"), (ax.kstep, "k"), (getattr(ax, "rstep", 0), "r")]
+    if ax.q is not None:
+        terms.append((ax.stride, f"p{ax.q}"))
+    return [(c, v) for c, v in terms if c]
+
 
 def _span(ax: AxisIndex, rng: Mapping[str, Tuple[int, int]]) -> Tuple[int, int]:
     """Smallest and largest value of ``ax`` over the variables' ranges."""
     lo = hi = ax.const
-    terms = [(ax.step, "i0"), (ax.lstep, "j"), (ax.kstep, "k"), (getattr(ax, "rstep", 0), "r")]
-    if ax.q is not None:
-        terms.append((ax.stride, f"p{ax.q}"))
-    for c, v in terms:
-        if c:
-            a, b = rng[v]
-            lo += min(c * a, c * b)
-            hi += max(c * a, c * b)
+    for c, v in _terms(ax):
+        a, b = rng[v]
+        lo += min(c * a, c * b)
+        hi += max(c * a, c * b)
     return lo, hi
 
 
@@ -993,6 +1069,14 @@ class OutputTile:
     outer: int
     inner: int
 
+    def register_tile(self, rank: int) -> RegisterTile:
+        """A thread's ``rows`` by ``cols``, over a panel of ``rank`` axes
+        ``p0`` .. ``p<rank - 1>``."""
+        return RegisterTile(
+            TileAxis(self.rows, tuple(f"p{q}" for q in range(rank - 1)), ""),
+            TileAxis(self.cols, (f"p{rank - 1}",), "c"),
+        )
+
 
 def output_tile(lg: LoweredGroup) -> Optional[OutputTile]:
     """The register tile of a group that carries nothing (None for any
@@ -1092,12 +1176,15 @@ class _GroupEmitter:
         kg = self.kg
         self.em = element_map(lg)
         self.nt = block_threads(lg)
+        # the ranges of the variables of the code being emitted: an element
+        # map's over the whole launch, else each panel's as it is emitted
+        self.rng: Dict[str, Tuple[int, int]] = {}
+        self.tiled: Dict[int, TiledInput] = {}
         if self.em is not None:
             self.rng = self.ep_ranges()
             req = kg.required_extents()
             self.need = [req[b] for b in lg.buffer_order]
             self.tiled = {st.slot: st for st in self.em.staged}
-            self.elems = [(u, t) for u in range(self.em.run) for t in range(self.em.tile)]
         self.ranks = []
         for b in lg.buffer_order:
             self.ranks.append(next(g.ndim for g in kg.groups if g.buffer == b))
@@ -1115,10 +1202,6 @@ class _GroupEmitter:
         self.staged = {st.slot: st for st in staged_inputs(lg)}
         self.smem += sum(st.smem_bytes for st in self.staged.values()) + _tiled_bytes(self.em)
         self.tile = output_tile(lg)
-        # what ``r`` stands for in the panel chain's terms (``panel_chain``)
-        self.rsub: Optional[str] = None
-        # the panel coordinates' ranges of the program being emitted
-        self.prng: Dict[str, Tuple[int, int]] = {}
 
     # -- loads --------------------------------------------------------------
 
@@ -1154,12 +1237,8 @@ class _GroupEmitter:
     @staticmethod
     def index(ax: AxisIndex, sub: Optional[Mapping[str, str]] = None) -> str:
         """``ax`` as a C int expression; ``sub`` renames variables."""
-        terms = [(ax.step, "i0"), (ax.lstep, "j"), (ax.kstep, "k"),
-                 (getattr(ax, "rstep", 0), "r")]
-        if ax.q is not None:
-            terms.append((ax.stride, f"p{ax.q}"))
         sub = sub or {}
-        return _affine(ax.const, [(c, sub.get(v, v)) for c, v in terms if c])
+        return _affine(ax.const, [(c, sub.get(v, v)) for c, v in _terms(ax)])
 
     def bounds(self, bounds: Bounds, sub: Optional[Mapping[str, str]] = None) -> List[str]:
         return [f"{self.index(ax, sub)} < {limit}" for ax, limit in bounds]
@@ -1181,12 +1260,8 @@ class _GroupEmitter:
             const = 0
             for ax, s in zip(t.axes, st.strides):
                 const += s * ax.const
-                terms = [(getattr(ax, "rstep", 0), "r")]
-                if ax.q is not None:
-                    terms.append((ax.stride, f"p{ax.q}"))
-                for c, v in terms:
-                    if c:
-                        coef[v] = coef.get(v, 0) + s * c
+                for c, v in _terms(ax):
+                    coef[v] = coef.get(v, 0) + s * c
             if st.panel is not None:
                 # the copy holds panel ``kc`` of the axis
                 axis, block = st.panel
@@ -1194,7 +1269,7 @@ class _GroupEmitter:
             sub = sub or {}
             val = f"w{b}[{_affine(const, [(c, sub.get(v, v)) for v, c in sorted(coef.items())])}]"
             ok = [f"{self.index(ax, sub)} < {lim}" for ax, lim in t.bounds
-                  if _span(ax, self.prng)[1] >= lim]
+                  if _span(ax, self.rng)[1] >= lim]
             return f"(({' && '.join(ok)}) ? {val} : 0.f)" if ok else val
         dims = [f"D{b}_{j}" for j in range(len(idx))]
         ok = [f"(unsigned)({a}) < (unsigned){d}" for a, d in zip(idx, dims)]
@@ -1271,7 +1346,7 @@ class _GroupEmitter:
         ``store``: the ``(shape, body)`` of a ``loop`` or a part of
         ``loops``."""
         shape = self.lg.panel_shape(sp, rows, cols)
-        self.prng = self.block_ranges(shape)
+        self.rng = self.block_ranges(shape)
         body, val = self.program(self.lg.programs[(sp.name, shift, lshift)])
         return shape, body + store(shape, val)
 
@@ -1407,6 +1482,114 @@ class _GroupEmitter:
             out.append(sync)
         return out, sum(ln.strip() == sync for ln in out)
 
+    # -- register tiles -----------------------------------------------------
+
+    def tile_deps(self, rt: RegisterTile, ops: Sequence[Op]) -> List[Tuple[bool, bool]]:
+        """Whether each op varies along the tile's outer and inner axis: it
+        is evaluated once for each element of an axis it varies along, once
+        for the whole axis otherwise."""
+        def varies(axes) -> Tuple[bool, bool]:
+            axes = list(axes)
+            return (any(_uses(ax, v) for ax in axes for v in rt.outer.vars),
+                    any(_uses(ax, v) for ax in axes for v in rt.inner.vars))
+
+        dep: List[Tuple[bool, bool]] = []
+        for op in ops:
+            kind = op[0]
+            if kind == "iter":
+                d = varies([op[1]])
+            elif kind == "tap":
+                d = varies(list(op[1].axes) + [ax for ax, _l in op[1].bounds])
+            elif kind == "mask":
+                o, i = varies(ax for ax, _l in op[2])
+                d = (o or dep[op[1]][0], i or dep[op[1]][1])
+            elif kind in ("bin", "sel"):
+                xs = _operands(op)
+                d = (any(dep[x][0] for x in xs), any(dep[x][1] for x in xs))
+            else:
+                d = (kind == "acc" and bool(rt.outer.vars), kind == "acc" and bool(rt.inner.vars))
+            dep.append(d)
+        return dep
+
+    def tile_op(self, rt: RegisterTile, io: _TileIO, k: int, op: Op,
+                dep: Sequence[Tuple[bool, bool]], chained: Optional[int] = None,
+                acc: Optional[Mapping[Tuple[int, int], str]] = None,
+                extra: Optional[Mapping[str, str]] = None) -> List[str]:
+        """Op ``k`` for each element it varies across: op ``chained``'s
+        value is the element's sum ``ch<o>_<i>``, an ``acc`` op's its
+        accumulator; ``extra`` renames more variables."""
+        if op[0] == "tap" and op[1].kind == "view":
+            st = self.tiled.get(self.lg.slot_of[self.kg.groups[op[1].src].buffer])
+            if st is not None:
+                return self.ep_staged(rt, op[1], k, st, dep[k])
+
+        def ref(x: int, o: int, i: int) -> str:
+            return f"ch{o}_{i}" if x == chained else rt.name(x, dep[x], o, i)
+        lines = []
+        for o in range(rt.outer.extent) if dep[k][0] else (0,):
+            for i in range(rt.inner.extent) if dep[k][1] else (0,):
+                sub = {**rt.sub(o, i), **(extra or {})}
+                rhs = _rhs(op, lambda x: ref(x, o, i), lambda ax: self.index(ax, sub),
+                           lambda tp: io.load(tp, sub), lambda b: io.bounds(b, sub),
+                           acc[(o, i)] if op[0] == "acc" else "")
+                lines.append(f"const float {ref(k, o, i)} = {rhs};")
+        return lines
+
+    def tile_head(self, rt: RegisterTile, io: _TileIO, ops: Sequence[Op], head: int,
+                  dep: Sequence[Tuple[bool, bool]],
+                  acc: Optional[Mapping[Tuple[int, int], str]] = None) -> List[str]:
+        """A chain's head, then each element's sum ``ch<o>_<i>`` from its
+        initial value."""
+        lines = [ln for k in range(head) for ln in self.tile_op(rt, io, k, ops[k], dep, acc=acc)]
+        return lines + ["float " + ", ".join(
+            f"ch{o}_{i} = {rt.name(head - 1, dep[head - 1], o, i)}" for o, i in rt.elems) + ";"]
+
+    def tile_term(self, rt: RegisterTile, io: _TileIO, ops: Sequence[Op], a: int, e: int,
+                  dep: Sequence[Tuple[bool, bool]], step: Optional[tuple] = None, n: int = 1,
+                  extra: Optional[Mapping[str, str]] = None) -> List[str]:
+        """Term ``ops[a..e]`` for each element, then its addition to the
+        element's sum.  With ``step``, the body of a loop over ``r`` in
+        ``[0, n)``: every index constant of the term advances by its step
+        per iteration."""
+        it = iter(step or ())
+        self.rng["r"] = (0, n - 1)
+        body = []
+        for k in range(a, e + 1):
+            op = ops[k] if step is None else _roll_op(ops[k], it)
+            body += self.tile_op(rt, io, k, op, dep, chained=a - 1, extra=extra)
+        del self.rng["r"]
+        return body + [f"ch{o}_{i} = {rt.name(e, dep[e], o, i)};" for o, i in rt.elems]
+
+    def tile_program(
+        self, rt: RegisterTile, io: _TileIO, ops: Sequence[Op],
+        acc: Optional[Mapping[Tuple[int, int], str]] = None,
+    ) -> Tuple[List[str], List[str]]:
+        """``ops`` for each element of the tile, interleaved statement by
+        statement, each op once for the elements it does not vary across
+        (``tile_deps``).  A reduction's accumulation chain keeps each
+        element's sum in ``ch<o>_<i>``, and each run of at least
+        ``ROLL_MIN`` terms that differ only in constants advancing by the
+        same step is one loop over ``r``, unrolled ``ROLL_UNROLL`` times
+        (written out, nvcc hoisted a whole chain's loads into registers: one
+        block an SM).  Returns the lines and each element's value, in the
+        order of ``rt.elems``."""
+        dep = self.tile_deps(rt, ops)
+        chain = _chain(ops)
+        if chain is None:
+            lines = [ln for k, op in enumerate(ops)
+                     for ln in self.tile_op(rt, io, k, op, dep, acc=acc)]
+            return lines, [rt.name(len(ops) - 1, dep[-1], o, i) for o, i in rt.elems]
+        lines = self.tile_head(rt, io, ops, chain[0], dep, acc)
+        for terms, step in _chain_runs(ops, chain, io.checks):
+            n = len(terms)
+            if n >= ROLL_MIN:
+                lines += [f"#pragma unroll {ROLL_UNROLL}", f"for (int r = 0; r < {n}; ++r) {{"]
+                lines += _indent(self.tile_term(rt, io, ops, *terms[0], dep, step, n)) + ["}"]
+            else:
+                for a, e in terms:
+                    lines += ["{"] + _indent(self.tile_term(rt, io, ops, a, e, dep)) + ["}"]
+        return lines, [f"ch{o}_{i}" for o, i in rt.elems]
+
     # -- element-parallel groups --------------------------------------------
 
     def ep_ranges(self) -> Dict[str, Tuple[int, int]]:
@@ -1429,11 +1612,8 @@ class _GroupEmitter:
         b = self.lg.slot_of[self.kg.groups[t.src].buffer]
         idx = [self.index(ax, sub) for ax in t.axes]
         dims = [f"D{b}_{j}" for j in range(len(idx))]
-        ok = []
-        for a, ax, d, n in zip(idx, t.axes, dims, self.need[b]):
-            lo, hi = _span(ax, self.rng)
-            if lo < 0 or hi >= n:
-                ok.append(f"(unsigned)({a}) < (unsigned){d}")
+        keep = self.ep_checks(("tap", t))
+        ok = [f"(unsigned)({a}) < (unsigned){d}" for a, d, c in zip(idx, dims, keep) if c]
         ok += self.ep_bounds(t.bounds, sub)
         lin = _horner(idx, dims)
         return f"ub_load(g{b}, {' && '.join(ok)}, {lin})" if ok else f"g{b}[{lin}]"
@@ -1445,80 +1625,12 @@ class _GroupEmitter:
             for ax, limit in bounds if _span(ax, self.rng)[1] >= limit
         ]
 
-    def ep_deps(self, ops: Sequence[Op]) -> List[Tuple[bool, bool]]:
-        """Whether each op depends on the thread axis inside a run (and is
-        evaluated once per run position, not once for the run) and on the
-        tile axis (once per element of the tile, not once for the tile)."""
-        em = self.em
-        xa = em.thread_axis if em.run > 1 else None
-        ta = em.tile_axis if em.tile > 1 else None
-
-        def varies(axes) -> Tuple[bool, bool]:
-            axes = list(axes)
-            return (xa is not None and any(_uses(ax, xa) for ax in axes),
-                    ta is not None and any(_uses(ax, ta) for ax in axes))
-
-        dep: List[Tuple[bool, bool]] = []
-        for op in ops:
-            kind = op[0]
-            if kind == "iter":
-                d = varies([op[1]])
-            elif kind == "tap":
-                d = varies(list(op[1].axes) + [ax for ax, _l in op[1].bounds])
-            elif kind == "mask":
-                u, t = varies(ax for ax, _l in op[2])
-                d = (u or dep[op[1]][0], t or dep[op[1]][1])
-            elif kind in ("bin", "sel"):
-                xs = _operands(op)
-                d = (any(dep[x][0] for x in xs), any(dep[x][1] for x in xs))
-            else:
-                d = (kind == "acc" and xa is not None, kind == "acc" and ta is not None)
-            dep.append(d)
-        return dep
-
-    def ep_sfx(self, u: int, t: int) -> str:
-        """The suffix of element ``(u, t)``'s chain and accumulator."""
-        return f"{t}" if self.em.run == 1 else f"{u}_{t}"
-
-    def ep_sub(self, u: int, t: int, du: bool = True, dt: bool = True) -> Dict[str, str]:
-        """The variables of run position ``u`` and tile element ``t``."""
-        em = self.em
-        sub = {}
-        if dt and em.tile > 1:
-            sub[em.tile_axis] = f"{em.tile_axis}_{t}"
-        if du and em.run > 1:
-            sub[em.thread_axis] = f"{em.thread_axis}_{u}"
-        return sub
-
-    def ep_op(self, op: Op, i: int, dep: Sequence[Tuple[bool, bool]],
-              ref: Callable[[int, int, int], str],
-              acc: Optional[Mapping[Tuple[int, int], str]] = None) -> List[str]:
-        """Op ``i`` for each run position and tile element it depends on;
-        ``ref(j, u, t)`` names op ``j``'s value for element ``(u, t)``."""
-        em = self.em
-        du, dt = dep[i]
-        if op[0] == "tap" and op[1].kind == "view":
-            st = self.tiled.get(self.lg.slot_of[self.kg.groups[op[1].src].buffer])
-            if st is not None:
-                return self.ep_staged(op[1], i, st, dt, ref)
-        lines = []
-        for u in range(em.run) if du else (0,):
-            for t in range(em.tile) if dt else (0,):
-                sub = self.ep_sub(u, t, du, dt)
-                rhs = _rhs(op, lambda j, u=u, t=t: ref(j, u, t),
-                           lambda ax, s=sub: self.index(ax, s),
-                           lambda tp, s=sub: self.ep_load(tp, s),
-                           lambda b, s=sub: self.ep_bounds(b, s),
-                           acc[(u, t)] if op[0] == "acc" else "")
-                lines.append(f"const float {ref(i, u, t)} = {rhs};")
-        return lines
-
-    def ep_staged(self, tap: Tap, i: int, st: TiledInput, dt: bool,
-                  ref: Callable[[int, int, int], str]) -> List[str]:
-        """A load of a staged input: the term's ``entries`` values, which
-        lie together in the shared copy, read 16 (or 8) bytes at a time
-        that the whole warp reads alike; a valid-row bound that some
-        element of the launch fails keeps its 0."""
+    def ep_staged(self, rt: RegisterTile, tap: Tap, k: int, st: TiledInput,
+                  dep: Tuple[bool, bool]) -> List[str]:
+        """Op ``k``, a load of a staged input: the term's ``entries``
+        values, which lie together in the shared copy, read 16 (or 8) bytes
+        at a time that the whole warp reads alike; a valid-row bound that
+        some element of the launch fails keeps its 0."""
         b = st.slot
         strides = [math.prod(st.extents[a + 1:]) * st.entries for a in range(len(st.dims))]
         coef: Dict[str, int] = {}
@@ -1526,76 +1638,28 @@ class _GroupEmitter:
         for d, s, low in zip(st.dims, strides, st.lo):
             ax = tap.axes[d]
             const += s * (ax.const - low)
-            terms = [(ax.step, "i0"), (ax.lstep, "j"), (ax.kstep, "k"),
-                     (getattr(ax, "rstep", 0), "r")]
-            if ax.q is not None:
-                terms.append((ax.stride, f"p{ax.q}"))
-            for c, v in terms:
-                if c:
-                    coef[v] = coef.get(v, 0) + s * c
+            for c, v in _terms(ax):
+                coef[v] = coef.get(v, 0) + s * c
         at = _affine(const, [(c, v) for v, c in sorted(coef.items())])
-        if not dt:
+        if not dep[1]:
             ok = self.ep_bounds(tap.bounds, {})
             val = f"w{b}[{at}]"
             val = f"({' && '.join(ok)}) ? {val} : 0.f" if ok else val
-            return [f"const float {ref(i, 0, 0)} = {val};"]
+            return [f"const float {rt.name(k, dep, 0, 0)} = {val};"]
         width = 4 if st.entries % 4 == 0 else 2 if st.entries % 2 == 0 else 1
         lines = []
         if width > 1:
             vec = f"float{width}"
             for g in range(st.entries // width):
                 ptr = f"w{b} + {at}" + (f" + {g * width}" if g else "")
-                lines.append(f"const {vec} v{i}q{g} = *reinterpret_cast<const {vec}*>({ptr});")
+                lines.append(f"const {vec} v{k}q{g} = *reinterpret_cast<const {vec}*>({ptr});")
         for t in range(st.entries):
-            val = (f"v{i}q{t // width}.{'xyzw'[t % width]}" if width > 1
+            val = (f"v{k}q{t // width}.{'xyzw'[t % width]}" if width > 1
                    else f"w{b}[{at} + {t}]")
-            ok = self.ep_bounds(tap.bounds, self.ep_sub(0, t, False, True))
+            ok = self.ep_bounds(tap.bounds, rt.sub(0, t))
             val = f"({' && '.join(ok)}) ? {val} : 0.f" if ok else val
-            lines.append(f"const float {ref(i, 0, t)} = {val};")
+            lines.append(f"const float {rt.name(k, dep, 0, t)} = {val};")
         return lines
-
-    def ep_program(
-        self, ops: Sequence[Op], acc: Optional[Mapping[Tuple[int, int], str]] = None
-    ) -> Tuple[List[str], List[str]]:
-        """``ops`` for the thread's ``run`` x ``tile`` elements, interleaved
-        statement by statement: an op that does not depend on the thread
-        axis is evaluated once for the run, one that does not depend on the
-        tile axis once for the tile.  A reduction's accumulation chain keeps
-        each element's sum in ``ch<sfx>``, and each run of at least
-        ``ROLL_MIN`` terms that differ only in constants advancing by the
-        same step is one loop over ``r``.  Returns the lines and each
-        element's value, in the order of ``elems``."""
-        dep = self.ep_deps(ops)
-        elems = self.elems
-
-        def name(j: int, u: int, t: int) -> str:
-            du, dt = dep[j]
-            return f"v{j}" + (f"_{t}" if dt else "") + (f"_r{u}" if du else "")
-
-        chain = _chain(ops)
-        if chain is None:
-            lines = []
-            for i, op in enumerate(ops):
-                lines += self.ep_op(op, i, dep, name, acc)
-            return lines, [name(len(ops) - 1, u, t) for u, t in elems]
-        head, ends = chain
-        lines = []
-        for i in range(head):
-            lines += self.ep_op(ops[i], i, dep, name, acc)
-        lines.append("float " + ", ".join(
-            f"ch{self.ep_sfx(u, t)} = {name(head - 1, u, t)}" for u, t in elems) + ";")
-        starts = [head] + [e + 1 for e in ends[:-1]]
-        sigs = [_term_signature(ops, a, e, head, self.ep_checks) for a, e in zip(starts, ends)]
-        for s, n, step in _runs(sigs):
-            a, e = starts[s], ends[s]
-            if n >= ROLL_MIN:
-                lines += [f"#pragma unroll {ROLL_UNROLL}", f"for (int r = 0; r < {n}; ++r) {{"]
-                lines += _indent(self.ep_term(ops, a, e, dep, name, step, n)) + ["}"]
-            else:
-                for j in range(n):
-                    a, e = starts[s + j], ends[s + j]
-                    lines += ["{"] + _indent(self.ep_term(ops, a, e, dep, name)) + ["}"]
-        return lines, [f"ch{self.ep_sfx(u, t)}" for u, t in elems]
 
     def ep_checks(self, op: Op) -> List[bool]:
         """Which of a load's or mask's checks some element of the launch
@@ -1610,21 +1674,7 @@ class _GroupEmitter:
             return out + [_span(ax, self.rng)[1] >= lim for ax, lim in t.bounds]
         return [_span(ax, self.rng)[1] >= lim for ax, lim in op[2]]
 
-    def ep_term(self, ops, a, e, dep, name, step=None, n=1) -> List[str]:
-        """Term ``ops[a..e]``, then its addition to the chain.  With
-        ``step``, the body of a loop over ``r`` in ``[0, n)``: every index
-        constant of the term advances by its step per iteration."""
-        it = iter(step or ())
-        body = []
-        self.rng["r"] = (0, n - 1)
-        for i in range(a, e + 1):
-            op = ops[i] if step is None else _roll_op(ops[i], it)
-            body += self.ep_op(op, i, dep, lambda j, u, t: (
-                f"ch{self.ep_sfx(u, t)}" if j == a - 1 else name(j, u, t)))
-        del self.rng["r"]
-        return body + [f"ch{self.ep_sfx(u, t)} = {name(e, u, t)};" for u, t in self.elems]
-
-    def ep_store(self, vals: Sequence[str]) -> List[str]:
+    def ep_store(self, rt: RegisterTile, vals: Sequence[str]) -> List[str]:
         """Each element's value into its place in the output, where the
         element lies inside the output's extents (and its run position
         inside the thread axis)."""
@@ -1633,8 +1683,8 @@ class _GroupEmitter:
         ext = out_sp.nstage.pure_extents
         n = len(ext)
         lines = []
-        for (u, t), v in zip(self.elems, vals):
-            sub = self.ep_sub(u, t)
+        for (u, t), v in zip(rt.elems, vals):
+            sub = rt.sub(u, t)
             ps = [sub.get(f"p{q}", f"p{q}") for q in range(n)]
             bounds = []
             if lg.streamed(out_sp):
@@ -1766,19 +1816,21 @@ class _GroupEmitter:
                 if em.lanes * (u + 1) > em.extent:
                     pos = f"min({pos}, {em.extent - 1})"
                 out.append(f"const int {xa}_{u} = {pos};")
+        rt = em.register_tile
+        io = _TileIO(self.ep_load, self.ep_bounds, self.ep_checks)
         rg = kg.red_grid
         if rg is None:
-            body, vals = self.ep_program(lg.programs[(kg.output.name, 0, 0)])
-            return out + body + self.ep_store(vals)
-        accs = [f"acc{self.ep_sfx(u, t)}" for u, t in self.elems]
-        init, iv = self.ep_program(lg.init_program)
-        chunk, cv = self.ep_program(lg.programs[(kg.output.name, 0, 0)],
-                                    dict(zip(self.elems, accs)))
+            body, vals = self.tile_program(rt, io, lg.programs[(kg.output.name, 0, 0)])
+            return out + body + self.ep_store(rt, vals)
+        accs = [f"acc{u}_{t}" for u, t in rt.elems]
+        init, iv = self.tile_program(rt, io, lg.init_program)
+        chunk, cv = self.tile_program(rt, io, lg.programs[(kg.output.name, 0, 0)],
+                                      dict(zip(rt.elems, accs)))
         out.append(f"float {', '.join(accs)};")
         out += ["{"] + _indent(init + [f"{a} = {v};" for a, v in zip(accs, iv)]) + ["}"]
         out.append(f"for (int k = 0; k < {rg.steps}; ++k) {{")
         out += _indent(chunk + [f"{a} = {v};" for a, v in zip(accs, cv)]) + ["}"]
-        return out + self.ep_store(accs)
+        return out + self.ep_store(rt, accs)
 
     # -- kernel -------------------------------------------------------------
 
@@ -1845,7 +1897,7 @@ class _GroupEmitter:
             if self.tile is not None:
                 return self.tiled_output()
             return self.loop(*self.panel(out_sp, 0, 0, store))
-        self.prng = self.block_ranges(lg.panel_shape(out_sp))
+        self.rng = self.block_ranges(lg.panel_shape(out_sp))
         init, iv = self.program(lg.init_program)
         chunk, cv = self.program(lg.programs[(out_sp.name, 0, 0)])
         body = ["float acc;", "{"] + _indent(init) + [f"  acc = {iv};", "}"]
@@ -1878,68 +1930,16 @@ class _GroupEmitter:
 
     def tiled_output(self) -> List[str]:
         """The output panel in register tiles (``output_tile``): each
-        thread's ``rows`` x ``cols`` programs interleaved statement by
-        statement, an op evaluated once for the elements it does not vary
-        across.  A reduction's accumulation chain keeps each element's sum
-        in ``ch<t>_<u>``, and each run of at least ``ROLL_MIN`` terms that
-        differ only in constants advancing by the same step is one loop
-        over ``r``, unrolled ``ROLL_UNROLL`` times (written out, nvcc
-        hoisted a whole chain's loads into registers: one block an SM)."""
+        thread's ``rows`` x ``cols`` programs by ``tile_program``, or a
+        panel-staged weight's chain by ``panel_chain``."""
         lg, ot = self.lg, self.tile
         out_sp = self.kg.output
         shape = lg.panel_shape(out_sp)
         n = len(shape)
         ops = lg.programs[(out_sp.name, 0, 0)]
         last = f"p{n - 1}"
-        outer = [f"p{q}" for q in range(n - 1)]
-
-        def dep_of(axes) -> Tuple[bool, bool]:
-            axes = list(axes)
-            return (any(_uses(ax, v) for ax in axes for v in outer),
-                    any(_uses(ax, last) for ax in axes))
-
-        dep: List[Tuple[bool, bool]] = []
-        for op in ops:
-            kind = op[0]
-            if kind == "iter":
-                d = dep_of([op[1]])
-            elif kind == "tap":
-                d = dep_of(list(op[1].axes) + [ax for ax, _l in op[1].bounds])
-            elif kind == "mask":
-                r, c = dep_of(ax for ax, _l in op[2])
-                d = (r or dep[op[1]][0], c or dep[op[1]][1])
-            elif kind in ("bin", "sel"):
-                xs = _operands(op)
-                d = (any(dep[x][0] for x in xs), any(dep[x][1] for x in xs))
-            else:
-                d = (False, False)
-            dep.append(d)
-        tiles = [(t, u) for t in range(ot.rows) for u in range(ot.cols)]
-
-        def name(k: int, t: int, u: int) -> str:
-            r, c = dep[k]
-            return f"v{k}" + (f"_{t}" if r else "") + (f"_c{u}" if c else "")
-
-        def sub(t: int, u: int) -> Dict[str, str]:
-            out = {v: f"{v}_{t}" for v in outer}
-            out[last] = f"{last}_{u}"
-            if self.rsub is not None:
-                out["r"] = self.rsub
-            return out
-
-        def emit(k: int, op: Op, ref: Callable[[int, int, int], str]) -> List[str]:
-            """Op ``k`` for each element it depends on; ``ref(j, t, u)``
-            names op ``j``'s value for element ``(t, u)``."""
-            r, c = dep[k]
-            lines = []
-            for t in range(ot.rows) if r else (0,):
-                for u in range(ot.cols) if c else (0,):
-                    s = sub(t, u)
-                    rhs = _rhs(op, lambda j: ref(j, t, u), lambda ax: self.index(ax, s),
-                               lambda tp: self.tap(tp, s), lambda b: self.bounds(b, s))
-                    lines.append(f"const float {name(k, t, u)} = {rhs};")
-            return lines
-
+        rt = ot.register_tile(n)
+        io = _TileIO(self.tap, self.bounds, self.tile_checks)
         pn = self.kg.panels
         # passes over the outer positions and over the innermost axis (a
         # panel group's tile covers its panel in as few as it can; any
@@ -1967,59 +1967,13 @@ class _GroupEmitter:
             body.append(f"const int c{u} = cb + {ot.lanes * u};")
             body.append(f"const int {last}_{u} = "
                         + (f"min(c{u}, {ot.inner - 1});" if rag_i else f"c{u};"))
-        self.prng = self.block_ranges(shape)
-        chain = _chain(ops)
-        if pn is not None:
-            # the chain, then on a padded grid the mask of its tail rows
-            k = len(ops) - 1
-            masked = ops[k][0] == "mask" and ops[k][1] == k - 1
-            chain = _chain(ops[:k]) if masked else chain
-            if chain is None:
-                raise EmitError("a panel-staged weight outside a reduction's chain",
-                                kernel=self.kg.name)
-            body += self.panel_chain(ops, chain, tiles, emit, name)
-            vals = {(t, u): f"ch{t}_{u}" for t, u in tiles}
-            if masked:
-                body += emit(k, ops[k], lambda j, t, u: vals[(t, u)] if j == k - 1
-                             else name(j, t, u))
-                vals = {(t, u): name(k, t, u) for t, u in tiles}
-        elif chain is None:
-            for k, op in enumerate(ops):
-                body += emit(k, op, name)
-            vals = {(t, u): name(len(ops) - 1, t, u) for t, u in tiles}
-        else:
-            head, ends = chain
-            for k in range(head):
-                body += emit(k, ops[k], name)
-            body.append("float " + ", ".join(
-                f"ch{t}_{u} = {name(head - 1, t, u)}" for t, u in tiles) + ";")
-            starts = [head] + [e + 1 for e in ends[:-1]]
-            sigs = [_term_signature(ops, a, e, head, self.tile_checks) for a, e in zip(starts, ends)]
-            for s0, cnt, step in _runs(sigs):
-                rolled = cnt >= ROLL_MIN
-                for j in range(1 if rolled else cnt):
-                    a, e = starts[s0 + j], ends[s0 + j]
-                    it = iter(step if rolled else ())
-                    self.prng["r"] = (0, cnt - 1)
-
-                    def ref(x, t, u, a=a):
-                        return f"ch{t}_{u}" if x == a - 1 else name(x, t, u)
-                    term = []
-                    for k in range(a, e + 1):
-                        term += emit(k, _roll_op(ops[k], it) if rolled else ops[k], ref)
-                    term += [f"ch{t}_{u} = {name(e, t, u)};" for t, u in tiles]
-                    del self.prng["r"]
-                    if rolled:
-                        body += [f"#pragma unroll {ROLL_UNROLL}",
-                                 f"for (int r = 0; r < {cnt}; ++r) {{"]
-                    else:
-                        body.append("{")
-                    body += _indent(term) + ["}"]
-            vals = {(t, u): f"ch{t}_{u}" for t, u in tiles}
-        for t, u in tiles:
+        self.rng = self.block_ranges(shape)
+        lines, vals = (self.tile_program if pn is None else self.panel_chain)(rt, io, ops)
+        body += lines
+        for (t, u), v in zip(rt.elems, vals):
             conds = ([f"o{t} < {ot.outer}"] if rag_o else []) + (
                 [f"c{u} < {ot.inner}"] if rag_i else [])
-            body += self.out_store(conds, sub(t, u), f"o{t} * {ot.inner} + c{u}", vals[(t, u)])
+            body += self.out_store(conds, rt.sub(t, u), f"o{t} * {ot.inner} + c{u}", v)
         if pn is not None:
             # every thread runs every pass, to the panels' barriers
             ob = f"threadIdx.x / {ot.lanes}"
@@ -2041,56 +1995,52 @@ class _GroupEmitter:
             return [f"if (threadIdx.x < {ot.groups * ot.lanes}) {{"] + _indent(loops) + ["}"]
         return loops
 
-    def panel_chain(self, ops, chain, tiles, emit, name) -> List[str]:
-        """The reduction chain of a group whose weight is staged in panels
-        (``KernelGroup.panels``): its head, then for each panel ``kc`` in
-        turn the panel's copy between two barriers and the chain's terms
-        over it, one loop over ``r`` of the panel's ``block`` reduction
-        steps; the sums stay in ``ch<t>_<u>`` across the panels, each
-        element's terms added in the chain's order.  The chain must be one
-        run of terms over the whole reduction, the run ``tiled_output``
-        would roll."""
+    def panel_chain(self, rt: RegisterTile, io: _TileIO,
+                    ops: Sequence[Op]) -> Tuple[List[str], List[str]]:
+        """``tile_program`` for a group whose weight is staged in panels
+        (``KernelGroup.panels``): the reduction chain's head, then for each
+        panel ``kc`` in turn the panel's copy between two barriers and the
+        chain's terms over it, one loop over ``r`` of the panel's ``block``
+        reduction steps; the sums stay in ``ch<o>_<i>`` across the panels,
+        each element's terms added in the chain's order; then, on a padded
+        grid, the mask of the tail rows.  The chain must be one run of
+        terms over the whole reduction, the run ``tile_program`` would
+        roll."""
         pn = self.kg.panels
-        head, ends = chain
-        starts = [head] + [e + 1 for e in ends[:-1]]
-        sigs = [_term_signature(ops, a, e, head, self.tile_checks) for a, e in zip(starts, ends)]
-        runs = _runs(sigs)
-        if len(runs) != 1 or runs[0][1] != pn.extent or pn.extent < 2:
+        k = len(ops) - 1
+        masked = ops[k][0] == "mask" and ops[k][1] == k - 1
+        chain = _chain(ops[:k] if masked else ops)
+        if chain is None:
+            raise EmitError("a panel-staged weight outside a reduction's chain",
+                            kernel=self.kg.name)
+        runs = _chain_runs(ops, chain, io.checks)
+        if len(runs) != 1 or len(runs[0][0]) != pn.extent or pn.extent < 2:
             raise EmitError(
-                f"the chain's runs {[(s0, n) for s0, n, _ in runs]} are not one run over "
-                f"the {pn.extent} steps of the panel-staged reduction", kernel=self.kg.name)
-        _s0, cnt, step = runs[0]
-        out: List[str] = []
-        for k in range(head):
-            out += emit(k, ops[k], name)
-        out.append("float " + ", ".join(
-            f"ch{t}_{u} = {name(head - 1, t, u)}" for t, u in tiles) + ";")
-        a, e = starts[0], ends[0]
-        it = iter(step)
-        self.prng["r"] = (0, cnt - 1)
-        self.rsub = f"(kc * {pn.block} + r)"
-
-        def ref(x, t, u):
-            return f"ch{t}_{u}" if x == a - 1 else name(x, t, u)
-        term = []
-        for k in range(a, e + 1):
-            term += emit(k, _roll_op(ops[k], it), ref)
-        term += [f"ch{t}_{u} = {name(e, t, u)};" for t, u in tiles]
-        del self.prng["r"]
-        self.rsub = None
+                f"the chain's runs of {[len(terms) for terms, _s in runs]} terms are not one "
+                f"run over the {pn.extent} steps of the panel-staged reduction",
+                kernel=self.kg.name)
+        ((terms, step),) = runs
+        dep = self.tile_deps(rt, ops)
+        term = self.tile_term(rt, io, ops, *terms[0], dep, step, pn.extent,
+                              {"r": f"(kc * {pn.block} + r)"})
         b, st = next((b, st) for b, st in self.staged.items() if st.panel is not None)
-        return (out + [f"for (int kc = 0; kc < {pn.count}; ++kc) {{", "  __syncthreads();"]
-                + _indent(self.copy(b, st)) + ["  __syncthreads();",
-                                               f"  #pragma unroll {ROLL_UNROLL}",
-                                               f"  for (int r = 0; r < {pn.block}; ++r) {{"]
-                + _indent(_indent(term)) + ["  }", "}"])
+        lines = (self.tile_head(rt, io, ops, chain[0], dep)
+                 + [f"for (int kc = 0; kc < {pn.count}; ++kc) {{", "  __syncthreads();"]
+                 + _indent(self.copy(b, st)) + ["  __syncthreads();",
+                                                f"  #pragma unroll {ROLL_UNROLL}",
+                                                f"  for (int r = 0; r < {pn.block}; ++r) {{"]
+                 + _indent(_indent(term)) + ["  }", "}"])
+        if not masked:
+            return lines, [f"ch{o}_{i}" for o, i in rt.elems]
+        lines += self.tile_op(rt, io, k, ops[k], dep, chained=k - 1)
+        return lines, [rt.name(k, dep[k], o, i) for o, i in rt.elems]
 
     def tile_checks(self, op: Op) -> List[bool]:
         """Which bounds of a staged load some element of the panel can
         fail (a global load and a mask keep all theirs)."""
         if op[0] == "tap" and op[1].kind == "view" and \
                 self.lg.slot_of[self.kg.groups[op[1].src].buffer] in self.staged:
-            return [_span(ax, self.prng)[1] >= lim for ax, lim in op[1].bounds]
+            return [_span(ax, self.rng)[1] >= lim for ax, lim in op[1].bounds]
         return []
 
     def source(self) -> str:

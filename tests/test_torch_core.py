@@ -18,7 +18,7 @@ import pytest
 import torch
 
 pytest.importorskip("hypothesis")
-from hypothesis import given, settings, strategies as st
+from hypothesis import HealthCheck, given, settings, strategies as st
 
 from repro_torch.apps import make_app
 from repro_torch.core.extraction import extract_buffers
@@ -162,7 +162,7 @@ def test_downsample_example_from_figure6():
     st.integers(-9, 9), st.integers(-9, 9), st.integers(-9, 9),
     st.integers(-50, 50),
 )
-@settings(max_examples=60)
+@settings(max_examples=60, deadline=None, suppress_health_check=[HealthCheck.too_slow])
 def test_recurrence_equals_affine_property(r0, r1, r2, s0, s1, s2, off):
     box = Box.make(a=(0, r0 - 1), b=(0, r1 - 1), c=(0, r2 - 1))
     expr = (

@@ -541,7 +541,14 @@ def test_ptxas_usage_names_hand_written_kernels(mangled, name, tmp_path, monkeyp
     ("gaussian", {"size": 33, "width": 255}, {"block_w": 128, "line_buffer": False}, []),
     # no reduction
     ("upsample", {"size": 16}, {}, []),
-], ids=["resnet", "gaussian", "upsample"])
+    # the carries-nothing register tile: the pointwise reduction's one run
+    # of 32 input channels
+    ("mobilenet", {"img": 112, "cin": 32, "cout": 64}, {"batch": 8, "batch_capacity": 8}, [32]),
+    # the panel chain: one run of 512 input channels, rolled over a panel's
+    # 64 inside the loop over the staged panels
+    ("mobilenet", {"img": 14, "cin": 512, "cout": 512}, {"batch": 32, "batch_capacity": 32},
+     [64]),
+], ids=["resnet", "gaussian", "upsample", "mobilenet-tile", "mobilenet-panels"])
 def test_reduction_runs_become_loops(name, kw, ckw, runs):
     """Only an accumulation chain's runs of terms that differ in constants
     alone are rolled; any other program is emitted straight."""
