@@ -30,6 +30,12 @@ deadlines (:class:`DeadlineExceededError`), a retry-with-recompile ladder
 (:class:`DegradedModeWarning`) and quarantine by bisection
 (:class:`PoisonedTileError`).  ``stats()`` reports the serving counters,
 the per-fault-class counters and the pipeline-cache counters in one dict.
+
+The non-finite guard decides "all finite" without a host array the size of
+a tile: admission clears a float input by one sum of it, and each dispatch
+flags its live slots' outputs on the device before they are copied back.
+The full host scan (``np.isfinite``) runs only where the sum or a flag
+could not clear the data, to confirm it and to name the witness.
 """
 
 from __future__ import annotations
@@ -83,6 +89,51 @@ _NUMERIC_KINDS = frozenset("fiub")
 _request_ids = itertools.count()
 
 
+# -- the non-finite guard: nothing non-finite is admitted or returned ------
+
+# from this many bytes up, torch's intra-op threads sum an input faster than
+# the calling thread alone: on an 8-core H100 host, waking them costs ~0.4 ms
+# and one thread sums ~5 GB/s (a 16.8 MB frame 0.7 against 3.1 ms, a 1 MB
+# request 0.46 against 0.30 ms)
+_POOLED_SUM_BYTES = 1 << 22
+
+
+def _sum_is_finite(a: np.ndarray) -> bool:
+    """Whether one sum of ``a``, which builds no temporary its size, is
+    finite.  NaN and ±Inf reach the sum, so a finite sum proves every value
+    finite; a non-finite one may still be finite values whose sum overflows
+    (f16 is summed in f32, so only f32 and wider can)."""
+    # torch views no read-only array
+    if a.nbytes >= _POOLED_SUM_BYTES and a.flags.writeable:
+        try:
+            t = torch.from_numpy(a)
+        except (TypeError, ValueError):     # a dtype or strides torch cannot view
+            pass
+        else:
+            return bool(t.sum(dtype=torch.promote_types(t.dtype, torch.float32)).isfinite())
+    with np.errstate(over="ignore", invalid="ignore"):
+        return bool(np.isfinite(
+            np.add.reduce(a, axis=None, dtype=np.promote_types(a.dtype, np.float32))
+        ))
+
+
+def _nonfinite(a: np.ndarray) -> Optional[Tuple[int, Tuple[int, ...]]]:
+    """The full host scan, for the witness: the count of ``a``'s non-finite
+    values and the index of the first, or None where every value is
+    finite."""
+    finite = np.isfinite(a)
+    if finite.all():
+        return None
+    first = tuple(int(i) for i in np.unravel_index(int(np.argmin(finite)), a.shape))
+    return int(a.size - int(finite.sum())), first
+
+
+def _finite_slots(x: torch.Tensor) -> torch.Tensor:
+    """One exact flag per leading slot of ``x``, on its device: True where
+    every value of the slot is finite."""
+    return torch.isfinite(x).reshape(len(x), -1).all(1)
+
+
 @dataclass
 class TileRequest:
     """One tile of work: per-tile input arrays in, per-tile outputs out.
@@ -126,10 +177,10 @@ def _fault_counter_zeros() -> Dict[str, int]:
 class _Staging:
     """One dispatch-table entry's transfer buffers, kept for the server's
     life: a host buffer and a device tensor per input name, each
-    ``[slots, *tile]`` f32, and a host buffer per kernel output, made on
-    its first copy back.  On a CUDA device the host buffers are pinned, so
-    both copies run asynchronously to the host; on the CPU they are plain
-    tensors and the same steps run in order."""
+    ``[slots, *tile]`` f32, a host buffer per kernel output, made on its
+    first copy back, and a host flag a slot.  On a CUDA device the host
+    buffers are pinned, so the copies run asynchronously to the host; on
+    the CPU they are plain tensors and the same steps run in order."""
 
     def __init__(self, pipe: Pipeline, slots: int, device: torch.device) -> None:
         self.device = device
@@ -144,6 +195,7 @@ class _Staging:
         self.views = {n: t.numpy() for n, t in self.host.items()}
         self.dev = {n: torch.empty_like(t, device=device) for n, t in self.host.items()}
         self.out: Dict[str, torch.Tensor] = {}
+        self.finite = torch.empty(slots, dtype=torch.bool, pin_memory=self.pinned)
         # recorded after each dispatch's copies in: the host buffers are
         # rewritten only once it has passed, raise or no raise in between
         self._h2d: Optional[torch.cuda.Event] = None
@@ -172,10 +224,15 @@ class _Staging:
 
     def from_device(
         self, bufs: Mapping[str, torch.Tensor], names: List[str], n_live: int
-    ) -> Dict[str, np.ndarray]:
-        """Copy the live slots of each named buffer back, wait for them
-        (and so for the dispatch's kernels), and return fresh host arrays:
-        a request's outputs never alias a buffer the next dispatch reuses."""
+    ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+        """Flag on the device each live slot whose named buffers are all
+        finite, copy the flags and the live slots of each named buffer
+        back, wait for them (and so for the dispatch's kernels), and return
+        fresh host arrays — a request's outputs never alias a buffer the
+        next dispatch reuses — and the flags."""
+        finite = _finite_slots(bufs[names[0]][:n_live])
+        for name in names[1:]:
+            finite &= _finite_slots(bufs[name][:n_live])
         for name in names:
             buf = bufs[name]
             out = self.out.get(name)
@@ -184,9 +241,11 @@ class _Staging:
                     buf.shape, dtype=buf.dtype, pin_memory=self.pinned
                 )
             out[:n_live].copy_(buf[:n_live], non_blocking=True)
+        self.finite[:n_live].copy_(finite, non_blocking=True)
         if self.pinned:
             torch.cuda.current_stream(self.device).synchronize()
-        return {name: self.out[name][:n_live].numpy().copy() for name in names}
+        outs = {name: self.out[name][:n_live].numpy().copy() for name in names}
+        return outs, self.finite[:n_live].numpy().copy()
 
 
 class PipelineServer:
@@ -259,6 +318,12 @@ class PipelineServer:
         self._staging: Dict[Tuple, _Staging] = {}
         self.staging_allocs = 0
         self.filler_slots = 0
+        # the non-finite guard's counts of where it engaged: inputs the sum
+        # could not clear, live slots whose device flag was raised
+        self.finite_full_scans = 0
+        self.flagged_slots = 0
+        telemetry.add("serve.finite_full_scans", 0)
+        telemetry.add("serve.flagged_slots", 0)
         self.pipeline: TorchPipeline = self.register(pipe, **compile_kwargs)
         self.pending: Deque[Tuple[Tuple, TileRequest]] = deque()
         self.served = 0
@@ -311,37 +376,36 @@ class PipelineServer:
                     f"{sorted(self.pipe.inputs)}",
                     stage=n,
                 )
-        if self.validate is not False:
-            for n in sorted(self.pipe.inputs):
-                arr = np.asarray(req.inputs[n])
-                if arr.dtype.kind not in _NUMERIC_KINDS:
-                    raise RequestError(
-                        f"input {n!r}: dtype {arr.dtype} is not castable to "
-                        f"the pipeline element type; expected float32 (or "
-                        f"any real numeric dtype), got {arr.dtype}",
-                        stage=n,
-                    )
+        if self.validate is False:
+            return self._route(req)
+        arrs = [(n, np.asarray(req.inputs[n])) for n in sorted(self.pipe.inputs)]
+        for n, arr in arrs:
+            if arr.dtype.kind not in _NUMERIC_KINDS:
+                raise RequestError(
+                    f"input {n!r}: dtype {arr.dtype} is not castable to "
+                    f"the pipeline element type; expected float32 (or "
+                    f"any real numeric dtype), got {arr.dtype}",
+                    stage=n,
+                )
         key = self._route(req)
         if self.validate is True:
-            for n in sorted(self.pipe.inputs):
-                arr = np.asarray(req.inputs[n])
-                if arr.dtype.kind == "f":
-                    finite = np.isfinite(arr)
-                    if not finite.all():
-                        bad = int(arr.size - int(finite.sum()))
-                        first = tuple(
-                            int(i)
-                            for i in np.unravel_index(
-                                int(np.argmin(finite)), arr.shape
-                            )
-                        )
-                        raise NonFiniteInputError(
-                            f"input {n!r}: {bad} non-finite value(s) "
-                            f"(first at {first}); rejecting at submit so "
-                            f"the poison never enters a batched dispatch",
-                            stage=n,
-                            witness=first,
-                        )
+            # integer inputs are finite by type; a float input is cleared by
+            # one sum, and scanned in full only where the sum is not finite
+            for n, arr in arrs:
+                if arr.dtype.kind != "f" or _sum_is_finite(arr):
+                    continue
+                self.finite_full_scans += 1
+                telemetry.add("serve.finite_full_scans", 1)
+                found = _nonfinite(arr)
+                if found is not None:
+                    bad, first = found
+                    raise NonFiniteInputError(
+                        f"input {n!r}: {bad} non-finite value(s) "
+                        f"(first at {first}); rejecting at submit so "
+                        f"the poison never enters a batched dispatch",
+                        stage=n,
+                        witness=first,
+                    )
         return key
 
     def _route(self, req: TileRequest) -> Tuple:
@@ -423,16 +487,18 @@ class PipelineServer:
 
     def _dispatch(
         self, key: Tuple, pp: TorchPipeline, reqs: List[TileRequest]
-    ) -> Dict[str, np.ndarray]:
+    ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
         """One capacity-wide batched execution of ``reqs`` through the
         shape's staging buffers (made on its first dispatch); returns
-        per-kernel host arrays of the live slots only.  Raises whatever the
+        per-kernel host arrays of the live slots only, and a flag per live
+        slot, True where all its outputs are finite.  Raises whatever the
         kernels raise — fault handling is the caller's (``_service``) job.
 
         Spans: ``serve.stack`` (the live tiles cast into the host buffers),
         ``serve.h2d`` (the live slots' copies in, the fillers zeroed on the
-        device) and ``serve.d2h`` (the live slots' copies out, the wait for
-        the dispatch's kernels, the copy into the returned arrays)."""
+        device) and ``serve.d2h`` (the slots' finite flags taken on the
+        device, the flags' and the live slots' copies out, the wait for the
+        dispatch's kernels, the copy into the returned arrays)."""
         st = self._staging.get(key)
         if st is None:
             st = self._staging[key] = _Staging(self._table[key][0], self.batch_slots, pp.device)
@@ -448,18 +514,13 @@ class PipelineServer:
         with telemetry.span("serve.d2h"):
             return st.from_device(bufs, [k.name for k in pp.kernels], n_live)
 
-    @staticmethod
-    def _poisoned_slots(
-        outs: Dict[str, np.ndarray], n_live: int
-    ) -> List[int]:
-        """Live slot indices whose outputs contain NaN/Inf (filler slots
-        run on zero inputs and are never copied back)."""
-        bad: List[int] = []
-        for b in range(n_live):
-            for arr in outs.values():
-                if not np.isfinite(arr[b]).all():
-                    bad.append(b)
-                    break
+    def _poisoned_slots(self, finite: np.ndarray) -> List[int]:
+        """Live slot indices whose device flag says an output holds NaN/Inf
+        (filler slots run on zero inputs and are never flagged)."""
+        bad = np.flatnonzero(~finite).tolist()
+        if bad:
+            self.flagged_slots += len(bad)
+            telemetry.add("serve.flagged_slots", len(bad))
         return bad
 
     def _complete(
@@ -513,7 +574,7 @@ class PipelineServer:
         pipe, pp, _kw = self._table[key]
         self.fault_counters["quarantine_dispatches"] += 1
         try:
-            outs = self._dispatch(key, pp, reqs)
+            outs, finite = self._dispatch(key, pp, reqs)
         except Exception as e:
             if len(reqs) == 1:
                 self.fault_counters["poisoned_tiles"] += 1
@@ -527,7 +588,7 @@ class PipelineServer:
             self._quarantine(key, reqs[:mid])
             self._quarantine(key, reqs[mid:])
             return
-        bad = self._poisoned_slots(outs, len(reqs))
+        bad = self._poisoned_slots(finite)
         if not bad:
             self._complete(reqs, outs)
             return
@@ -549,16 +610,12 @@ class PipelineServer:
     def _first_nonfinite(
         outs: Dict[str, np.ndarray], b: int
     ) -> Tuple[str, Tuple[int, ...]]:
+        """The host witness search of a flagged slot: its first output that
+        holds a non-finite value, and that value's index."""
         for name, arr in outs.items():
-            finite = np.isfinite(arr[b])
-            if not finite.all():
-                first = tuple(
-                    int(i)
-                    for i in np.unravel_index(
-                        int(np.argmin(finite)), finite.shape
-                    )
-                )
-                return name, first
+            found = _nonfinite(arr[b])
+            if found is not None:
+                return name, found[1]
         return next(iter(outs)), ()
 
     def _service(self, key: Tuple, reqs: List[TileRequest]) -> None:
@@ -569,13 +626,13 @@ class PipelineServer:
         pp = self._table[key][1]
         outs: Optional[Dict[str, np.ndarray]] = None
         try:
-            outs = self._dispatch(key, pp, reqs)
+            outs, finite = self._dispatch(key, pp, reqs)
         except Exception as first_err:
             self.fault_counters["dispatch_failures"] += 1
             for heuristic in (False, True):
                 try:
                     fresh = self._recompile(key, heuristic=heuristic)
-                    outs = self._dispatch(key, fresh, reqs)
+                    outs, finite = self._dispatch(key, fresh, reqs)
                 except Exception:
                     continue
                 self.fault_counters["degraded_dispatches"] += 1
@@ -593,7 +650,7 @@ class PipelineServer:
             self._quarantine(key, reqs)
             return
         with telemetry.span("serve.scan"):
-            poisoned = self._poisoned_slots(outs, len(reqs))
+            poisoned = self._poisoned_slots(finite)
         if poisoned:
             # non-finite output in a live slot: nothing from this dispatch
             # is trustworthy — re-serve every tile from clean bisection
@@ -688,13 +745,18 @@ class PipelineServer:
         the warm path depends on.  ``staging_allocs`` counts the staging
         sets made (one per registered shape, on its first dispatch),
         ``filler_slots`` the slots zeroed on the device instead of staged
-        and copied."""
+        and copied, ``finite_full_scans`` the float inputs whose sum could
+        not clear them at admission (scanned in full), ``flagged_slots``
+        the live slots whose device flag sent them to the host witness
+        search."""
         return {
             "served": self.served,
             "failed": self.failed,
             "dispatches": self.dispatches,
             "staging_allocs": self.staging_allocs,
             "filler_slots": self.filler_slots,
+            "finite_full_scans": self.finite_full_scans,
+            "flagged_slots": self.flagged_slots,
             "batch_slots": self.batch_slots,
             "shapes": len(self._table),
             "pending": len(self.pending),

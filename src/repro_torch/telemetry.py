@@ -8,8 +8,9 @@ the clock kineto stamps its events with, so every span sits on the device
 trace's timeline.  Spans are kept here, never emitted as profiler events:
 the profiler's event list stays exactly what the program's operations make.
 
-Counters (:func:`add`) are always on; they count at compile boundaries
-only, never on a warm path.
+Counters (:func:`add`) are always on; they count at compile boundaries,
+and where the serve bridge's non-finite guard engages, never on a warm
+path.
 """
 
 from __future__ import annotations
@@ -131,7 +132,7 @@ def reset() -> None:
 
 
 def add(name: str, value: float) -> None:
-    """Add ``value`` to counter ``name`` (always on: compile boundaries only)."""
+    """Add ``value`` to counter ``name`` (always on: off the warm path only)."""
     with _lock:
         _counters[name] = _counters.get(name, 0.0) + value
 

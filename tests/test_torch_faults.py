@@ -217,6 +217,212 @@ def test_nan_admitted_under_shape_validation_is_quarantined():
 
 
 # ---------------------------------------------------------------------------
+# The non-finite guard: a sum clears an input, a device flag a slot, and the
+# full scan runs only to name the witness
+# ---------------------------------------------------------------------------
+
+GUARD_DTYPES = [np.float16, np.float32, np.float64]
+GUARD_KINDS = {"nan": (np.nan, np.nan), "+inf": (np.inf,), "-inf": (-np.inf,),
+               "+inf-inf": (np.inf, -np.inf)}
+
+
+def _layout(tile, dtype, layout):
+    """``tile`` cast to ``dtype`` in the memory layout a caller might hand
+    over: contiguous, a strided or a transposed view, a view with negative
+    strides, or read-only (the last two are views torch cannot take)."""
+    a = np.asarray(tile, dtype)
+    if layout == "strided":
+        big = np.zeros((2 * a.shape[0], 3 * a.shape[1]), dtype)
+        big[::2, ::3] = a
+        a = big[::2, ::3]
+    elif layout == "transposed":
+        a = np.ascontiguousarray(a.T).T
+    elif layout == "reversed":
+        a = a[::-1].copy()[::-1]
+    return a
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "transposed", "reversed", "read-only"])
+@pytest.mark.parametrize("kind", list(GUARD_KINDS))
+@pytest.mark.parametrize("dtype,size", [
+    (np.float16, 13), (np.float32, 13), (np.float64, 13), (np.float32, 1040), (np.float64, 1040),
+], ids=["float16", "float32", "float64", "float32-pooled", "float64-pooled"])
+def test_nonfinite_input_rejected_with_the_full_scans_witness(dtype, size, kind, layout):
+    """NaN, +Inf, -Inf, and +Inf with -Inf in one input (whose sum is NaN)
+    are rejected at submit with the count, first index and message of the
+    full ``np.isfinite`` scan, in every dtype and layout, summed on the
+    calling thread or (from ``_POOLED_SUM_BYTES`` up, where torch can view
+    the array) by torch's threads; the sum that could not clear the input
+    is counted."""
+    app = make_app("gaussian", size=size)
+    srv = PipelineServer(app.pipeline, batch_slots=4, block_h=4, **CPU)
+    arr = _layout(_tiles(app, 1)[0]["input"], dtype, layout)
+    rng = np.random.default_rng(11)
+    for v, flat in zip(GUARD_KINDS[kind], rng.choice(arr.size, 2, replace=False)):
+        arr[np.unravel_index(int(flat), arr.shape)] = v
+    if layout == "read-only":
+        arr.flags.writeable = False
+    finite = np.isfinite(arr)
+    bad = int(arr.size - finite.sum())
+    first = tuple(int(i) for i in np.unravel_index(int(np.argmin(finite)), arr.shape))
+    with pytest.raises(NonFiniteInputError) as ei:
+        srv.submit({"input": arr})
+    assert (f"input 'input': {bad} non-finite value(s) (first at {first}); rejecting "
+            f"at submit so the poison never enters a batched dispatch") in str(ei.value)
+    assert ei.value.witness == first and ei.value.stage == "input"
+    s = srv.stats()
+    assert s["validation_rejects"] == 1 and s["pending"] == 0
+    assert s["finite_full_scans"] == 1
+
+
+@pytest.mark.parametrize("dtype,value,read_only,scans", [
+    (np.float32, 3e38, False, 1),
+    (np.float32, 3e38, True, 1),
+    (np.float64, 1e308, False, 1),
+    (np.float16, 65504.0, False, 0),
+], ids=["f32", "f32-read-only", "f64", "f16-summed-in-f32"])
+def test_finite_input_whose_sum_overflows_is_admitted(dtype, value, read_only, scans):
+    """An input of finite values whose sum overflows is scanned in full,
+    found finite and admitted, with no warning; f16 is summed in f32,
+    where its largest values cannot overflow."""
+    app = make_app("gaussian", size=13)
+    srv = PipelineServer(app.pipeline, batch_slots=4, block_h=4, **CPU)
+    arr = np.full(app.input_extents["input"], value, dtype)
+    arr.flags.writeable = not read_only
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        req = srv.submit({"input": arr})
+    s = srv.stats()
+    assert s["pending"] == 1 and s["validation_rejects"] == 0
+    assert s["finite_full_scans"] == scans
+    assert not req.done
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.uint8, np.bool_],
+                         ids=lambda d: np.dtype(d).name)
+def test_integer_inputs_are_not_scanned(dtype, monkeypatch):
+    """Integer and bool inputs are finite by type: neither the sum nor the
+    full scan runs, and they serve bit for bit as their f32 values."""
+    from repro_torch.backend import serve_bridge
+
+    def never(a):
+        raise AssertionError("an integer input was scanned")
+
+    monkeypatch.setattr(serve_bridge, "_sum_is_finite", never)
+    monkeypatch.setattr(serve_bridge, "_nonfinite", never)
+    app = make_app("gaussian", size=13)
+    srv = PipelineServer(app.pipeline, batch_slots=4, block_h=4, **CPU)
+    tiles = [{"input": np.asarray(t["input"] % 2 if dtype is np.bool_ else t["input"], dtype)}
+             for t in _tiles(app, 5)]
+    done = srv.run(tiles)
+    ref = compile_pipeline(app.pipeline, block_h=4, **CPU)
+    for req, tile in zip(done, tiles):
+        _assert_bit_exact(req, {"input": tile["input"].astype(np.float32)}, ref, "gaussian")
+    assert srv.stats()["finite_full_scans"] == 0
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf"])
+@pytest.mark.parametrize("mk, slots, n, mark", [
+    (("gaussian", dict(size=13)), 4, 4, 1),
+    (("camera", dict(size=6)), 3, 3, 2),
+], ids=["gaussian", "camera-two-kernels"])
+def test_flagged_slot_bisects_to_the_marked_tile_with_its_witness(kind, mk, slots, n, mark):
+    """A marked tile's outputs splatted with NaN or Inf raise its slot's
+    device flag; bisection fails it closed with the host search's witness
+    (its first kernel's output, first at the origin) and serves the rest
+    bit for bit.  The flag is raised on each of the four dispatches that
+    hold the tile: the batch, quarantine's whole batch, the half, the tile
+    alone."""
+    name, kwargs = mk
+    app = make_app(name, **kwargs)
+    srv = PipelineServer(app.pipeline, batch_slots=slots, **CPU)
+    tiles = _tiles(app, n)
+    mark_poison(tiles[mark])
+    with poison_output(srv, kind=kind):
+        done = srv.run(tiles)
+    ref = compile_pipeline(app.pipeline, **CPU)
+    first_kernel = ref.kernels[0].name
+    origin = (0,) * ref.run(tiles[0])[first_kernel].ndim
+    for i, (req, tile) in enumerate(zip(done, tiles)):
+        if i == mark:
+            assert isinstance(req.error, PoisonedTileError)
+            assert (f"output {first_kernel!r} is non-finite even dispatched alone (first "
+                    f"at {origin}); the fault travels with the tile") in str(req.error)
+            assert req.error.witness == origin and req.error.kernel == first_kernel
+        else:
+            _assert_bit_exact(req, tile, ref, app.pipeline.output)
+    s = srv.stats()
+    assert s["poisoned_tiles"] == 1 and s["flagged_slots"] == 4
+    assert s["finite_full_scans"] == 0
+
+
+@pytest.mark.parametrize("mk", [("gaussian", dict(size=13)), ("camera", dict(size=6))],
+                         ids=["gaussian", "camera-two-kernels"])
+def test_large_finite_outputs_are_not_quarantined(mk):
+    """Outputs of 1e37 are finite though each slot's sum overflows f32:
+    the device flag is exact, so nothing is flagged or quarantined and
+    every tile serves bit for bit (the inputs' sums overflow too, so
+    admission scans each in full and admits it)."""
+    name, kwargs = mk
+    app = make_app(name, **kwargs)
+    srv = PipelineServer(app.pipeline, batch_slots=3, **CPU)
+    tiles = [{n: np.full(s, 1e37, np.float32) for n, s in app.input_extents.items()}
+             for _ in range(4)]
+    done = srv.run(tiles)
+    ref = compile_pipeline(app.pipeline, **CPU)
+    for req, tile in zip(done, tiles):
+        _assert_bit_exact(req, tile, ref, app.pipeline.output)
+    with np.errstate(over="ignore"):
+        assert not all(np.isfinite(a.sum()) for a in done[0].outputs.values())
+    s = srv.stats()
+    assert s["flagged_slots"] == 0 and s["quarantine_dispatches"] == 0
+    assert s["finite_full_scans"] == len(tiles) * len(app.input_extents)
+
+
+@pytest.mark.parametrize("kind", list(GUARD_KINDS))
+@pytest.mark.parametrize("dtype", GUARD_DTYPES, ids=lambda d: np.dtype(d).name)
+def test_guard_helpers_against_the_elementwise_scan(dtype, kind):
+    """Planted at every index of an array whose length is no multiple of a
+    vector's, the values of ``kind`` keep numpy's sum from clearing the
+    array, and each slot's device flag equals ``np.isfinite(...).all()`` of
+    that slot; planted at the ends, the middle and the tail of an array of
+    ``_POOLED_SUM_BYTES`` and more, they keep torch's pooled sum (and numpy's,
+    read-only) from clearing it."""
+    from repro_torch.backend.serve_bridge import (
+        _POOLED_SUM_BYTES, _finite_slots, _nonfinite, _sum_is_finite,
+    )
+
+    rng = np.random.default_rng(5)
+    vals = GUARD_KINDS[kind]
+
+    def planted(clean, i):
+        a = clean.copy()
+        spots = {(i + 17 * k) % a.size for k in range(len(vals))}
+        for k, v in enumerate(vals):
+            a.flat[(i + 17 * k) % a.size] = v
+        return a, spots
+
+    clean = rng.uniform(-4, 4, (3, 67)).astype(dtype)
+    assert _sum_is_finite(clean) and _nonfinite(clean) is None
+    assert _finite_slots(torch.from_numpy(clean)).tolist() == [True] * 3
+    for i in range(clean.size):
+        a, spots = planted(clean, i)
+        assert not _sum_is_finite(a)
+        want = [bool(np.isfinite(a[b]).all()) for b in range(a.shape[0])]
+        assert _finite_slots(torch.from_numpy(a)).tolist() == want
+        assert _nonfinite(a) == (len(spots), np.unravel_index(min(spots), a.shape))
+
+    n = _POOLED_SUM_BYTES // np.dtype(dtype).itemsize + 67
+    big = rng.uniform(-4, 4, n).astype(dtype)
+    assert _sum_is_finite(big)
+    for i in (0, 1, n // 2, n - 67, n - 1):
+        a, _ = planted(big, i)
+        assert not _sum_is_finite(a)
+        a.flags.writeable = False
+        assert not _sum_is_finite(a)
+
+
+# ---------------------------------------------------------------------------
 # Retry-with-recompile ladder
 # ---------------------------------------------------------------------------
 

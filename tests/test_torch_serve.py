@@ -266,6 +266,30 @@ def test_staging_counters(case, allocs):
     assert s["filler_slots"] == empty
 
 
+@pytest.mark.parametrize("name,kw,validate", [
+    ("gaussian", {"size": 13}, True),
+    ("camera", {"size": 6}, True),
+    ("gaussian", {"size": 13}, "shape"),
+], ids=["gaussian", "camera-two-kernels", "shape-validation"])
+def test_clean_traffic_leaves_the_finite_guard_counters_at_zero(name, kw, validate):
+    """Clean tiles through full and ragged dispatches: every input's sum
+    clears it and no slot's device flag is raised, so ``finite_full_scans``
+    and ``flagged_slots`` read 0 in ``stats()`` and in the telemetry
+    counters, which a server starts at 0."""
+    from repro_torch import telemetry
+
+    keys = ("serve.finite_full_scans", "serve.flagged_slots")
+    before = telemetry.counters()
+    app = make_app(name, **kw)
+    srv = PipelineServer(app.pipeline, batch_slots=3, validate=validate, **CPU)
+    done = srv.run(_tiles(app, 7))
+    assert all(r.ok for r in done) and srv.dispatches == 3
+    s = srv.stats()
+    assert s["finite_full_scans"] == 0 and s["flagged_slots"] == 0
+    after = telemetry.counters()
+    assert all(after[k] == before.get(k, 0.0) for k in keys)
+
+
 def test_register_hits_the_plan_cache():
     app = make_app("gaussian", size=11)
     before = pipeline_cache_stats()
