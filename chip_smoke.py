@@ -43,12 +43,18 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    so no one-call library time: the two are timed together as
    ``two_call_ms``), and harris (1024 and 2048), unsharp and camera's
    two groups, on one slot, against the app's math written as whole-image
-   torch expressions (``rtol=1e-4, atol=1e-3``).  The DNN configurations
+   torch expressions (``rtol=1e-4, atol=1e-3``), and ConvNeXt-T's
+   stage-3 block (one group, its MLP's hidden axis walked in panels,
+   printed with its chain) against the benchmark's plain reference
+   (``F.conv2d``, ``F.layer_norm``, ``F.linear``, ``F.gelu``; 1e-5 of
+   each slot's widest output).  The DNN configurations
    take integers in [0, 16), so every sum stays below 2**24 and any
-   summation order gives the same f32 result.
+   summation order gives the same f32 result; ConvNeXt takes its
+   configuration's draws (normal ifmap, He-normal weights).
 5. serve: per configuration a ``PipelineServer(pipe, batch_slots=8)``
    answers 20 seeded requests (three dispatches, the last ragged); every
-   served tile must equal the per-tile pipeline's result.  After one
+   served tile must equal the per-tile pipeline's result, and ConvNeXt's
+   answers the plain reference's within 1e-5 of each one's widest output.  After one
    warm-up round, every kernel's launch count is zeroed just before the
    timed round and read just after; CUDA events around each dispatch's
    kernels give their share of the wall time.
@@ -296,7 +302,19 @@ FULL = [
     ("matmul", "matmul", {"m": 256, "n": 256, "k": 1000}, True),
     # a 2K stencil: lane grid, column rings and lane line buffers
     ("harris2048", "harris", {"schedule": "sch3", "size": 2048}, False),
+    # ConvNeXt-T's stage-3 block: one group whose MLP chains its two
+    # reductions through the 1536-wide hidden axis, a panel at a time
+    ("convnext", "convnext", {"img": 14, "dim": 384, "hidden": 1536}, False),
 ]
+# ConvNeXt's inputs as its benchmark configuration draws them, (mean, std)
+# of a normal draw: a signed ifmap, He-normal weights, small biases,
+# LayerNorm's affine near (1, 0), a layer scale near 1
+CONVNEXT_DRAWS = {
+    "ifmap": (0.0, 1.0), "dw_weights": (0.0, (2 / 49) ** 0.5), "dw_bias": (0.0, 0.02),
+    "ln_weight": (1.0, 0.05), "ln_bias": (0.0, 0.05), "w1": (0.0, (2 / 384) ** 0.5),
+    "b1": (0.0, 0.02), "w2": (0.0, (2 / 1536) ** 0.5), "b2": (0.0, 0.02),
+    "layer_scale": (1.0, 0.25),
+}
 # the stencil's ragged and misaligned shapes (phase 6): (H, W, bytes its
 # input's data starts past a 16-byte boundary, 1 for one element): odd W
 # with H not a multiple of a band, W + 2 a multiple of neither 4 nor 8, one
@@ -327,7 +345,10 @@ def inputs_for(app, rng, batch=None, integer=False):
     out = {}
     for name, shape in app.input_extents.items():
         shape = ((batch,) if batch else ()) + tuple(shape)
-        if integer:
+        if app.name == "convnext":
+            mean, std = CONVNEXT_DRAWS[name]
+            arr = mean + std * rng.standard_normal(shape)
+        elif integer:
             arr = rng.integers(0, 16, shape)
         else:
             arr = rng.uniform(0.0, 256.0, shape)
@@ -514,7 +535,7 @@ def bytes_and_ops(k) -> tuple:
         nbytes += 4 * nb * math.prod(need)
     per_stage = {}
     for (name, _shift, _lshift), prog in k.lg.programs.items():
-        n = sum(1 for op in prog if op[0] in ("bin", "sel"))
+        n = sum(1 for op in prog if op[0] in ("bin", "sel", "un"))
         rg = kg.red_grid
         if rg is not None and name == kg.output.name:
             n = n * rg.extent / rg.chunk     # one chunk's program holds chunk terms
@@ -575,6 +596,16 @@ def library_check(label: str, bufs, out):
         ok = torch.allclose(out, want, rtol=1e-5, atol=1e-3)
         return None, ok, (f"max|cuda - depthwise + pointwise F.conv2d| = {err!r} "
                           "(rtol=1e-5 atol=1e-3; two calls, no one-call library time)")
+    if label == "convnext":
+        # the benchmark's plain reference: F.conv2d, F.layer_norm, F.linear
+        # and F.gelu a slot, TF32 off
+        from portbench.reference import convnext
+
+        want = convnext.reference(bufs)["convnext"]
+        gap = float(((out - want).abs().flatten(1).amax(1)
+                     / want.abs().flatten(1).amax(1)).max())
+        return None, gap <= 1e-5, (f"max|cuda - F.conv2d, F.layer_norm, F.linear, F.gelu| / "
+                                   f"max|want| = {gap!r} (1e-5 a slot; several calls)")
     return None, None, None
 
 
@@ -2515,8 +2546,8 @@ def main() -> int:
     from repro_torch.backend.build import build_many, digest, ptxas_usage
     from repro_torch.backend.demo import DEMO_APPS, make_demo_app
     from repro_torch.backend.cuda_codegen import (
-        REPLACES, block_threads, element_map, emit_library, grid_x, lane_layout, output_tile,
-        row_bands, shared_bytes, staged_inputs,
+        REPLACES, block_threads, chain_tile, element_map, emit_library, grid_x, lane_layout,
+        output_tile, row_bands, shared_bytes, staged_inputs,
     )
     from repro_torch.backend.eager import LoweredGroup
     from repro_torch.backend.plan import build_pipeline_plan
@@ -2705,6 +2736,14 @@ def main() -> int:
             elif lane:
                 thread_map = (f"element loop, {k.lg.lane_steps} lane steps a block, "
                               f"{lane[1]} barriers a lane step")
+            elif k.kg.chain is not None:
+                ch, ct = k.kg.chain, chain_tile(k.lg)
+                thread_map = (
+                    f"hidden chain {list(ch.hidden)} -> {ch.consumer}: {ch.count} panels of "
+                    f"{ch.block} of {ch.extent}, consumer tile {ct.rows}x{ct.cols} a thread "
+                    f"({ct.lanes} lanes); staged "
+                    + ", ".join(f"{st.buffer} {st.smem_bytes} B"
+                                + (" a panel" if st.panel else "") for st in staged))
             elif ot is not None or staged:
                 thread_map = (
                     "element loop; staged "
@@ -2774,6 +2813,20 @@ def main() -> int:
             for kname, arr in req.outputs.items():
                 if not np.array_equal(arr, want[kname].cpu().numpy()):
                     raise AssertionError(f"{label}/{kname}: served tile differs from the per-tile pipeline")
+        if label == "convnext":
+            # the served answers against the benchmark's plain reference
+            from portbench.reference import convnext
+
+            gaps = []
+            for req, ins in zip(done, reqs):
+                one = {n: torch.from_numpy(a[None]).cuda() for n, a in ins.items()}
+                want = convnext.reference(one)["convnext"][0]
+                got = torch.from_numpy(req.outputs["convnext"]).cuda()
+                gaps.append(float((got - want).abs().max() / want.abs().max()))
+            if max(gaps) > 1e-5:
+                raise AssertionError(f"{label}: served answers off the reference by {max(gaps)}")
+            log(f"[serve] {label}: every answer within {max(gaps)!r} of the plain reference "
+                "(max|got - want| / max|want|, limit 1e-5)")
         log(f"[serve] {label}: {N_REQUESTS} requests in {dispatches} dispatches, "
             f"{secs:.4f} s, {N_REQUESTS / secs:.1f} img/s; kernels {kernel_ms:.3f} ms "
             f"({100 * kernel_ms / (1e3 * secs):.1f}% of wall); launches {counts}; "

@@ -21,7 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Tuple
 
-from repro_torch.frontend.expr import Const, IterVal, Select, maximum, minimum
+from repro_torch.frontend.expr import Const, IterVal, Select, erf, maximum, minimum, sqrt
 from repro_torch.frontend.func import Func, RDom, Var
 from repro_torch.frontend.lower import Pipeline, lower_pipeline
 
@@ -44,6 +44,7 @@ def balanced_sum(terms):
 xi, yi = Var("xi"), Var("yi")   # phase vars (upsample / demosaic)
 co = Var("co")                  # output-channel var
 ch = Var("ch")                  # per-channel var
+hc = Var("hc")                  # hidden-channel var (an MLP's wide axis)
 
 
 @dataclass
@@ -415,9 +416,126 @@ def build_matmul(m: int = 32, n: int = 32, k: int = 32) -> AppBundle:
 
 
 # ---------------------------------------------------------------------------
+# convnext — ConvNeXt's block: depthwise 7x7, LayerNorm, a 4x GELU MLP, a
+# layer scale and the residual (a transformer block's anatomy, channels last)
+# ---------------------------------------------------------------------------
+
+
+def build_convnext(
+    img: int = 4, dim: int = 8, hidden: int = 32, tiles: int = 4
+) -> AppBundle:
+    """One block of ConvNeXt (Liu et al., "A ConvNet for the 2020s",
+    arXiv:2201.03545) on an ``img`` x ``img`` tile of ``dim`` channels::
+
+        x + layer_scale * (w2 . GELU(w1 . LN(dwconv7x7(x) + dw_bias) + b1) + b2)
+
+    Channels are innermost, as in mobilenet, in the ifmap and in the
+    depthwise weights (``[ky][kx][c]``, so that threads along the channels
+    read consecutive weights), and ``ifmap`` carries its 3-pixel halo
+    (``img + 6`` square, no padding); the residual reads it at the centre.  LayerNorm runs over the channels of each pixel (mean, then
+    the variance about it, eps 1e-6, then the affine), GELU is the exact
+    ``erf`` form in torch's order, ``w1`` is ``dim`` -> ``hidden`` and
+    ``w2`` ``hidden`` -> ``dim``, each laid out as ``nn.Linear``'s weight
+    (out, in).  The defaults are tiny: the reference interpreter is
+    pointwise Python."""
+    inp = Func.input("ifmap", 3)          # [c, x, y]
+    wdw = Func.input("dw_weights", 3)     # [c, kx, ky]: channels innermost
+    bdw = Func.input("dw_bias", 1)
+    lnw = Func.input("ln_weight", 1)
+    lnb = Func.input("ln_bias", 1)
+    w1 = Func.input("w1", 2)              # [c, hc]: loop order (hidden, dim)
+    b1 = Func.input("b1", 1)
+    w2 = Func.input("w2", 2)              # [hc, co]: loop order (dim, hidden)
+    b2 = Func.input("b2", 1)
+    gamma = Func.input("layer_scale", 1)
+
+    rs = RDom(7, 7, name="s")             # the depthwise window
+    sx, sy = rs[0], rs[1]
+    dw = Func("dw_conv")
+    dw[ch, x, y] = 0
+    dw.update(
+        (ch, x, y),
+        dw[ch, x, y] + inp[ch, x + sx, y + sy] * wdw[ch, sx, sy],
+        rs,
+    )
+    dw.unroll(sx, 7).unroll(sy, 7)
+    dw.store_root()
+    t = Func("dw_out")                    # inlined: the depthwise with its bias
+    t[ch, x, y] = dw[ch, x, y] + bdw[ch]
+
+    # LayerNorm over the channels of a pixel: two per-pixel reductions
+    def channel_sum(name: str, term) -> Func:
+        r = RDom(dim, name="q")
+        f = Func(name)
+        f[x, y] = 0
+        f.update((x, y), f[x, y] + term(r[0]), r)
+        f.unroll(r[0], dim)
+        f.store_root()
+        return f
+
+    ssum = channel_sum("ln_sum", lambda q: t[q, x, y])
+    mean = Func("ln_mean")
+    mean[x, y] = ssum[x, y] / dim
+    mean.store_root()
+    centred = Func("ln_centred")          # inlined
+    centred[ch, x, y] = t[ch, x, y] - mean[x, y]
+    vsum = channel_sum("ln_var_sum", lambda q: centred[q, x, y] * centred[q, x, y])
+    rstd = Func("ln_rstd")
+    rstd[x, y] = Const(1) / sqrt(vsum[x, y] / dim + 1e-6)
+    rstd.store_root()
+    ln = Func("ln")
+    ln[ch, x, y] = centred[ch, x, y] * rstd[x, y] * lnw[ch] + lnb[ch]
+    ln.store_root()
+
+    # the MLP: dim -> hidden -> dim, the hidden axis chained between them
+    rq = RDom(dim, name="q")
+    fc1 = Func("fc1")
+    fc1[hc, x, y] = 0
+    fc1.update((hc, x, y), fc1[hc, x, y] + ln[rq[0], x, y] * w1[rq[0], hc], rq)
+    fc1.unroll(rq[0], dim)
+    fc1.store_root()
+    z = fc1[hc, x, y] + b1[hc]
+    act = Func("gelu")
+    act[hc, x, y] = z * 0.5 * (1 + erf(z * 0.7071067811865476))
+    act.store_root()
+    rh = RDom(hidden, name="h")
+    fc2 = Func("fc2")
+    fc2[co, x, y] = 0
+    fc2.update((co, x, y), fc2[co, x, y] + act[rh[0], x, y] * w2[rh[0], co], rh)
+    fc2.unroll(rh[0], hidden)
+    fc2.store_root()
+
+    out = Func("convnext")
+    out[co, x, y] = inp[co, x + 3, y + 3] + gamma[co] * (fc2[co, x, y] + b2[co])
+    out.hw_accelerate()
+
+    funcs = [inp, wdw, bdw, lnw, lnb, w1, b1, w2, b2, gamma,
+             dw, t, ssum, mean, centred, vsum, rstd, ln, fc1, act, fc2, out]
+    pipe = lower_pipeline(out, funcs, {"co": dim, "x": img, "y": img})
+    return AppBundle(
+        "convnext", "dnn", pipe, funcs, out,
+        {"co": dim, "x": img, "y": img},
+        {
+            "ifmap": (img + 6, img + 6, dim),     # loop order (y, x, c)
+            "dw_weights": (7, 7, dim),            # loop order (ky, kx, c)
+            "dw_bias": (dim,),
+            "ln_weight": (dim,),
+            "ln_bias": (dim,),
+            "w1": (hidden, dim),
+            "b1": (hidden,),
+            "w2": (dim, hidden),
+            "b2": (dim,),
+            "layer_scale": (dim,),
+        },
+        tile_count=tiles,
+        description="ConvNeXt block: depthwise 7x7, LayerNorm, GELU MLP, layer scale",
+    )
+
+
+# ---------------------------------------------------------------------------
 ALL_APPS = ["gaussian", "harris", "upsample", "unsharp", "camera", "resnet", "mobilenet"]
 # additional backend workloads, not part of the paper's Table III set
-EXTRA_APPS = ["matmul"]
+EXTRA_APPS = ["matmul", "convnext"]
 
 
 def make_app(name: str, **kw) -> AppBundle:
@@ -430,7 +548,10 @@ def make_app(name: str, **kw) -> AppBundle:
         "resnet": build_resnet,
         "mobilenet": build_mobilenet,
         "matmul": build_matmul,
+        "convnext": build_convnext,
     }
+    if name not in builders:
+        raise ValueError(f"no app {name!r}; the apps are {sorted(builders)}")
     return builders[name](**kw)
 
 

@@ -64,3 +64,19 @@ __device__ __forceinline__ void ub_copy_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 #endif
 }
+
+// The thread's copies issued since the last commit made one group; wait
+// until at most N of its groups are still in flight (the oldest land
+// first).  Off the card a copy is done when issued.
+__device__ __forceinline__ void ub_copy_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void ub_copy_wait_group() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+#endif
+}

@@ -74,6 +74,21 @@ block-by-block transliteration:
   from 56x56x128 on), the reduction's weight is staged one panel of its
   reduction axis at a time, by asynchronous copies, and each thread keeps
   its whole tile's sums in registers across the panels.
+* **A chained group walks its hidden axis** (``KernelGroup.chain``:
+  ConvNeXt's MLP, whose second linear reduces over the first's 4x-wide
+  output): ``CHAIN_THREADS`` threads a block evaluate the stages before the
+  chain once, each thread an element, a reduction's chain rolled
+  (``rolled_panel``); then, for each panel of the hidden axis, the panel of
+  every input indexed along it is copied in, the hidden stages' panel is
+  evaluated into shared memory (indexed at ``p - kc * block``) and the
+  consumer's terms over it are added to its sums, which each thread holds
+  for its register tile (``chain_tile``) across the panels
+  (``chain_panels``).  A rolled reduction whose loads all read shared
+  memory, one float further a term from a 16-byte boundary, loads four
+  terms at a time as a ``float4`` (``vector_chain``: fc1 over a LayerNorm
+  row and a row of its weight panel, laid out in 16-byte words,
+  ``staged_strides(vector=True)``).  The stages before the chain read
+  their weights from global memory: the shared memory goes to the chain.
 * **Element-parallel groups get a thread map of their own**
   (:func:`element_map`): a group with no rings, no fused scratch and no
   carry (resnet's lane grid, matmul's grid reduction, upsample) shares
@@ -161,7 +176,7 @@ from .eager import (
     record_eval_sites,
 )
 from .errors import EmitError
-from .plan import KernelGroup, StagePlan, staged_strides
+from .plan import CHAIN_THREADS, KernelGroup, StagePlan, chain_tile_shape, staged_strides
 
 # threads per block: a carried group sweeps its steps inside one block, so
 # it takes the most threads a block may have at a comfortable register
@@ -222,6 +237,10 @@ _BIN_FN = {
     "gt": "ub_gt",
 }
 _BIN_INFIX = {"add": "+", "sub": "-", "mul": "*"}
+# the device library's square root (IEEE, as torch's) and erf (within 2 ulp
+# of the exact value, as the library documents; torch's CUDA erf calls the
+# same function)
+_UN_FN = {"sqrt": "sqrtf", "erf": "erff"}
 
 
 def _flit(v: float) -> str:
@@ -252,6 +271,8 @@ def _rhs(op: Op, ref: Callable[[int], str], index: Callable[[AxisIndex], str],
         return f"{a} {_BIN_INFIX[op[1]]} {b}" if op[1] in _BIN_INFIX else f"{_BIN_FN[op[1]]}({a}, {b})"
     if kind == "sel":
         return f"ub_sel({ref(op[1])}, {ref(op[2])}, {ref(op[3])})"
+    if kind == "un":
+        return f"{_UN_FN[op[1]]}({ref(op[2])})"
     if kind == "mask":
         ok = conds(op[2])
         return f"({' && '.join(ok)}) ? {ref(op[1])} : 0.f" if ok else ref(op[1])
@@ -358,7 +379,7 @@ def smem_layout(kg: KernelGroup) -> Tuple[List[int], List[int], int]:
     members (a member's offset is its first row in the panel)."""
     lb_panels, ring_panels = shift_panels(kg)
     entries = kg.scratch_entries()
-    shapes = [sp.scratch_shape(kg.bh, key) for sp, key in entries]
+    shapes = [kg.scratch_shape(sp, key) for sp, key in entries]
     shapes += [r.ring_shape(kg.bh, kg.bw) for r in kg.rings]
     n = len(entries)
     panel_of = {m: pan for pan in lb_panels for m in pan.members}
@@ -394,8 +415,8 @@ def _operands(op: Op) -> Tuple[int, ...]:
         return (op[2], op[3])
     if op[0] == "sel":
         return tuple(op[1:4])
-    if op[0] == "mask":
-        return (op[1],)
+    if op[0] in ("mask", "un"):
+        return (op[2] if op[0] == "un" else op[1],)
     return ()
 
 
@@ -483,8 +504,8 @@ def _term_signature(ops: Sequence[Op], a: int, e: int, head: int,
             sig.append(("mask", ref(op[1]), tuple(lim for _a, lim in op[2])))
             axes([ax for ax, _l in op[2]])
             kept += checks(op)
-        elif kind in ("bin", "sel"):
-            sig.append((kind, op[1] if kind == "bin" else None,
+        elif kind in ("bin", "sel", "un"):
+            sig.append((kind, op[1] if kind in ("bin", "un") else None,
                         tuple(ref(x) for x in _operands(op))))
         else:
             sig.append(("acc",))
@@ -995,14 +1016,13 @@ def staged_inputs(lg: LoweredGroup) -> List[StagedInput]:
     (none for any other group), while they fit beside the group's scratch
     in the H100's shared memory per block: each buffer all of whose loads
     vary with no row step, lane step or chunk and stay inside its required
-    extents.  A group planned against shared memory (``kg.panels``) stages
-    every buffer its plan counts, the panel weight one panel at a time, or
-    raises :class:`EmitError`."""
+    extents.  A group planned against shared memory (``kg.panels``,
+    ``kg.chain``) stages every buffer its plan counts, each panel buffer
+    one panel at a time, or raises :class:`EmitError`."""
     if not carries_nothing(lg):
         return []
     kg = lg.kg
-    pn = kg.panels
-    panel_buffer = kg.groups[pn.group].buffer if pn is not None else None
+    cut = kg.panel_axes()
     need = kg.required_extents()
     taps: Dict[int, List[Tuple[Tap, Tuple[int, ...]]]] = {}
     for prog, shape in _stage_programs(lg):
@@ -1021,20 +1041,22 @@ def staged_inputs(lg: LoweredGroup) -> List[StagedInput]:
             0 <= _span(ax, rng)[0] and _span(ax, rng)[1] < e for ax, e in zip(t.axes, ext))
 
     off = smem_layout(kg)[2]
+    skip = kg.chain.unstaged if kg.chain is not None else ()
     out: List[StagedInput] = []
     for b, buf in enumerate(lg.buffer_order):
         ext = tuple(need[buf])
         if b not in taps or not all(invariant(t) and inside(t, sh, ext) for t, sh in taps[b]):
             continue
-        panel = None
-        if buf == panel_buffer:
-            panel = (pn.axis, pn.block)
-            ext = tuple(pn.block if a == pn.axis else e for a, e in enumerate(ext))
-        st = StagedInput(buf, b, ext, staged_strides(ext), off // 4, panel)
+        if buf in skip:
+            continue
+        panel = cut.get(buf)
+        if panel is not None:
+            ext = tuple(panel[1] if a == panel[0] else e for a, e in enumerate(ext))
+        st = StagedInput(buf, b, ext, staged_strides(ext, kg.staged_vector(buf)), off // 4, panel)
         if off + st.smem_bytes <= H100_SMEM_PER_BLOCK:
             out.append(st)
             off += st.smem_bytes
-    if pn is not None:
+    if cut:
         got = {st.buffer: st.extents for st in out}
         if got != kg.staged_extents():
             raise EmitError(
@@ -1136,6 +1158,24 @@ def _panel_tile(outer: int, inner: int) -> OutputTile:
     return best[1]
 
 
+def chain_tile(lg: LoweredGroup) -> Optional[OutputTile]:
+    """The register tile of a chained group's consumer (``kg.chain``; None
+    for any other group): its sums stay in registers while the block walks
+    the hidden panels, so the tile covers the consumer's panel in one pass
+    of the block's threads, as ``plan.chain_tile_shape`` shapes it."""
+    ch = lg.kg.chain
+    if ch is None:
+        return None
+    shape = lg.panel_shape(lg.kg.stage_plan(ch.consumer))
+    outer, inner = math.prod(shape[:-1]), shape[-1]
+    found = chain_tile_shape(outer, inner)
+    if found is None:
+        raise EmitError(f"the chain's consumer panel of {outer} x {inner} fits no register "
+                        f"tile", kernel=lg.kg.name)
+    lanes, cols, groups, rows = found
+    return OutputTile(lanes, cols, groups, rows, outer, inner)
+
+
 def _tiled_bytes(em: Optional[ElementMap]) -> int:
     """The shared memory of an element map's staged inputs."""
     if em is None or not em.staged:
@@ -1161,10 +1201,14 @@ def lane_layout(lg: LoweredGroup) -> Optional[Tuple[int, int]]:
 
 
 def block_threads(lg: LoweredGroup) -> int:
-    """Threads per block of the group's launch (``blockDim.x``)."""
+    """Threads per block of the group's launch (``blockDim.x``); a chained
+    group's, the threads that evaluate a hidden panel in one pass
+    (``plan.CHAIN_THREADS``)."""
     em = element_map(lg)
     if em is not None:
         return em.threads
+    if lg.kg.chain is not None:
+        return CHAIN_THREADS
     return THREADS_CARRIED if lg.row_carried or lg.lane_carried else THREADS_GRID
 
 
@@ -1197,11 +1241,14 @@ class _GroupEmitter:
                 f"{H100_SMEM_PER_BLOCK}-byte shared memory per block",
                 kernel=kg.name, witness=(self.smem, H100_SMEM_PER_BLOCK),
             )
-        self.s_shapes = [sp.scratch_shape(kg.bh, key) for sp, key in lg.entries]
+        self.s_shapes = [kg.scratch_shape(sp, key) for sp, key in lg.entries]
         self.r_shapes = [r.ring_shape(kg.bh, kg.bw) for r in kg.rings]
         self.staged = {st.slot: st for st in staged_inputs(lg)}
         self.smem += sum(st.smem_bytes for st in self.staged.values()) + _tiled_bytes(self.em)
         self.tile = output_tile(lg)
+        # a chain's hidden stages' scratch entries
+        self.hidden = {si for si, (sp, _k) in enumerate(lg.entries)
+                       if kg.chain is not None and sp.name in kg.chain.hidden}
 
     # -- loads --------------------------------------------------------------
 
@@ -1219,7 +1266,7 @@ class _GroupEmitter:
                 out += self.copy(b, st)
         return out + ["__syncthreads();"]
 
-    def copy(self, b: int, st: StagedInput) -> List[str]:
+    def copy(self, b: int, st: StagedInput, kc: str = "kc") -> List[str]:
         """The copy of staged input ``b``; of a panel weight, panel ``kc``."""
         n = len(st.extents)
         dims = [f"D{b}_{a}" for a in range(n)]
@@ -1230,7 +1277,7 @@ class _GroupEmitter:
             return self.loop(st.extents, [f"w{b}[{lin}] = {val};"])
         # a panel's copies all in flight at once, then waited for
         axis, block = st.panel
-        src[axis] = f"kc * {block} + p{axis}"
+        src[axis] = f"{kc} * {block} + p{axis}"
         body = [f"ub_copy_async(w{b} + {lin}, g{b} + {_horner(src, dims)});"]
         return self.loop(st.extents, body) + ["ub_copy_wait();"]
 
@@ -1248,6 +1295,9 @@ class _GroupEmitter:
         if t.kind == "ring":
             return f"r{t.src}[{_horner(idx, self.r_shapes[t.src])}]"
         if t.kind == "scratch":
+            if t.src in self.hidden:
+                # a hidden stage holds panel ``kc`` of its innermost axis
+                idx[-1] = f"{idx[-1]} - kc * {self.kg.chain.block}"
             return f"s{t.src}[{_horner(idx, self.s_shapes[t.src])}]"
         b = self.lg.slot_of[self.kg.groups[t.src].buffer]
         st = self.staged.get(b)
@@ -1503,7 +1553,7 @@ class _GroupEmitter:
             elif kind == "mask":
                 o, i = varies(ax for ax, _l in op[2])
                 d = (o or dep[op[1]][0], i or dep[op[1]][1])
-            elif kind in ("bin", "sel"):
+            elif kind in ("bin", "sel", "un"):
                 xs = _operands(op)
                 d = (any(dep[x][0] for x in xs), any(dep[x][1] for x in xs))
             else:
@@ -1537,10 +1587,12 @@ class _GroupEmitter:
 
     def tile_head(self, rt: RegisterTile, io: _TileIO, ops: Sequence[Op], head: int,
                   dep: Sequence[Tuple[bool, bool]],
-                  acc: Optional[Mapping[Tuple[int, int], str]] = None) -> List[str]:
+                  acc: Optional[Mapping[Tuple[int, int], str]] = None,
+                  extra: Optional[Mapping[str, str]] = None) -> List[str]:
         """A chain's head, then each element's sum ``ch<o>_<i>`` from its
         initial value."""
-        lines = [ln for k in range(head) for ln in self.tile_op(rt, io, k, ops[k], dep, acc=acc)]
+        lines = [ln for k in range(head)
+                 for ln in self.tile_op(rt, io, k, ops[k], dep, acc=acc, extra=extra)]
         return lines + ["float " + ", ".join(
             f"ch{o}_{i} = {rt.name(head - 1, dep[head - 1], o, i)}" for o, i in rt.elems) + ";"]
 
@@ -1563,6 +1615,7 @@ class _GroupEmitter:
     def tile_program(
         self, rt: RegisterTile, io: _TileIO, ops: Sequence[Op],
         acc: Optional[Mapping[Tuple[int, int], str]] = None,
+        extra: Optional[Mapping[str, str]] = None,
     ) -> Tuple[List[str], List[str]]:
         """``ops`` for each element of the tile, interleaved statement by
         statement, each op once for the elements it does not vary across
@@ -1571,23 +1624,25 @@ class _GroupEmitter:
         ``ROLL_MIN`` terms that differ only in constants advancing by the
         same step is one loop over ``r``, unrolled ``ROLL_UNROLL`` times
         (written out, nvcc hoisted a whole chain's loads into registers: one
-        block an SM).  Returns the lines and each element's value, in the
-        order of ``rt.elems``."""
+        block an SM).  ``extra`` renames more variables.  Returns the lines
+        and each element's value, in the order of ``rt.elems``."""
         dep = self.tile_deps(rt, ops)
         chain = _chain(ops)
         if chain is None:
             lines = [ln for k, op in enumerate(ops)
-                     for ln in self.tile_op(rt, io, k, op, dep, acc=acc)]
+                     for ln in self.tile_op(rt, io, k, op, dep, acc=acc, extra=extra)]
             return lines, [rt.name(len(ops) - 1, dep[-1], o, i) for o, i in rt.elems]
-        lines = self.tile_head(rt, io, ops, chain[0], dep, acc)
+        lines = self.tile_head(rt, io, ops, chain[0], dep, acc, extra)
         for terms, step in _chain_runs(ops, chain, io.checks):
             n = len(terms)
             if n >= ROLL_MIN:
                 lines += [f"#pragma unroll {ROLL_UNROLL}", f"for (int r = 0; r < {n}; ++r) {{"]
-                lines += _indent(self.tile_term(rt, io, ops, *terms[0], dep, step, n)) + ["}"]
+                lines += _indent(self.tile_term(rt, io, ops, *terms[0], dep, step, n,
+                                                extra)) + ["}"]
             else:
                 for a, e in terms:
-                    lines += ["{"] + _indent(self.tile_term(rt, io, ops, a, e, dep)) + ["}"]
+                    lines += ["{"] + _indent(self.tile_term(rt, io, ops, a, e, dep,
+                                                            extra=extra)) + ["}"]
         return lines, [f"ch{o}_{i}" for o, i in rt.elems]
 
     # -- element-parallel groups --------------------------------------------
@@ -1884,6 +1939,214 @@ class _GroupEmitter:
             out.append(sync)
         return out
 
+    def rolled_panel(self, si: int) -> List[str]:
+        """Scratch entry ``si``'s panel, one element a thread at a time, a
+        reduction's chain rolled as ``tile_program`` rolls it."""
+        return self.loop(self.s_shapes[si], self.rolled_body(si))
+
+    def rolled_body(self, si: int) -> List[str]:
+        """The body of ``rolled_panel``: element ``e``'s program and its
+        store.  A hidden stage's panel is panel ``kc`` of its innermost
+        axis: its coordinate ``p<q>`` stands for ``kc * block + p<q>``."""
+        sp, key = self.lg.entries[si]
+        self.rng = self.block_ranges(self.lg.panel_shape(sp))
+        shifted: Dict[str, int] = {}
+        if si in self.hidden:
+            shifted[f"p{len(sp.nstage.pure_dims) - 1}"] = self.kg.chain.block
+        extra = {v: f"(kc * {b} + {v})" for v, b in shifted.items()}
+        one = RegisterTile(TileAxis(1, (), ""), TileAxis(1, (), "c"))
+        io = _TileIO(self.tap, self.bounds, self.tile_checks)
+        ops = self.lg.programs[(sp.name, key, 0)]
+        lines, (val,) = (self.vector_chain(one, io, ops, extra, shifted)
+                         or self.tile_program(one, io, ops, extra=extra))
+        return lines + [f"s{si}[e] = {val};"]
+
+    def _word_aligned(self, t: Tap, shifted: Mapping[str, int]) -> Optional[bool]:
+        """Whether a shared-memory tap's flat index advances by one float an
+        ``r`` (True: four terms are one 16-byte load, aligned for every
+        value of its other variables) or not at all (False); None for any
+        other tap.  A variable ``v`` of ``shifted`` stands for ``kc *
+        shifted[v] + v``."""
+        if t.kind == "scratch":
+            dims, base = self.s_shapes[t.src], self.s_off[t.src]
+            strides = [math.prod(dims[a + 1:]) for a in range(len(dims))]
+            kc = -self.kg.chain.block * strides[-1] if t.src in self.hidden else 0
+        elif t.kind == "view" and self.lg.slot_of[self.kg.groups[t.src].buffer] in self.staged:
+            st = self.staged[self.lg.slot_of[self.kg.groups[t.src].buffer]]
+            if any(_span(ax, self.rng)[1] >= lim for ax, lim in t.bounds):
+                return None
+            strides, base = st.strides, st.offset
+            kc = -st.strides[st.panel[0]] * st.panel[1] if st.panel is not None else 0
+        else:
+            return None
+        coef: Dict[str, int] = {"kc": kc, "r": 0}
+        const = base
+        for ax, stride in zip(t.axes, strides):
+            const += stride * ax.const
+            for c, v in _terms(ax):
+                coef[v] = coef.get(v, 0) + stride * c
+        for v, block in shifted.items():
+            coef["kc"] += coef.get(v, 0) * block
+        step = coef.pop("r")
+        if step == 0:
+            return False
+        ok = step == 1 and const % 4 == 0 and all(c % 4 == 0 for c in coef.values())
+        return True if ok else None
+
+    def vector_chain(self, rt: RegisterTile, io: _TileIO, ops: Sequence[Op],
+                     extra: Mapping[str, str], shifted: Mapping[str, int],
+                     ) -> Optional[Tuple[List[str], List[str]]]:
+        """``tile_program`` for one element (a 1 x 1 tile) whose program is a
+        reduction's chain of one run, a multiple of four terms long, whose
+        loads all read shared memory, each either one float further an
+        ``r`` from a 16-byte-aligned start (``_word_aligned``) or the same
+        float every ``r``: the loop steps four terms at a time, the first
+        kind loaded once a step as one ``float4``, and adds the four terms
+        in turn, as the rolled loop adds them.  None for any other
+        program.  ``extra`` renames variables, ``shifted`` as
+        ``_word_aligned`` reads it."""
+        chain = _chain(ops)
+        if chain is None or rt.elems != [(0, 0)]:
+            return None
+        self.rng["r"] = (0, 0)
+        runs = _chain_runs(ops, chain, io.checks)
+        if len(runs) != 1 or len(runs[0][0]) % 4 or len(runs[0][0]) < ROLL_MIN:
+            del self.rng["r"]
+            return None
+        ((terms, step),) = runs
+        n = len(terms)
+        self.rng["r"] = (0, n - 1)
+        a, e = terms[0]
+        it = iter(step)
+        rolled = {k: _roll_op(ops[k], it) for k in range(a, e + 1)}
+        taps = {k: op[1] for k, op in rolled.items() if op[0] == "tap"}
+        kinds = {k: self._word_aligned(t, shifted) for k, t in taps.items()}
+        if None in kinds.values() or True not in kinds.values():
+            del self.rng["r"]
+            return None
+        dep = self.tile_deps(rt, ops)
+        lines = self.tile_head(rt, io, ops, chain[0], dep, extra=extra)
+        words = {id(taps[k]): k for k, word in kinds.items() if word}
+        body = [f"const float4 q{k} = *reinterpret_cast<const float4*>(&{self.tap(taps[k], extra)});"
+                for k in sorted(words.values())]
+        for u, comp in enumerate("xyzw"):
+            def load(t: Tap, sub: Mapping[str, str], comp=comp) -> str:
+                k = words.get(id(t))
+                return f"q{k}.{comp}" if k is not None else self.tap(t, sub)
+            part = [ln for k in range(a, e + 1)
+                    for ln in self.tile_op(rt, _TileIO(load, io.bounds, io.checks), k, rolled[k],
+                                           dep, chained=a - 1, extra={**extra, "r": f"(r + {u})"})]
+            body += ["{"] + _indent(part + [f"ch0_0 = {rt.name(e, dep[e], 0, 0)};"]) + ["}"]
+        del self.rng["r"]
+        lines += [f"#pragma unroll {ROLL_UNROLL // 2}", f"for (int r = 0; r < {n}; r += 4) {{"]
+        return lines + _indent(body) + ["}"], ["ch0_0"]
+
+    def chain_step(self) -> List[str]:
+        """One row step of a chained group (``kg.chain``): the staged
+        copies, each fused panel before the chain in turn (a barrier after
+        each), then the chain (``chain_panels``), the fused panels after it,
+        and the output panel."""
+        lg, kg = self.lg, self.kg
+        ch = kg.chain
+        sync = "__syncthreads();"
+        cons = next(si for si, (sp, _k) in enumerate(lg.entries) if sp.name == ch.consumer)
+        out = self.staging()
+        for si in range(len(lg.entries)):
+            if si in self.hidden:
+                continue
+            out += self.chain_panels(cons) if si == cons else self.rolled_panel(si)
+            out.append(sync)
+        return out + self.output_panel()
+
+    def chain_panels(self, cons: int) -> List[str]:
+        """The chain: each thread's register tile of the consumer's sums
+        (``chain_tile``) from their initial values, then for each hidden
+        panel ``kc`` in turn the hidden stages' panels (their innermost
+        index ``kc * block + p``, held at ``p``) in one loop, each element's
+        stages in turn, and the consumer's terms over the panel, one loop
+        over ``r``, a barrier after each; the panels of the inputs staged
+        along the hidden axis copied in ahead, those only the hidden stages
+        read during the consumer's terms before, the others during the
+        hidden stages (``cp.async`` groups, each waited for before its
+        reader's barrier); then the sums (masked on a padded grid) into the
+        consumer's scratch.  The consumer's chain
+        must be one run of terms over the whole hidden axis."""
+        lg, kg = self.lg, self.kg
+        ch = kg.chain
+        sp, _key = lg.entries[cons]
+        ops = lg.programs[(sp.name, 0, 0)]
+        shape = lg.panel_shape(sp)
+        n = len(shape)
+        ot = chain_tile(lg)
+        rt = ot.register_tile(n)
+        io = _TileIO(self.tap, self.bounds, self.tile_checks)
+        self.rng = self.block_ranges(shape)
+        k = len(ops) - 1
+        masked = ops[k][0] == "mask" and ops[k][1] == k - 1
+        chain = _chain(ops[:k] if masked else ops)
+        runs = _chain_runs(ops, chain, io.checks) if chain is not None else []
+        if len(runs) != 1 or len(runs[0][0]) != ch.extent:
+            raise EmitError(
+                f"the consumer's chain runs of {[len(t) for t, _s in runs]} terms are not one "
+                f"run over the {ch.extent} steps of the hidden axis", kernel=kg.name)
+        ((terms, step),) = runs
+        dep = self.tile_deps(rt, ops)
+        term = self.tile_term(rt, io, ops, *terms[0], dep, step, ch.extent,
+                              {"r": f"(kc * {ch.block} + r)"})
+        body = [f"const int ob = threadIdx.x / {ot.lanes};",
+                f"const int cb = threadIdx.x % {ot.lanes};"]
+        for t in range(ot.rows):
+            body.append(f"const int o{t} = ob + {ot.groups * t};")
+            inner_ext = 1
+            for q in range(n - 2, -1, -1):
+                oc = f"min(o{t}, {ot.outer - 1})"
+                div = f"{oc} / {inner_ext}" if inner_ext > 1 else oc
+                val = "0" if shape[q] == 1 else div if q == 0 else f"({div}) % {shape[q]}"
+                body.append(f"const int p{q}_{t} = {val};")
+                inner_ext *= shape[q]
+        for u in range(ot.cols):
+            body.append(f"const int c{u} = cb + {ot.lanes * u};")
+            body.append(f"const int p{n - 1}_{u} = min(c{u}, {ot.inner - 1});")
+        body += self.tile_head(rt, io, ops, chain[0], dep)
+        # the panels only the hidden stages read are copied in while the
+        # consumer adds the panel before, the others while the hidden
+        # stages evaluate theirs: two groups of copies in flight in turn
+        hidden = sorted(self.hidden)
+        early = {self.lg.slot_of[self.kg.groups[op[1].src].buffer]
+                 for si in hidden for op in lg.programs[(lg.entries[si][0].name, 0, 0)]
+                 if op[0] == "tap" and op[1].kind == "view"}
+        early -= {self.lg.slot_of[self.kg.groups[op[1].src].buffer]
+                  for op in ops if op[0] == "tap" and op[1].kind == "view"}
+
+        def copies(first: bool, kc: str) -> List[str]:
+            out = [ln for b, st in self.staged.items()
+                   if st.panel is not None and (b in early) == first
+                   for ln in self.copy(b, st, kc)[:-1]]
+            return out + ["ub_copy_commit();"]
+
+        body += copies(True, "0") + copies(False, "0")
+        walk = ["ub_copy_wait_group<1>();", "__syncthreads();"]
+        # every hidden stage reads the others only at its own element, so
+        # one thread evaluates an element of each in turn, one barrier after
+        walk += self.loop(self.s_shapes[hidden[0]], [
+            ln for si in hidden for ln in ["{"] + _indent(self.rolled_body(si)) + ["}"]])
+        walk += ["__syncthreads();", f"if (kc + 1 < {ch.count}) {{"]
+        walk += _indent(copies(True, "(kc + 1)") + ["ub_copy_wait_group<1>();"])
+        walk += ["} else {", "  ub_copy_wait_group<0>();", "}", "__syncthreads();"]
+        self.rng = self.block_ranges(shape)
+        walk += [f"#pragma unroll {ROLL_UNROLL}", f"for (int r = 0; r < {ch.block}; ++r) {{"]
+        walk += _indent(term) + ["}", "__syncthreads();", f"if (kc + 1 < {ch.count}) {{"]
+        walk += _indent(copies(False, "(kc + 1)")) + ["}"]
+        body += [f"for (int kc = 0; kc < {ch.count}; ++kc) {{"] + _indent(walk) + ["}"]
+        vals = [f"ch{o}_{i}" for o, i in rt.elems]
+        if masked:
+            body += self.tile_op(rt, io, k, ops[k], dep, chained=k - 1)
+            vals = [rt.name(k, dep[k], o, i) for o, i in rt.elems]
+        for (t, u), v in zip(rt.elems, vals):
+            body.append(f"if (o{t} < {ot.outer} && c{u} < {ot.inner}) "
+                        f"s{cons}[o{t} * {ot.inner} + c{u}] = {v};")
+        return ["{"] + _indent(body) + ["}"]
+
     def output_panel(self) -> List[str]:
         """The output stage's panel (a grid reduction's chunks summed in
         order), stored where it lies inside the output's extents."""
@@ -2071,6 +2334,9 @@ class _GroupEmitter:
             lines.append(
                 f"// carries nothing: staged {[(st.buffer, st.strides) for st in self.staged.values()]}"
                 + (f", {kg.panels.count} panels of {kg.panels.block}" if kg.panels else "")
+                + (f", hidden chain {list(kg.chain.hidden)} -> {kg.chain.consumer}: "
+                   f"{kg.chain.count} panels of {kg.chain.block}, consumer tile "
+                   f"{chain_tile(lg).rows} x {chain_tile(lg).cols}" if kg.chain else "")
                 + (f", output tile {ot.rows} x {ot.cols} a thread, {ot.lanes} lanes along the "
                    f"innermost axis, {ot.groups} groups" if ot is not None else "")
             )
@@ -2130,7 +2396,8 @@ class _GroupEmitter:
             lines.append("  const int i0 = blockIdx.x;")
             lines.append("  {")
         if em is None:
-            body = self.lane_step()[0] if lg.lane_carried else self.step()
+            body = (self.lane_step()[0] if lg.lane_carried else
+                    self.chain_step() if kg.chain is not None else self.step())
         lines += ["    " + ln for ln in body]
         lines += ["  }", "}", ""]
         lines += [
@@ -2299,6 +2566,7 @@ __all__ = [
     "StagedInput",
     "block_threads",
     "carries_nothing",
+    "chain_tile",
     "element_map",
     "emit_kernel",
     "emit_library",

@@ -32,7 +32,7 @@ from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.frontend.expr import BinOp, Const, Expr, FuncRef, IterVal, Select
+from repro_torch.frontend.expr import BinOp, Const, Expr, FuncRef, IterVal, Select, UnOp
 
 from .access import UnsupportedAccessError
 from .errors import EmitError
@@ -125,6 +125,7 @@ class Tap:
 #   ("iter", AxisIndex)        the index as f32
 #   ("tap", Tap)               one load
 #   ("bin", op, a, b)          add|sub|mul|div|min|max|shr|lt|gt
+#   ("un", op, a)              sqrt|erf
 #   ("sel", c, t, f)           c != 0 ? t : f
 #   ("mask", a, Bounds)        a where every bound holds, else 0.0
 #   ("acc",)                   the running accumulator (a reduction chunk)
@@ -432,6 +433,12 @@ class LoweredGroup:
                 a = emit(e.a, rho, counter)
                 b = emit(e.b, rho, counter)
                 ops.append(("bin", e.op, a, b))
+            elif isinstance(e, UnOp):
+                if e.op not in _UNOPS:
+                    raise UnsupportedAccessError(
+                        f"unary op {e.op} not supported by codegen"
+                    )
+                ops.append(("un", e.op, emit(e.a, rho, counter)))
             elif isinstance(e, Select):
                 c = emit(e.cond, rho, counter)
                 t = emit(e.if_true, rho, counter)
@@ -496,6 +503,9 @@ class LoweredGroup:
 
 
 _BINOPS = ("add", "sub", "mul", "div", "min", "max", "shr", "lt", "gt")
+# torch's square root is IEEE's, as CUDA's ``sqrtf`` and the host's are; its
+# ``erf`` is the device library's own, within a few ulp of any other
+_UNOPS = {"sqrt": torch.sqrt, "erf": torch.erf}
 
 
 # ---------------------------------------------------------------------------
@@ -661,6 +671,8 @@ class _Env:
                 v = self.gather(op[1], shape)
             elif kind == "bin":
                 v = _binop(op[1], vals[op[2]], vals[op[3]], one, zero)
+            elif kind == "un":
+                v = _UNOPS[op[1]](vals[op[2]])
             elif kind == "sel":
                 v = torch.where(vals[op[1]] != 0, vals[op[2]], vals[op[3]])
             elif kind == "mask":

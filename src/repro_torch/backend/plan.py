@@ -115,17 +115,23 @@ class FusionInfeasible(PlanError):
     code = "PLAN-FUSION"
 
 
-def staged_strides(extents: Sequence[int]) -> Tuple[int, ...]:
+def staged_strides(extents: Sequence[int], vector: bool = False) -> Tuple[int, ...]:
     """Float strides of a copy of ``extents`` staged in shared memory: each
     extent after the first padded to an odd count, so that 32 threads
-    reading 32 consecutive indices of any one axis hit 32 banks."""
+    reading 32 consecutive indices of any one axis hit 32 banks.  With
+    ``vector`` the innermost extent is padded instead to 4 more than a
+    multiple of 8: rows of whole 16-byte words, whose 16-byte loads by 16
+    threads, one row each, take two wavefronts (a chained group's panel cut
+    along a leading axis, read along its rows four terms a load)."""
     padded = [e if a == 0 or e % 2 else e + 1 for a, e in enumerate(extents)]
+    if vector and len(extents) > 1:
+        padded[-1] = extents[-1] + (4 - extents[-1]) % 8
     return tuple(math.prod(padded[a + 1:]) for a in range(len(extents)))
 
 
-def staged_bytes(extents: Sequence[int]) -> int:
+def staged_bytes(extents: Sequence[int], vector: bool = False) -> int:
     """Shared-memory bytes of a staged copy of ``extents``, padding included."""
-    return ELEM_BYTES * extents[0] * staged_strides(extents)[0]
+    return ELEM_BYTES * extents[0] * staged_strides(extents, vector)[0]
 
 
 @dataclass(frozen=True)
@@ -151,8 +157,68 @@ class WeightPanels:
         return self.extent // self.block
 
 
+# a chained group (:class:`HiddenChain`): the threads of its CUDA block,
+# which evaluate one hidden panel in one pass, and the consumer's sums one
+# thread keeps in registers across the hidden panels
+CHAIN_THREADS = 512
+CHAIN_TILE_MAX = 32
+
+
+@dataclass(frozen=True)
+class HiddenChain:
+    """A fused group that chains two reductions through a hidden axis, planned
+    against shared memory as the CUDA kernel fills it (a transformer MLP:
+    ``fc2[co] = sum_h gelu[h] * w2[h, co]``, ``gelu[h]`` of ``fc1[h] = sum_c
+    ln[c] * w1[c, h]``).  The ``consumer`` (a fused stage, not the output) reduces
+    over the innermost axis of the ``hidden`` stages, whose extent is
+    ``extent``; nothing of them is ever written to global memory, and no
+    block holds more than ``block`` entries of that axis: it walks the
+    hidden axis in ``count`` panels, each time staging panel ``kc`` of every
+    input indexed along it (``staged``: view group and axis), evaluating
+    the hidden stages' panels into shared memory (the unified buffer) and
+    adding their terms to the consumer's sums, held in registers across the
+    panels, each sum's terms in the reduction's order.  Everything else
+    of the group is as :class:`WeightPanels` has it: nothing carried,
+    row-blocked views read from global memory, the other fused panels whole
+    in shared memory, every other grid-invariant input staged whole, but
+    those read only by the stages before the chain (``unstaged``, e.g. the
+    depthwise weights): evaluated once a block, they read global memory,
+    and the shared memory goes to the chain, which walks its panels."""
+
+    hidden: Tuple[str, ...]
+    consumer: str
+    extent: int
+    block: int
+    staged: Tuple[Tuple[int, int], ...]
+    unstaged: Tuple[str, ...] = ()
+
+    @property
+    def count(self) -> int:
+        return self.extent // self.block
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def chain_tile_shape(outer: int, inner: int) -> Optional[Tuple[int, int, int, int]]:
+    """How a chained group's ``CHAIN_THREADS`` threads hold its consumer's
+    panel of ``outer`` positions by ``inner`` (its innermost axis) in one
+    pass, at most ``CHAIN_TILE_MAX`` sums a thread: ``(lanes, cols, groups,
+    rows)``, ``lanes`` threads along the innermost axis, each ``cols``
+    elements ``lanes`` apart, by ``groups`` rows of threads of ``rows``
+    positions each; of those, the fewest loads a term (``rows + cols``),
+    then the fewest idle elements.  None where no such tile exists."""
+    best = None
+    for lanes in (32, 64, 128, 256):
+        groups = CHAIN_THREADS // lanes
+        cols, rows = _cdiv(inner, lanes), _cdiv(outer, groups)
+        if rows * cols > CHAIN_TILE_MAX:
+            continue
+        key = (rows + cols, groups * rows * lanes * cols - outer * inner, lanes)
+        if best is None or key < best[0]:
+            best = (key, (lanes, cols, groups, rows))
+    return None if best is None else best[1]
 
 
 @dataclass(frozen=True)
@@ -579,6 +645,9 @@ class KernelGroup:
     # planned against the CUDA kernel's shared memory, its weight staged in
     # panels (see :class:`WeightPanels`); None for a Pallas-model plan
     panels: Optional[WeightPanels] = None
+    # planned against shared memory with two reductions chained through a
+    # hidden axis walked in panels (see :class:`HiddenChain`)
+    chain: Optional[HiddenChain] = None
 
     @property
     def output(self) -> StagePlan:
@@ -681,19 +750,45 @@ class KernelGroup:
             )
         return out
 
+    def panel_axes(self) -> Dict[str, Tuple[int, int]]:
+        """Each buffer staged a panel at a time: its ``(axis, block)``."""
+        if self.panels is not None:
+            pn = self.panels
+            return {self.groups[pn.group].buffer: (pn.axis, pn.block)}
+        if self.chain is not None:
+            ch = self.chain
+            return {self.groups[gi].buffer: (a, ch.block) for gi, a in ch.staged}
+        return {}
+
     def staged_extents(self) -> Dict[str, Tuple[int, ...]]:
-        """Under :attr:`panels`, the extents of each buffer the kernel
-        stages in shared memory (:func:`_staged_hull`), the panel buffer's
-        axis cut to one panel; empty for a Pallas-model plan."""
-        if self.panels is None:
+        """Under :attr:`panels` or :attr:`chain`, the extents of each buffer
+        the kernel stages in shared memory (:func:`_staged_hull`), a panel
+        buffer's axis cut to one panel; empty for a Pallas-model plan."""
+        if self.panels is None and self.chain is None:
             return {}
-        pn = self.panels
-        panel_buffer = self.groups[pn.group].buffer
+        cut = self.panel_axes()
+        skip = self.chain.unstaged if self.chain is not None else ()
         return {
-            buf: tuple(pn.block if buf == panel_buffer and a == pn.axis else e
+            buf: tuple(cut[buf][1] if buf in cut and a == cut[buf][0] else e
                        for a, e in enumerate(ext))
-            for buf, ext in (_staged_hull(self.groups) or {}).items()
+            for buf, ext in (_staged_hull(self.groups) or {}).items() if buf not in skip
         }
+
+    def staged_vector(self, buf: str) -> bool:
+        """Whether staged buffer ``buf`` is laid out in rows of 16-byte words
+        (``staged_strides``): a chain's panel cut along a leading axis."""
+        cut = self.panel_axes().get(buf) if self.chain is not None else None
+        return cut is not None and cut[0] < next(
+            g.ndim for g in self.groups if g.buffer == buf) - 1
+
+    def scratch_shape(self, sp: StagePlan, key) -> Tuple[int, ...]:
+        """One scratch entry's shape as the kernel holds it: a hidden stage
+        of a :attr:`chain` one panel of its innermost axis, any other
+        ``sp.scratch_shape``."""
+        shape = sp.scratch_shape(self.bh, key)
+        if self.chain is not None and sp.name in self.chain.hidden:
+            return shape[:-1] + (self.chain.block,)
+        return shape
 
     def validate_buffers(self, buffers: Mapping[str, object]) -> None:
         """Check the arrays backing this kernel's view streams against the
@@ -759,7 +854,7 @@ class KernelGroup:
     @property
     def scratch_bytes(self) -> int:
         return sum(
-            ELEM_BYTES * math.prod(sp.scratch_shape(self.bh, key))
+            ELEM_BYTES * math.prod(self.scratch_shape(sp, key))
             for sp, key in self.scratch_entries()
         ) + sum(r.ring_bytes(self.bh, self.bw) for r in self.rings)
 
@@ -828,7 +923,7 @@ class KernelGroup:
                     if cond and ax < len(self.base_grid)
                 )
             blk = g.block_shape(self.bh, self.bw)
-            if self.panels is not None:
+            if self.panels is not None or self.chain is not None:
                 # read straight from global memory, or through the staged
                 # copy listed below: nothing of the view is resident
                 streams.append(StreamPlan(
@@ -844,7 +939,8 @@ class KernelGroup:
             ))
         for buf, ext in self.staged_extents().items():
             streams.append(StreamPlan(
-                f"staged:{buf}", ext, (), staged_bytes(ext), double_buffered=False,
+                f"staged:{buf}", ext, (), staged_bytes(ext, self.staged_vector(buf)),
+                double_buffered=False,
             ))
         for r in self.rings:
             tag = "lane:" if r.lane else ""
@@ -855,13 +951,13 @@ class KernelGroup:
             ))
         for sp, key in self.scratch_entries():
             tag = "ring" if key is None else str(key)
-            shape = sp.scratch_shape(self.bh, key)
+            shape = self.scratch_shape(sp, key)
             streams.append(StreamPlan(
                 f"scratch:{sp.name}@{tag}", shape, (),
                 ELEM_BYTES * math.prod(shape), double_buffered=False,
             ))
         out = self.output
-        if self.panels is not None:
+        if self.panels is not None or self.chain is not None:
             # evaluated in registers and stored straight to global memory
             streams.append(StreamPlan(
                 "out", out.panel_shape(self.bh), (bofs,), 0, double_buffered=False,
@@ -905,6 +1001,9 @@ class KernelGroup:
             notes["weight_panels"] = (
                 self.groups[pn.group].buffer, pn.axis, pn.block, pn.count,
             )
+        if self.chain is not None:
+            ch = self.chain
+            notes["hidden_chain"] = (ch.hidden, ch.consumer, ch.block, ch.count)
         resident = [g.buffer for g in self.groups if g.resident]
         if resident:
             notes["red_resident"] = tuple(resident)
@@ -1637,6 +1736,187 @@ def _weight_panels(
     return None
 
 
+def _own(la: LoadAccess, dims: Sequence[str]) -> bool:
+    """Whether a load reads its producer at the reader's own position on
+    every axis but the last: axis ``a`` at ``dims[a]``, stride 1, offset 0."""
+    return len(la.axes) == len(dims) + 1 and all(
+        (a.pure_dim, a.stride, a.red_coeffs, a.const) == (d, 1, (), 0)
+        for a, d in zip(la.axes[:-1], dims)
+    )
+
+
+def chain_shape(
+    stages: Sequence[StagePlan], groups: Sequence[ViewGroup],
+) -> Optional[Tuple[str, Tuple[str, ...], Tuple[Tuple[int, int], ...], Tuple[str, ...]]]:
+    """The chain a fused group's stages hold, or None: ``(consumer, hidden,
+    staged, unstaged)`` as :class:`HiddenChain` names them.  The consumer
+    is a fused stage, not the output, with one reduction (the last such
+    chain); the hidden stages are those
+    it reads at its own position with that reduction's variable alone on
+    their innermost axis, and, from them back, the fused producers a hidden
+    stage reads at its own position (the same innermost index).  Every
+    hidden stage's innermost extent is the reduction's, its other extents
+    the consumer's outer ones, and no other stage reads it.  ``staged`` are
+    the grid-invariant view groups, each its buffer's only view, read only
+    by the chain and along the hidden axis by every load: at the reading
+    hidden stage's innermost index, or the consumer's reduction variable;
+    ``unstaged`` the grid-invariant buffers only stages before the first
+    hidden one read."""
+    out = stages[-1]
+    for cons in reversed(stages[:-1]):
+        ns = cons.nstage
+        if len(ns.red_dims) != 1:
+            continue
+        red, extent = ns.red_dims[0], ns.red_extents[0]
+        outer = ns.pure_dims[:-1]
+        by_name = {sp.name: sp for sp in stages}
+        hidden: List[str] = []
+        todo = [
+            p for la, p in zip(cons.accesses, cons.scratch_producer)
+            if p is not None and _own(la, outer)
+            and (la.axes[-1].pure_dim, la.axes[-1].const, la.axes[-1].red_coeffs)
+            == (None, 0, ((red, 1),))
+        ]
+        while todo:
+            name = todo.pop()
+            if name in hidden:
+                continue
+            hidden.append(name)
+            sp = by_name[name]
+            inner = sp.nstage.pure_dims[-1]
+            todo += [
+                p for la, p in zip(sp.accesses, sp.scratch_producer)
+                if p is not None and _own(la, sp.nstage.pure_dims[:-1])
+                and (la.axes[-1].pure_dim, la.axes[-1].stride, la.axes[-1].red_coeffs,
+                     la.axes[-1].const) == (inner, 1, (), 0)
+            ]
+        if not hidden:
+            continue
+        ok = all(
+            by_name[h].nstage.pure_extents[-1] == extent
+            and by_name[h].nstage.pure_extents[:-1] == ns.pure_extents[:-1]
+            for h in hidden
+        ) and out.name != cons.name
+        # nothing but the chain reads a hidden stage
+        for sp in stages:
+            if sp.name in hidden or sp is cons:
+                continue
+            if any(p in hidden for p in sp.scratch_producer):
+                ok = False
+        if not ok:
+            continue
+        # each grid-invariant view: the hidden axis of every load of it
+        along: Dict[int, Set[Optional[int]]] = {}
+        for sp in stages:
+            if sp.name in hidden:
+                key = (sp.nstage.pure_dims[-1], 1, (), 0)
+            elif sp is cons:
+                key = (None, 1, ((red, 1),), 0)
+            else:
+                key = None
+            for la, b in zip(sp.accesses, sp.view_binding):
+                hits = [a for a, ax in enumerate(la.axes)
+                        if (ax.pure_dim, ax.stride, ax.red_coeffs, ax.const) == key]
+                for gi in set(b.values()):
+                    if groups[gi].blocked_axis is None:
+                        along.setdefault(gi, set()).add(hits[0] if len(hits) == 1 else None)
+        staged = []
+        for gi, axes in sorted(along.items()):
+            if axes == {None}:
+                continue
+            g = groups[gi]
+            a = next(iter(axes))
+            if len(axes) != 1 or sum(h.buffer == g.buffer for h in groups) != 1 \
+                    or (g.base[a], g.span[a]) != (0, extent):
+                ok = False
+                break
+            staged.append((gi, a))
+        if ok:
+            order = [sp.name for sp in stages if sp.name in hidden]
+            first = min(i for i, sp in enumerate(stages) if sp.name in hidden)
+            later = {groups[gi].buffer for sp in stages[first:] for b in sp.view_binding
+                     for gi in b.values()}
+            unstaged = sorted({g.buffer for g in groups if g.blocked_axis is None} - later)
+            return cons.name, tuple(order), tuple(staged), tuple(unstaged)
+    return None
+
+
+def _hidden_chain(
+    members: List[Tuple[NormalizedStage, List[LoadAccess], bool]],
+    plans: Mapping[str, StagePlan],
+    groups: Sequence[ViewGroup],
+    rings: Sequence[RingStream],
+    red_grid: Optional[RedGrid],
+    *,
+    vmem_budget: int,
+    block_h: Optional[int],
+) -> Optional[Tuple[HiddenChain, int, int, int]]:
+    """Plan a fused group that chains two reductions through a hidden axis
+    (:class:`HiddenChain`, :func:`chain_shape`) against shared memory as the
+    CUDA kernel fills it, or None where the group holds no chain or cannot
+    fit.  It qualifies as :func:`_weight_panels` asks (nothing carried, each
+    fused producer at its consumer's rows, every buffer read either
+    row-blocked or grid-invariant).  Its working set is what the kernel
+    allocates, once: the fused panels' rows, a hidden stage's cut to one
+    panel (``bytes_per_row``), and the staged copies, each panel buffer's
+    hidden axis cut to one panel (in rows of 16-byte words where the cut is
+    on a leading axis), none of the inputs only the stages before the chain
+    read (``fixed``), under ``bytes_per_row * bh + fixed <=
+    vmem_budget``.  The block height is the largest (at most
+    ``block_h``) whose consumer panel the block's threads hold in
+    registers (:func:`chain_tile_shape`) and at which some panel fits; the
+    panel then the widest divisor of the hidden extent that fits and whose
+    hidden panel ``CHAIN_THREADS`` threads evaluate in one pass, else the
+    widest that fits.  Returns the chain, the working set and the block
+    height."""
+    stages = [plans[ns.name] for ns, _, _ in members]
+    if rings or red_grid is not None or any(sp.line_buffer is not None for sp in stages):
+        return None
+    if any(sp.shifts != (0,) or sp.lane_shifts != (0,) for sp in stages[:-1]):
+        return None
+    if any(g.pinned or g.lane_axis is not None or g.red_axis is not None for g in groups):
+        return None
+    hull = _staged_hull(groups)
+    found = chain_shape(stages, groups)
+    if hull is None or found is None:
+        return None
+    consumer, hidden, staged, unstaged = found
+    cons = plans[consumer].nstage
+    extent = cons.red_extents[0]
+    cut = {groups[gi].buffer: a for gi, a in staged}
+    e0 = cons.pure_extents[0]
+
+    def row_bytes(block: int) -> int:
+        return ELEM_BYTES * sum(
+            math.prod(ns.pure_extents[1:-1]) * block if ns.name in hidden
+            else math.prod(ns.pure_extents[1:])
+            for ns, _, _ in members[:-1]
+        )
+
+    def fixed_bytes(block: int) -> int:
+        return sum(
+            staged_bytes([block if b in cut and j == cut[b] else e for j, e in enumerate(ext)],
+                         b in cut and cut[b] < len(ext) - 1)
+            for b, ext in hull.items() if b not in unstaged
+        )
+
+    blocks = [d for d in range(extent, 0, -1) if extent % d == 0]
+    top = e0 if block_h is None else min(block_h, e0)
+    for bh in range(top, 0, -1) if block_h is None else (top,):
+        if chain_tile_shape(bh * math.prod(cons.pure_extents[1:-1]),
+                            cons.pure_extents[-1]) is None:
+            continue
+        fits = [b for b in blocks if row_bytes(b) * bh + fixed_bytes(b) <= vmem_budget]
+        if not fits:
+            continue
+        one_pass = [b for b in fits
+                    if bh * math.prod(cons.pure_extents[1:-1]) * b <= CHAIN_THREADS]
+        block = (one_pass or fits)[0]
+        return (HiddenChain(hidden, consumer, extent, block, staged, unstaged),
+                row_bytes(block), fixed_bytes(block), bh)
+    return None
+
+
 def _build_kernel_group(
     members: List[Tuple[NormalizedStage, List[LoadAccess], bool]],
     buffer_shapes: Mapping[str, Tuple[int, ...]],
@@ -2111,17 +2391,25 @@ def _build_kernel_group(
             )
 
         panels: Optional[WeightPanels] = None
+        chain: Optional[HiddenChain] = None
         if multi and 2 * bytes_per_row * bh + fixed_bytes > vmem_budget:
             staged = None if lane else _weight_panels(
                 members, plans, groups, rings, red_grid,
                 vmem_budget=vmem_budget, block_h=block_h, cost=cost,
                 align_tpu=align_tpu,
             )
-            if staged is None:
-                raise FusionInfeasible(
-                    f"group ending at {out_ns.name}: live range exceeds VMEM budget"
+            if staged is not None:
+                panels, bytes_per_row, fixed_bytes, bh = staged
+            else:
+                chained = None if lane else _hidden_chain(
+                    members, plans, groups, rings, red_grid,
+                    vmem_budget=vmem_budget, block_h=block_h,
                 )
-            panels, bytes_per_row, fixed_bytes, bh = staged
+                if chained is None:
+                    raise FusionInfeasible(
+                        f"group ending at {out_ns.name}: live range exceeds VMEM budget"
+                    )
+                chain, bytes_per_row, fixed_bytes, bh = chained
 
         padded_grid: Optional[PaddedGrid] = None
         lane_grid: Optional[PaddedGrid] = None
@@ -2158,6 +2446,7 @@ def _build_kernel_group(
             lane_grid=lane_grid,
             ws=(bytes_per_row, fixed_bytes),
             panels=panels,
+            chain=chain,
         )
 
     # -- mode selection: recompute fusion vs cross-grid-step carry -----------
@@ -2368,9 +2657,9 @@ def _build_kernel_group(
 
     def overflows(kg: KernelGroup) -> bool:
         bpr, fixed = kg.ws
-        return (
-            kernel_streamed and 2 * bpr * kg.bh + fixed > vmem_budget
-        )
+        # a chain's working set counts what its kernel allocates, once
+        live = (1 if kg.chain is not None else 2) * bpr * kg.bh + fixed
+        return kernel_streamed and live > vmem_budget
 
     kg_flat: Optional[KernelGroup] = None
     try:
@@ -2572,6 +2861,11 @@ __all__ = [
     "StagePlan",
     "RedGrid",
     "WeightPanels",
+    "HiddenChain",
+    "CHAIN_THREADS",
+    "CHAIN_TILE_MAX",
+    "chain_shape",
+    "chain_tile_shape",
     "staged_bytes",
     "staged_strides",
     "PaddedGrid",

@@ -452,9 +452,12 @@ def compile_pipeline(
 
     A compile that misses the cache adds its seconds to the counters
     ``compile.plan_s``, ``compile.verify_s`` and ``compile.build_s``
-    (:func:`repro_torch.telemetry.counters`), 1 to ``compile.plans`` and
-    the plan's :meth:`~repro_torch.backend.plan.PipelinePlan.spill_bytes`
-    to ``compile.spill_bytes_per_img``; a hit adds nothing."""
+    (:func:`repro_torch.telemetry.counters`), 1 to ``compile.plans``, the
+    plan's :meth:`~repro_torch.backend.plan.PipelinePlan.spill_bytes` to
+    ``compile.spill_bytes_per_img``, its groups that chain two reductions
+    through a hidden axis (``KernelGroup.chain``) to
+    ``compile.chain_groups`` and the hidden panels a block of those walks
+    to ``compile.chain_panels``; a hit adds nothing."""
     if verify not in (True, False, "auto"):
         raise ValueError(f"verify must be True, False, or 'auto': {verify!r}")
     dev = _check_contract(device, kernels)
@@ -518,6 +521,9 @@ def compile_pipeline(
     telemetry.add("compile.plan_s", time.perf_counter() - t)
     telemetry.add("compile.plans", 1)
     telemetry.add("compile.spill_bytes_per_img", plan.spill_bytes())
+    chains = [kg.chain for kg in plan.kernels if kg.chain is not None]
+    telemetry.add("compile.chain_groups", len(chains))
+    telemetry.add("compile.chain_panels", sum(ch.count for ch in chains))
     if plan_kwargs.get("line_buffer") is True:
         _warn_lane_carry_degrades(plan)
     if verify is not False:

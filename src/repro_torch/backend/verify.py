@@ -78,6 +78,7 @@ from .plan import (
     KernelGroup,
     PipelinePlan,
     RingStream,
+    chain_tile_shape,
     StagePlan,
     ViewGroup,
 )
@@ -110,6 +111,9 @@ RULES: Dict[str, str] = {
     "UB403": "working-set drift: re-derived (bytes_per_row, fixed) match ws",
     "UB404": "weight panels: a group planned against shared memory carries "
              "nothing and its panels cut its reduction's weight axis evenly",
+    "UB405": "hidden chain: a chained group carries nothing, only its chain "
+             "reads its hidden stages, and its panels cut the hidden axis and "
+             "every input staged along it evenly",
     "UB501": "batch grid: leading dim, unit block, occupancy and notes agree",
     "UB502": "batch isolation: no ring/line-buffer state crosses a batch step",
     "UB503": "per-batch exactly-once: each slot evaluates the full per-tile rows",
@@ -1097,12 +1101,22 @@ def _check_eval_accounting(kg: KernelGroup, out: List[PlanViolation]) -> None:
 
 def _staged_copies(kg: KernelGroup) -> int:
     """Shared-memory bytes of what a group planned against shared memory
-    (``kg.panels``) stages: each buffer read only through grid-invariant
-    views, over the hull of those views, the panel buffer's axis cut to one
-    panel, every extent after the first padded to an odd count as the CUDA
-    kernel lays the copy out."""
-    pn = kg.panels
+    (``kg.panels`` or ``kg.chain``) stages: each buffer read only through
+    grid-invariant views (but a chain's ``unstaged`` ones), over the hull
+    of those views, each panel buffer's axis cut to one panel, every extent
+    after the first padded to an odd count as the CUDA kernel lays the copy
+    out."""
+    if kg.panels is not None:
+        pn = kg.panels
+        cuts = [(pn.group, pn.axis, pn.block)]
+    else:
+        cuts = [(gi, a, kg.chain.block) for gi, a in kg.chain.staged]
+    # a chain's panel cut on a leading axis: rows of whole 16-byte words,
+    # the innermost extent padded to 4 more than a multiple of 8
+    words = set()
     direct = {g.buffer for g in kg.groups if g.blocked_axis is not None}
+    if kg.chain is not None:
+        direct |= set(kg.chain.unstaged)
     hull: Dict[str, List[int]] = {}
     for g in kg.groups:
         if g.buffer in direct:
@@ -1110,21 +1124,32 @@ def _staged_copies(kg: KernelGroup) -> int:
         need = [g.base[j] + g.span[j] for j in range(g.ndim)]
         prev = hull.get(g.buffer)
         hull[g.buffer] = [max(a, b) for a, b in zip(prev, need)] if prev else need
-    if 0 <= pn.group < len(kg.groups):
-        ext = hull.get(kg.groups[pn.group].buffer)
-        if ext is not None and 0 <= pn.axis < len(ext):
-            ext[pn.axis] = pn.block
-    return sum(
-        ELEM_BYTES * math.prod(e if a == 0 or e % 2 else e + 1 for a, e in enumerate(ext))
-        for ext in hull.values()
-    )
+    for gi, axis, block in cuts:
+        if 0 <= gi < len(kg.groups):
+            ext = hull.get(kg.groups[gi].buffer)
+            if ext is not None and 0 <= axis < len(ext):
+                ext[axis] = block
+                if kg.chain is not None and axis < len(ext) - 1:
+                    words.add(kg.groups[gi].buffer)
+
+    def padded(buf: str, ext: List[int]) -> List[int]:
+        out = [e if a == 0 or e % 2 else e + 1 for a, e in enumerate(ext)]
+        if buf in words:
+            out[-1] = ext[-1] + (4 - ext[-1]) % 8
+        return out
+
+    return sum(ELEM_BYTES * math.prod(padded(buf, ext)) for buf, ext in hull.items())
 
 
 def _scratch_rows(kg: KernelGroup) -> int:
-    """Elements of one panel row of every recompute-mode scratch entry."""
+    """Elements of one panel row of every recompute-mode scratch entry; a
+    chain's hidden stage holds one panel of its innermost axis."""
+    hidden = kg.chain.hidden if kg.chain is not None else ()
     rows = 0
     for sp in kg.stages[:-1]:
         sh = list(sp.nstage.pure_extents[1:])
+        if sp.name in hidden and sh:
+            sh[-1] = kg.chain.block
         rows += len(sp.shifts) * len(sp.lane_shifts) * (math.prod(sh) if sh else 1)
     return rows
 
@@ -1134,8 +1159,9 @@ def _resummed_vmem_bytes(kg: KernelGroup) -> int:
     declared double-buffering rules: grid-advanced view streams are double
     buffered, pinned/resident views, rings, and scratch are single, the
     output panel is pipelined (double).  A group planned against shared
-    memory (``kg.panels``) holds its scratch and its staged copies only."""
-    if kg.panels is not None:
+    memory (``kg.panels``, ``kg.chain``) holds its scratch and its staged
+    copies only."""
+    if kg.panels is not None or kg.chain is not None:
         return kg.bh * _scratch_rows(kg) * ELEM_BYTES + _staged_copies(kg)
     total = 0
     for g in kg.groups:
@@ -1163,9 +1189,9 @@ def _resummed_ws(kg: KernelGroup) -> Tuple[int, int]:
     ``bytes_per_row`` (everything that scales with the block height: the
     output panel, blocked view streams, ring bodies, scratch rows) and
     ``fixed`` (pinned warm-ups, broadcast/resident views, carried halos).
-    For a group planned against shared memory (``kg.panels``): its scratch
-    rows, and its staged copies."""
-    if kg.panels is not None:
+    For a group planned against shared memory (``kg.panels``, ``kg.chain``):
+    its scratch rows, and its staged copies."""
+    if kg.panels is not None or kg.chain is not None:
         return _scratch_rows(kg) * ELEM_BYTES, _staged_copies(kg)
     lane = kg.bw is not None
     out_ns = kg.output.nstage
@@ -1281,6 +1307,117 @@ def _check_panels(kg: KernelGroup, out: List[PlanViolation]) -> None:
                     f"not by {red!r} alone")
 
 
+def _along(ax: AxisAccess, dim: Optional[str], red: Optional[str]) -> bool:
+    """Whether ``ax`` is the pure dim ``dim`` alone, or the reduction
+    variable ``red`` alone: stride 1, offset 0."""
+    if dim is not None:
+        return (ax.pure_dim, ax.stride, ax.red_coeffs, ax.const) == (dim, 1, (), 0)
+    return (ax.pure_dim, ax.red_coeffs, ax.const) == (None, ((red, 1),), 0)
+
+
+def _check_chain(kg: KernelGroup, out: List[PlanViolation]) -> None:
+    """UB405: a chained group (``kg.chain``) is one the CUDA kernel runs as
+    planned: it carries nothing (as UB404 asks), its consumer is a fused
+    stage with one reduction over the hidden extent, each hidden stage a
+    fused stage whose innermost extent is the hidden one and whose other
+    extents are the consumer's, read only at the reader's own position by a
+    hidden stage (at its innermost index) or by the consumer (at its
+    reduction variable), so that a block needs one panel of it at a time;
+    the panel divides the extent; each input staged in panels is
+    grid-invariant, its buffer's only view, spans the hidden extent from 0
+    on its axis and is read only by the chain along it; each input left
+    unstaged is grid-invariant and read only by stages before the chain;
+    and the consumer's sums fit the block's registers
+    (``plan.chain_tile_shape``)."""
+    ch = kg.chain
+    if ch is None:
+        return
+
+    def bad(msg: str, *witness: int) -> None:
+        out.append(PlanViolation("UB405", kg.name, msg, witness=tuple(witness)))
+
+    if kg.panels is not None:
+        bad("a group with both weight panels and a hidden chain")
+    if kg.rings or kg.line_buffered or kg.red_grid is not None or kg.lane_grid is not None:
+        bad("a hidden chain in a group that carries rows, columns or chunks")
+    if any(g.pinned or g.lane_axis is not None or g.red_axis is not None for g in kg.groups):
+        bad("a hidden chain beside a pinned, lane- or reduction-tiled view")
+    names = kg.stage_names
+    if ch.consumer not in names[:-1] or any(h not in names[:-1] for h in ch.hidden):
+        bad(f"consumer {ch.consumer!r} or hidden {ch.hidden} not fused stages of the group")
+        return
+    cons = kg.stage_plan(ch.consumer)
+    cns = cons.nstage
+    if len(cns.red_dims) != 1 or cns.red_extents[0] != ch.extent:
+        bad(f"consumer reductions {cns.red_dims} over {cns.red_extents}, not one over "
+            f"the hidden extent {ch.extent}", ch.extent)
+        return
+    red = cns.red_dims[0]
+    if ch.block < 1 or ch.extent % ch.block:
+        bad(f"panel of {ch.block} does not divide the hidden extent {ch.extent}",
+            ch.block, ch.extent)
+    outer = kg.bh * math.prod(cns.pure_extents[1:-1])
+    if chain_tile_shape(outer, cns.pure_extents[-1]) is None:
+        bad(f"the consumer's {outer} x {cns.pure_extents[-1]} sums a block fit no "
+            f"register tile", outer, cns.pure_extents[-1])
+    for h in ch.hidden:
+        hs = kg.stage_plan(h).nstage
+        if hs.pure_extents[-1] != ch.extent or hs.pure_extents[:-1] != cns.pure_extents[:-1]:
+            bad(f"hidden stage {h!r} of extents {hs.pure_extents} does not run along "
+                f"the hidden axis at the consumer's positions", *hs.pure_extents)
+    for sp in kg.stages:
+        dims = sp.nstage.pure_dims
+        for la, prod in zip(sp.accesses, sp.scratch_producer):
+            if prod not in ch.hidden:
+                continue
+            own = len(la.axes) == len(dims) and all(
+                _along(ax, d, None) for ax, d in zip(la.axes[:-1], dims[:-1]))
+            if sp.name in ch.hidden:
+                ok = own and _along(la.axes[-1], dims[-1], None)
+            elif sp is cons:
+                ok = own and _along(la.axes[-1], None, red)
+            else:
+                ok = False
+            if not ok:
+                bad(f"stage {sp.name!r} reads hidden stage {prod!r} other than one "
+                    f"panel at a time")
+    first = min(names.index(h) for h in ch.hidden)
+    for buf in ch.unstaged:
+        views = [g for g in kg.groups if g.buffer == buf]
+        readers = {sp.name for sp in kg.stages for b in sp.view_binding
+                   for gi in b.values() if kg.groups[gi].buffer == buf}
+        if not views or any(g.blocked_axis is not None for g in views) or \
+                any(names.index(r) >= first for r in readers):
+            bad(f"unstaged input {buf!r} is not a grid-invariant input read only before "
+                f"the chain")
+    for gi, a in ch.staged:
+        if not 0 <= gi < len(kg.groups):
+            bad(f"staged view group {gi} does not exist", gi)
+            continue
+        g = kg.groups[gi]
+        if g.blocked_axis is not None or not 0 <= a < g.ndim:
+            bad(f"panel view {g.buffer!r} is row-blocked or has no axis {a}", a)
+            continue
+        if (g.base[a], g.span[a]) != (0, ch.extent):
+            bad(f"panel axis of {g.buffer!r} [{g.base[a]}, +{g.span[a]}) is not the "
+                f"hidden extent {ch.extent}", g.base[a], g.span[a])
+        if sum(h.buffer == g.buffer for h in kg.groups) != 1:
+            bad(f"panel buffer {g.buffer!r} is read through more than one view")
+        for sp in kg.stages:
+            for la, binding in zip(sp.accesses, sp.view_binding):
+                if gi not in binding.values():
+                    continue
+                if sp.name in ch.hidden:
+                    ok = _along(la.axes[a], sp.nstage.pure_dims[-1], None)
+                elif sp is cons:
+                    ok = _along(la.axes[a], None, red)
+                else:
+                    ok = False
+                if not ok:
+                    bad(f"stage {sp.name!r} reads panel buffer {g.buffer!r} other than "
+                        f"along the hidden axis")
+
+
 def _check_budget(
     kg: KernelGroup, budget: int, out: List[PlanViolation]
 ) -> None:
@@ -1305,7 +1442,8 @@ def _check_budget(
             witness=(bpr, fixed),
         ))
     if kg.streamed:
-        live = 2 * bpr * kg.bh + fixed
+        # a chain's working set is what its kernel allocates, once
+        live = (1 if kg.chain is not None else 2) * bpr * kg.bh + fixed
         if live > budget:
             out.append(PlanViolation(
                 "UB402", kg.name,
@@ -1423,6 +1561,7 @@ def verify_plan(plan: PipelinePlan) -> List[PlanViolation]:
         _check_eval_accounting(kg, out)
         _check_batch(kg, plan.notes, out)
         _check_panels(kg, out)
+        _check_chain(kg, out)
         _check_budget(kg, budget, out)
     return out
 

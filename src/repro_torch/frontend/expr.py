@@ -2,7 +2,8 @@
 
 Index expressions are affine (``repro_torch.core.poly.AffineExpr``); *value*
 expressions are a small arithmetic AST whose leaves are constants and
-``FuncRef`` s (reads of other funcs at affine indices).  The AST supports:
+``FuncRef`` s (reads of other funcs at affine indices), whose nodes are
+binary ops, unary ops (``sqrt``, ``erf``) and selects.  The AST supports:
 
   * numeric evaluation given a load callback (drives the reference
     interpreter and the cycle-accurate simulator),
@@ -13,12 +14,17 @@ expressions are a small arithmetic AST whose leaves are constants and
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, Sequence, Tuple, Union
 
 from repro_torch.core.poly import AffineExpr
 
 Number = Union[int, float]
+
+
+def _sqrt(a: float) -> float:
+    return math.sqrt(a) if a >= 0 else math.nan
 
 _BINOPS: Dict[str, Callable[[float, float], float]] = {
     "add": lambda a, b: a + b,
@@ -30,6 +36,14 @@ _BINOPS: Dict[str, Callable[[float, float], float]] = {
     "shr": lambda a, b: float(int(a) >> int(b)),
     "lt": lambda a, b: 1.0 if a < b else 0.0,
     "gt": lambda a, b: 1.0 if a > b else 0.0,
+}
+
+# unary ops: one f32 result of one operand (a square root for a norm's
+# scale, ``erf`` for the exact GELU); a negative square root is NaN, as
+# IEEE's is
+_UNOPS: Dict[str, Callable[[float], float]] = {
+    "sqrt": _sqrt,
+    "erf": math.erf,
 }
 
 
@@ -99,6 +113,12 @@ class BinOp(Expr):
 
 
 @dataclass(frozen=True)
+class UnOp(Expr):
+    op: str
+    a: Expr
+
+
+@dataclass(frozen=True)
 class Select(Expr):
     cond: Expr
     if_true: Expr
@@ -113,6 +133,14 @@ def minimum(a, b) -> Expr:
 def maximum(a, b) -> Expr:
     e = a if isinstance(a, Expr) else Const(a)
     return BinOp("max", e, e._wrap(b))
+
+
+def sqrt(a) -> Expr:
+    return UnOp("sqrt", a if isinstance(a, Expr) else Const(a))
+
+
+def erf(a) -> Expr:
+    return UnOp("erf", a if isinstance(a, Expr) else Const(a))
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +165,8 @@ def eval_expr(
         return _BINOPS[e.op](
             eval_expr(e.a, point, load), eval_expr(e.b, point, load)
         )
+    if isinstance(e, UnOp):
+        return _UNOPS[e.op](eval_expr(e.a, point, load))
     if isinstance(e, Select):
         c = eval_expr(e.cond, point, load)
         return eval_expr(e.if_true if c != 0 else e.if_false, point, load)
@@ -152,6 +182,8 @@ def count_ops(e: Expr) -> int:
         # mul/div by power-of-two constants fold into shifts inside a PE but
         # still occupy one ALU op; count every binop as one PE op.
         return n + 1
+    if isinstance(e, UnOp):
+        return count_ops(e.a) + 1
     if isinstance(e, Select):
         return count_ops(e.cond) + count_ops(e.if_true) + count_ops(e.if_false) + 1
     raise TypeError(f"cannot count {e!r}")
@@ -163,6 +195,8 @@ def expr_depth(e: Expr) -> int:
         return 0
     if isinstance(e, BinOp):
         return 1 + max(expr_depth(e.a), expr_depth(e.b))
+    if isinstance(e, UnOp):
+        return 1 + expr_depth(e.a)
     if isinstance(e, Select):
         return 1 + max(expr_depth(e.cond), expr_depth(e.if_true), expr_depth(e.if_false))
     raise TypeError(f"cannot measure {e!r}")
@@ -177,6 +211,8 @@ def refs_in(e: Expr) -> List[FuncRef]:
         elif isinstance(n, BinOp):
             walk(n.a)
             walk(n.b)
+        elif isinstance(n, UnOp):
+            walk(n.a)
         elif isinstance(n, Select):
             walk(n.cond)
             walk(n.if_true)
@@ -196,6 +232,8 @@ def substitute_refs(e: Expr, table: Mapping[str, Callable[[Tuple[AffineExpr, ...
         return fn(e.indices) if fn is not None else e
     if isinstance(e, BinOp):
         return BinOp(e.op, substitute_refs(e.a, table), substitute_refs(e.b, table))
+    if isinstance(e, UnOp):
+        return UnOp(e.op, substitute_refs(e.a, table))
     if isinstance(e, Select):
         return Select(
             substitute_refs(e.cond, table),
@@ -224,6 +262,8 @@ def substitute_vars(e: Expr, subst: Mapping[str, AffineExpr]) -> Expr:
         return FuncRef(e.func, tuple(ix.substitute(subst) for ix in e.indices))
     if isinstance(e, BinOp):
         return BinOp(e.op, substitute_vars(e.a, subst), substitute_vars(e.b, subst))
+    if isinstance(e, UnOp):
+        return UnOp(e.op, substitute_vars(e.a, subst))
     if isinstance(e, Select):
         return Select(
             substitute_vars(e.cond, subst),
@@ -239,9 +279,12 @@ __all__ = [
     "IterVal",
     "FuncRef",
     "BinOp",
+    "UnOp",
     "Select",
     "minimum",
     "maximum",
+    "sqrt",
+    "erf",
     "eval_expr",
     "count_ops",
     "expr_depth",

@@ -21,6 +21,7 @@ timing are the card's tests' and ``chip_smoke.py``'s.
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
 import math
 import re
 import shutil
@@ -122,6 +123,22 @@ CASES = [
     # passes over the two panels of 2
     ("mobilenet-panels-passes", "mobilenet", {"img": 10, "cin": 4, "cout": 900},
      {"vmem_budget": 12000}, False, None),
+]
+# groups that chain two reductions through a hidden axis (plan.HiddenChain:
+# ConvNeXt's MLP), forced at test sizes by budgets too small for the Pallas
+# working set: the hidden stages evaluated one panel of the hidden axis at a
+# time into shared memory, the consumer's sums in registers across the
+# panels, the depthwise and LayerNorm weights read from global memory.
+# Eight panels of 4 on four rows a block (fc1's reduction four terms a
+# 16-byte load); twelve of 2 on a padded grid (5 = 2 x 4 - 3, every stage's
+# tail rows masked); four of 10 in batch slots, the last padded
+CHAIN_CASES = [
+    ("convnext-chain", "convnext", {"img": 4, "dim": 8, "hidden": 32},
+     {"vmem_budget": 3000}, False, None),
+    ("convnext-chain-padded", "convnext", {"img": 5, "dim": 8, "hidden": 24},
+     {"vmem_budget": 3000}, False, None),
+    ("convnext-chain-batched", "convnext", {"img": 3, "dim": 6, "hidden": 40},
+     {"vmem_budget": 3000, "batch": 3, "batch_capacity": 4}, False, None),
 ]
 # element-parallel groups on the two-axis tile (cuda_codegen.element_map:
 # runs of thread-axis positions by the tile, the weights or A staged a
@@ -309,7 +326,7 @@ def libraries(gxx, tmp_path_factory):
     root = tmp_path_factory.mktemp("emit_host")
     (root / "cuda_runtime.h").write_text(SHIM)
     jobs = {}
-    for cid, name, kw, ckw, _ep, band in CASES:
+    for cid, name, kw, ckw, _ep, band in CASES + CHAIN_CASES:
         lowered = [LoweredGroup(kg) for kg in _plan(name, kw, ckw).kernels]
         src = root / f"{cid}.cpp"
         with pytest.MonkeyPatch.context() as mp:
@@ -388,6 +405,43 @@ def test_emitted_kernel_equals_plain_version_bit_for_bit(libraries, cid, name, k
             f"{float((got - want).abs().max())}"
         )
         bufs[lg.kg.name] = got
+
+
+def _host_erf(t: torch.Tensor) -> torch.Tensor:
+    """``erf`` of each element by the host C library's ``erff``, the
+    function the g++-built kernel calls."""
+    fn = ctypes.CDLL(ctypes.util.find_library("m")).erff
+    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    return torch.tensor([fn(v) for v in t.reshape(-1).tolist()],
+                        dtype=torch.float32).reshape(t.shape)
+
+
+@pytest.mark.parametrize("cid", [c[0] for c in CHAIN_CASES])
+def test_chained_group_equals_plain_version_bit_for_bit(libraries, cid, monkeypatch):
+    """Each chained group, bit for bit with the plain version where both
+    call the same C library: the plain version's ``erf`` is torch's own
+    (within a few ulp of the host's ``erff``, which the g++-built kernel
+    calls), so here it calls the host's ``erff`` too; every other op,
+    ``sqrt`` included, is IEEE's on both sides.  The hidden axis is walked
+    in several panels, and no group writes a hidden stage to memory."""
+    from repro_torch.backend import eager
+
+    monkeypatch.setitem(eager._UNOPS, "erf", _host_erf)
+    lowered, lib = libraries[cid]
+    (_c, name, kw, ckw, _ep, _band), = [c for c in CHAIN_CASES if c[0] == cid]
+    app = make_app(name, **kw)
+    bufs = random_inputs(app, 1, ckw.get("batch"), ckw.get("batch_capacity"))
+    (lg,) = lowered
+    ch = lg.kg.chain
+    assert ch is not None and ch.count > 1 and ch.hidden == ("fc1", "gelu")
+    # the first case's fc1 reads its reduction four terms a 16-byte load
+    vector = "reinterpret_cast<const float4*>" in emit_library(lowered)
+    assert vector == (cid == "convnext-chain")
+    assert shared_bytes(lg) == lg.kg.ws[0] * lg.kg.bh + lg.kg.ws[1]
+    got = host_launch(lib, "0", lg, bufs)
+    want = EagerKernel(lg)(bufs)
+    diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    assert diff == 0, f"{cid}: {diff} elements differ, max abs {float((got - want).abs().max())}"
 
 
 @pytest.mark.parametrize("cid", [c[0] for c in TILED_CASES])
