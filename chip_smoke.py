@@ -2740,8 +2740,9 @@ def main() -> int:
                 ch, ct = k.kg.chain, chain_tile(k.lg)
                 thread_map = (
                     f"hidden chain {list(ch.hidden)} -> {ch.consumer}: {ch.count} panels of "
-                    f"{ch.block} of {ch.extent}, consumer tile {ct.rows}x{ct.cols} a thread "
-                    f"({ct.lanes} lanes); staged "
+                    f"{ch.block} of {ch.extent}, hidden tile {ch.tile[0]}x{ch.tile[1]} a thread, "
+                    f"consumer tile {ct.rows}x{ct.cols} a thread ({ct.lanes} lanes), panels "
+                    f"reused {list(ch.reuse)}; staged "
                     + ", ".join(f"{st.buffer} {st.smem_bytes} B"
                                 + (" a panel" if st.panel else "") for st in staged))
             elif ot is not None or staged:

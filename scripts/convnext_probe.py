@@ -6,12 +6,14 @@ beside plain PyTorch.
 
 Plans the block (``make_app("convnext", img=14, dim=384, hidden=1536)``) at
 ``--batch`` slots and prints each kernel group: its stages, its hidden chain
-(hidden stages, consumer, panels), shared bytes, the consumer's and the
-output's register tiles, registers and spills (``ptxas -v``) and blocks an
-SM (the CUDA runtime's occupancy calculator).  Then it runs the block with
-the CUDA kernels on inputs drawn as the benchmark's configuration
-(``portbench/configs/convnext-t-stage3-14x384.json``) draws them, holds the
-output against the plain PyTorch version of the same plan (elements that
+(hidden stages, consumer, panel width and count, the hidden panel's register
+tile a thread, the panels that take a dead panel's words), shared bytes in
+all and by part (scratch, the words reused, the staged copies), the
+consumer's and the output's register tiles, registers and spills (``ptxas
+-v``) and blocks an SM (the CUDA runtime's occupancy calculator).  Then it
+runs the block with the CUDA kernels on inputs drawn as the benchmark's
+configuration (``portbench/configs/convnext-t-stage3-14x384.json``) draws
+them, holds the output against the plain PyTorch version of the same plan (elements that
 differ in any bit, widest gap) and against portbench's reference and its
 TF32 control (``max |got - want| / max |want|``), and times one dispatch by
 CUDA events (median of ``--reps``, back to back) beside the same block in
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -98,7 +101,7 @@ def main(argv=None) -> int:
     from repro_torch.apps import make_app
     from repro_torch.backend import build, compile_pipeline
     from repro_torch.backend.cuda_codegen import (
-        chain_tile, emit_library, output_tile, shared_bytes)
+        chain_tile, emit_library, output_tile, shared_bytes, smem_layout, staged_inputs)
 
     dev = torch.device("cuda")
     cfg = spec.load_json(ROOT / "portbench" / "configs" / "convnext-t-stage3-14x384.json")
@@ -111,11 +114,17 @@ def main(argv=None) -> int:
         kg, ch = k.kg, k.kg.chain
         ct, ot = chain_tile(k.lg), output_tile(k.lg)
         ptx = next((v for n, v in usage.items() if f"ub_kernel_{i}" in n), {})
+        reused = sum(4 * math.prod(kg.scratch_shape(kg.stage_plan(t), 0))
+                     for t in (ch.takers if ch is not None else ()))
         groups.append({
             "kernel": f"ub_kernel_{i}", "stages": kg.stage_names, "bh": kg.bh,
             "grid": list(kg.grid), "smem": shared_bytes(k.lg), "blocks_per_sm": k.blocks_per_sm(),
+            "smem_parts": {"scratch": smem_layout(kg)[2], "reused": reused,
+                           "staged": sum(st.smem_bytes for st in staged_inputs(k.lg))},
             "chain": None if ch is None else {"hidden": list(ch.hidden), "consumer": ch.consumer,
-                                              "block": ch.block, "panels": ch.count},
+                                              "block": ch.block, "panels": ch.count,
+                                              "hidden_tile": list(ch.tile),
+                                              "reuse": [list(r) for r in ch.reuse]},
             "chain_tile": None if ct is None else [ct.rows, ct.cols, ct.lanes],
             "out_tile": None if ot is None else [ot.rows, ot.cols, ot.lanes], **ptx})
         print(f"group {i}: {json.dumps(groups[-1])}", flush=True)

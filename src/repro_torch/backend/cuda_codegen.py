@@ -80,15 +80,19 @@ block-by-block transliteration:
   chain once, each thread an element, a reduction's chain rolled
   (``rolled_panel``); then, for each panel of the hidden axis, the panel of
   every input indexed along it is copied in, the hidden stages' panel is
-  evaluated into shared memory (indexed at ``p - kc * block``) and the
-  consumer's terms over it are added to its sums, which each thread holds
-  for its register tile (``chain_tile``) across the panels
-  (``chain_panels``).  A rolled reduction whose loads all read shared
-  memory, one float further a term from a 16-byte boundary, loads four
-  terms at a time as a ``float4`` (``vector_chain``: fc1 over a LayerNorm
-  row and a row of its weight panel, laid out in 16-byte words,
+  evaluated into shared memory (indexed at ``p - kc * block``), each thread
+  a register tile of it (``hidden_tile``: e.g. two positions of one hidden
+  entry, their chains side by side), and the consumer's terms over it are
+  added to its sums, which each thread holds for its register tile
+  (``chain_tile``) across the panels (``chain_panels``).  A reduction whose
+  loads all read shared memory, one float further a term from a 16-byte
+  boundary, loads four terms at a time as a ``float4`` for the elements of
+  the tile that read it (``vector_chain``: fc1 over LayerNorm rows and a
+  row of its weight panel, laid out in 16-byte words,
   ``staged_strides(vector=True)``).  The stages before the chain read
-  their weights from global memory: the shared memory goes to the chain.
+  their weights from global memory: the shared memory goes to the chain,
+  and the consumer's sums take the words of a panel no later stage reads
+  (``HiddenChain.reuse``, ``smem_layout``).
 * **Element-parallel groups get a thread map of their own**
   (:func:`element_map`): a group with no rings, no fused scratch and no
   carry (resnet's lane grid, matmul's grid reduction, upsample) shares
@@ -216,6 +220,9 @@ TILED_SMEM_MAX = 48 * 1024
 # is emitted as a loop, unrolled ROLL_UNROLL times
 ROLL_MIN = 8
 ROLL_UNROLL = 4
+# a chain read four terms a 16-byte load unrolls VECTOR_UNROLL such steps of
+# one element's chain, shared by the elements of a thread's tile (at least one)
+VECTOR_UNROLL = 2
 # a group that carries nothing and is not element-parallel evaluates its
 # output panel in register tiles: OUT_LANES threads along the panel's
 # innermost axis, each thread at most OUT_TILE_MAX output elements
@@ -376,9 +383,13 @@ def smem_layout(kg: KernelGroup) -> Tuple[List[int], List[int], int]:
     """Shared-memory float offsets of each scratch entry and each input
     ring, and the total bytes: ``kg.scratch_bytes``, less in a lane-carried
     group whose shift panels (``shift_panels``) hold rows once for several
-    members (a member's offset is its first row in the panel)."""
+    members (a member's offset is its first row in the panel), and in a
+    chained group whose panels take dead panels' words (``kg.chain.reuse``:
+    the taker at the dead panel's offset)."""
     lb_panels, ring_panels = shift_panels(kg)
     entries = kg.scratch_entries()
+    taken = dict(kg.chain.reuse) if kg.chain is not None else {}
+    names = [sp.name for sp, _k in entries]
     shapes = [kg.scratch_shape(sp, key) for sp, key in entries]
     shapes += [r.ring_shape(kg.bh, kg.bw) for r in kg.rings]
     n = len(entries)
@@ -389,6 +400,9 @@ def smem_layout(kg: KernelGroup) -> Tuple[List[int], List[int], int]:
     off = 0
     for i, shape in enumerate(shapes):
         if offs[i] is not None:
+            continue
+        if i < n and names[i] in taken:
+            offs[i] = offs[names.index(taken[names[i]])]
             continue
         pan = panel_of.get(i)
         if pan is None:
@@ -1176,6 +1190,22 @@ def chain_tile(lg: LoweredGroup) -> Optional[OutputTile]:
     return OutputTile(lanes, cols, groups, rows, outer, inner)
 
 
+def hidden_tile(lg: LoweredGroup) -> Optional[OutputTile]:
+    """The register tile of a chained group's hidden panel (``kg.chain``;
+    None for any other group): the plan's ``rows`` positions by ``cols``
+    hidden entries a thread (``HiddenChain.tile``), ``ceil(block / cols)``
+    lanes along the hidden axis by ``ceil(positions / rows)`` groups of
+    threads; the block's threads loop over those in passes where they are
+    more than ``CHAIN_THREADS``."""
+    ch = lg.kg.chain
+    if ch is None:
+        return None
+    shape = lg.kg.scratch_shape(lg.kg.stage_plan(ch.hidden[0]), 0)
+    outer = math.prod(shape[:-1])
+    rows, cols = ch.tile
+    return OutputTile(-(-ch.block // cols), cols, -(-outer // rows), rows, outer, ch.block)
+
+
 def _tiled_bytes(em: Optional[ElementMap]) -> int:
     """The shared memory of an element map's staged inputs."""
     if em is None or not em.staged:
@@ -1942,31 +1972,19 @@ class _GroupEmitter:
     def rolled_panel(self, si: int) -> List[str]:
         """Scratch entry ``si``'s panel, one element a thread at a time, a
         reduction's chain rolled as ``tile_program`` rolls it."""
-        return self.loop(self.s_shapes[si], self.rolled_body(si))
-
-    def rolled_body(self, si: int) -> List[str]:
-        """The body of ``rolled_panel``: element ``e``'s program and its
-        store.  A hidden stage's panel is panel ``kc`` of its innermost
-        axis: its coordinate ``p<q>`` stands for ``kc * block + p<q>``."""
         sp, key = self.lg.entries[si]
         self.rng = self.block_ranges(self.lg.panel_shape(sp))
-        shifted: Dict[str, int] = {}
-        if si in self.hidden:
-            shifted[f"p{len(sp.nstage.pure_dims) - 1}"] = self.kg.chain.block
-        extra = {v: f"(kc * {b} + {v})" for v, b in shifted.items()}
         one = RegisterTile(TileAxis(1, (), ""), TileAxis(1, (), "c"))
         io = _TileIO(self.tap, self.bounds, self.tile_checks)
         ops = self.lg.programs[(sp.name, key, 0)]
-        lines, (val,) = (self.vector_chain(one, io, ops, extra, shifted)
-                         or self.tile_program(one, io, ops, extra=extra))
-        return lines + [f"s{si}[e] = {val};"]
+        lines, (val,) = self.vector_chain(one, io, ops) or self.tile_program(one, io, ops)
+        return self.loop(self.s_shapes[si], lines + [f"s{si}[e] = {val};"])
 
-    def _word_aligned(self, t: Tap, shifted: Mapping[str, int]) -> Optional[bool]:
+    def _word_aligned(self, t: Tap) -> Optional[bool]:
         """Whether a shared-memory tap's flat index advances by one float an
         ``r`` (True: four terms are one 16-byte load, aligned for every
         value of its other variables) or not at all (False); None for any
-        other tap.  A variable ``v`` of ``shifted`` stands for ``kc *
-        shifted[v] + v``."""
+        other tap."""
         if t.kind == "scratch":
             dims, base = self.s_shapes[t.src], self.s_off[t.src]
             strides = [math.prod(dims[a + 1:]) for a in range(len(dims))]
@@ -1985,8 +2003,6 @@ class _GroupEmitter:
             const += stride * ax.const
             for c, v in _terms(ax):
                 coef[v] = coef.get(v, 0) + stride * c
-        for v, block in shifted.items():
-            coef["kc"] += coef.get(v, 0) * block
         step = coef.pop("r")
         if step == 0:
             return False
@@ -1994,19 +2010,20 @@ class _GroupEmitter:
         return True if ok else None
 
     def vector_chain(self, rt: RegisterTile, io: _TileIO, ops: Sequence[Op],
-                     extra: Mapping[str, str], shifted: Mapping[str, int],
                      ) -> Optional[Tuple[List[str], List[str]]]:
-        """``tile_program`` for one element (a 1 x 1 tile) whose program is a
-        reduction's chain of one run, a multiple of four terms long, whose
-        loads all read shared memory, each either one float further an
-        ``r`` from a 16-byte-aligned start (``_word_aligned``) or the same
-        float every ``r``: the loop steps four terms at a time, the first
-        kind loaded once a step as one ``float4``, and adds the four terms
-        in turn, as the rolled loop adds them.  None for any other
-        program.  ``extra`` renames variables, ``shifted`` as
-        ``_word_aligned`` reads it."""
+        """``tile_program`` for a program that is a reduction's chain of one
+        run, a multiple of four terms long, whose loads all read shared
+        memory, each either one float further an ``r`` from a
+        16-byte-aligned start (``_word_aligned``) or the same float every
+        ``r``: the loop steps four terms at a time, the first kind loaded
+        once a step as one ``float4`` for each element of the tile it varies
+        across (so each word feeds every element that reads it), and adds
+        the four terms to each element's sum in turn, as the rolled loop
+        adds them.  An unrolled step holds ``VECTOR_UNROLL`` steps of one
+        element's chain, shared by the tile's elements.  None for any other
+        program."""
         chain = _chain(ops)
-        if chain is None or rt.elems != [(0, 0)]:
+        if chain is None:
             return None
         self.rng["r"] = (0, 0)
         runs = _chain_runs(ops, chain, io.checks)
@@ -2020,26 +2037,39 @@ class _GroupEmitter:
         it = iter(step)
         rolled = {k: _roll_op(ops[k], it) for k in range(a, e + 1)}
         taps = {k: op[1] for k, op in rolled.items() if op[0] == "tap"}
-        kinds = {k: self._word_aligned(t, shifted) for k, t in taps.items()}
+        kinds = {k: self._word_aligned(t) for k, t in taps.items()}
         if None in kinds.values() or True not in kinds.values():
             del self.rng["r"]
             return None
         dep = self.tile_deps(rt, ops)
-        lines = self.tile_head(rt, io, ops, chain[0], dep, extra=extra)
+        lines = self.tile_head(rt, io, ops, chain[0], dep)
         words = {id(taps[k]): k for k, word in kinds.items() if word}
-        body = [f"const float4 q{k} = *reinterpret_cast<const float4*>(&{self.tap(taps[k], extra)});"
-                for k in sorted(words.values())]
+
+        def word(k: int, o: int, i: int) -> str:
+            return f"q{k}" + (f"_{o}" if dep[k][0] else "") + (f"_c{i}" if dep[k][1] else "")
+
+        body = [f"const float4 {word(k, o, i)} = "
+                f"*reinterpret_cast<const float4*>(&{self.tap(taps[k], rt.sub(o, i))});"
+                for k in sorted(words.values())
+                for o in (range(rt.outer.extent) if dep[k][0] else (0,))
+                for i in (range(rt.inner.extent) if dep[k][1] else (0,))]
         for u, comp in enumerate("xyzw"):
             def load(t: Tap, sub: Mapping[str, str], comp=comp) -> str:
                 k = words.get(id(t))
-                return f"q{k}.{comp}" if k is not None else self.tap(t, sub)
+                if k is None:
+                    return self.tap(t, sub)
+                o, i = next((o, i) for o, i in rt.elems
+                            if all(sub.get(v) == w for v, w in rt.sub(o, i).items()))
+                return f"{word(k, o, i)}.{comp}"
             part = [ln for k in range(a, e + 1)
                     for ln in self.tile_op(rt, _TileIO(load, io.bounds, io.checks), k, rolled[k],
-                                           dep, chained=a - 1, extra={**extra, "r": f"(r + {u})"})]
-            body += ["{"] + _indent(part + [f"ch0_0 = {rt.name(e, dep[e], 0, 0)};"]) + ["}"]
+                                           dep, chained=a - 1, extra={"r": f"(r + {u})"})]
+            body += ["{"] + _indent(part + [f"ch{o}_{i} = {rt.name(e, dep[e], o, i)};"
+                                            for o, i in rt.elems]) + ["}"]
         del self.rng["r"]
-        lines += [f"#pragma unroll {ROLL_UNROLL // 2}", f"for (int r = 0; r < {n}; r += 4) {{"]
-        return lines + _indent(body) + ["}"], ["ch0_0"]
+        unroll = max(1, VECTOR_UNROLL // len(rt.elems))
+        lines += [f"#pragma unroll {unroll}", f"for (int r = 0; r < {n}; r += 4) {{"]
+        return lines + _indent(body) + ["}"], [f"ch{o}_{i}" for o, i in rt.elems]
 
     def chain_step(self) -> List[str]:
         """One row step of a chained group (``kg.chain``): the staged
@@ -2062,8 +2092,8 @@ class _GroupEmitter:
         """The chain: each thread's register tile of the consumer's sums
         (``chain_tile``) from their initial values, then for each hidden
         panel ``kc`` in turn the hidden stages' panels (their innermost
-        index ``kc * block + p``, held at ``p``) in one loop, each element's
-        stages in turn, and the consumer's terms over the panel, one loop
+        index ``kc * block + p``, held at ``p``) in register tiles
+        (``hidden_panel``), and the consumer's terms over the panel, one loop
         over ``r``, a barrier after each; the panels of the inputs staged
         along the hidden axis copied in ahead, those only the hidden stages
         read during the consumer's terms before, the others during the
@@ -2093,20 +2123,10 @@ class _GroupEmitter:
         dep = self.tile_deps(rt, ops)
         term = self.tile_term(rt, io, ops, *terms[0], dep, step, ch.extent,
                               {"r": f"(kc * {ch.block} + r)"})
+        rag_o, rag_i = ot.groups * ot.rows != ot.outer, ot.lanes * ot.cols != ot.inner
         body = [f"const int ob = threadIdx.x / {ot.lanes};",
                 f"const int cb = threadIdx.x % {ot.lanes};"]
-        for t in range(ot.rows):
-            body.append(f"const int o{t} = ob + {ot.groups * t};")
-            inner_ext = 1
-            for q in range(n - 2, -1, -1):
-                oc = f"min(o{t}, {ot.outer - 1})"
-                div = f"{oc} / {inner_ext}" if inner_ext > 1 else oc
-                val = "0" if shape[q] == 1 else div if q == 0 else f"({div}) % {shape[q]}"
-                body.append(f"const int p{q}_{t} = {val};")
-                inner_ext *= shape[q]
-        for u in range(ot.cols):
-            body.append(f"const int c{u} = cb + {ot.lanes * u};")
-            body.append(f"const int p{n - 1}_{u} = min(c{u}, {ot.inner - 1});")
+        body += self.tile_coords(ot, shape, rag_o, rag_i)
         body += self.tile_head(rt, io, ops, chain[0], dep)
         # the panels only the hidden stages read are copied in while the
         # consumer adds the panel before, the others while the hidden
@@ -2126,10 +2146,7 @@ class _GroupEmitter:
 
         body += copies(True, "0") + copies(False, "0")
         walk = ["ub_copy_wait_group<1>();", "__syncthreads();"]
-        # every hidden stage reads the others only at its own element, so
-        # one thread evaluates an element of each in turn, one barrier after
-        walk += self.loop(self.s_shapes[hidden[0]], [
-            ln for si in hidden for ln in ["{"] + _indent(self.rolled_body(si)) + ["}"]])
+        walk += self.hidden_panel()
         walk += ["__syncthreads();", f"if (kc + 1 < {ch.count}) {{"]
         walk += _indent(copies(True, "(kc + 1)") + ["ub_copy_wait_group<1>();"])
         walk += ["} else {", "  ub_copy_wait_group<0>();", "}", "__syncthreads();"]
@@ -2142,10 +2159,52 @@ class _GroupEmitter:
         if masked:
             body += self.tile_op(rt, io, k, ops[k], dep, chained=k - 1)
             vals = [rt.name(k, dep[k], o, i) for o, i in rt.elems]
-        for (t, u), v in zip(rt.elems, vals):
-            body.append(f"if (o{t} < {ot.outer} && c{u} < {ot.inner}) "
-                        f"s{cons}[o{t} * {ot.inner} + c{u}] = {v};")
+        body += self.tile_stores(ot, cons, vals, rag_o, rag_i)
         return ["{"] + _indent(body) + ["}"]
+
+    def hidden_panel(self) -> List[str]:
+        """The hidden stages' panel ``kc`` (``kg.chain``), each thread a
+        register tile of ``rows`` positions by ``cols`` hidden entries
+        (``HiddenChain.tile``, as ``hidden_tile``): each stage in turn by
+        ``tile_program`` (a chain four terms a 16-byte load where
+        ``vector_chain`` can: fc1's, each float4 of a LayerNorm row or a
+        weight row feeding every element of the tile that reads it), each
+        element's value stored at its place in the panel.  An element's
+        innermost coordinate is its hidden index ``kc * block + c``.  Every
+        hidden stage reads the others only at its own element, which the
+        same thread stored, so one barrier follows the whole panel."""
+        lg = self.lg
+        hidden = sorted(self.hidden)
+        shape = self.s_shapes[hidden[0]]
+        ot = hidden_tile(lg)
+        rag_o = ot.groups * ot.rows != ot.outer
+        rag_i = ot.lanes * ot.cols != ot.inner
+        rt = ot.register_tile(len(shape))
+        io = _TileIO(self.tap, self.bounds, self.tile_checks)
+        body = [f"const int ob = w / {ot.lanes};", f"const int cb = w % {ot.lanes};"]
+        body += self.tile_coords(ot, shape, rag_o, rag_i, f"kc * {ot.inner} + ")
+        for si in hidden:
+            sp, key = lg.entries[si]
+            self.rng = self.block_ranges(lg.panel_shape(sp))
+            ops = lg.programs[(sp.name, key, 0)]
+            lines, vals = self.vector_chain(rt, io, ops) or self.tile_program(rt, io, ops)
+            body += ["{"] + _indent(lines + self.tile_stores(ot, si, vals, rag_o, rag_i)) + ["}"]
+        return ([f"for (int w = threadIdx.x; w < {ot.groups * ot.lanes}; w += {self.nt}) {{"]
+                + _indent(body) + ["}"])
+
+    @staticmethod
+    def tile_stores(ot: OutputTile, si: int, vals: Sequence[str], rag_o: bool,
+                    rag_i: bool) -> List[str]:
+        """Each element's value of a thread's tile into scratch entry
+        ``si``, a panel of ``ot.outer`` by ``ot.inner``, where the element
+        lies inside it."""
+        out = []
+        for (t, u), v in zip([(t, u) for t in range(ot.rows) for u in range(ot.cols)], vals):
+            conds = ([f"o{t} < {ot.outer}"] if rag_o else []) + (
+                [f"c{u} < {ot.inner}"] if rag_i else [])
+            st = f"s{si}[o{t} * {ot.inner} + c{u}] = {v};"
+            out.append(f"if ({' && '.join(conds)}) {st}" if conds else st)
+        return out
 
     def output_panel(self) -> List[str]:
         """The output stage's panel (a grid reduction's chunks summed in
@@ -2191,29 +2250,20 @@ class _GroupEmitter:
         st = f"{target} = {v};"
         return [f"if ({' && '.join(conds)}) {st}" if conds else st]
 
-    def tiled_output(self) -> List[str]:
-        """The output panel in register tiles (``output_tile``): each
-        thread's ``rows`` x ``cols`` programs by ``tile_program``, or a
-        panel-staged weight's chain by ``panel_chain``."""
-        lg, ot = self.lg, self.tile
-        out_sp = self.kg.output
-        shape = lg.panel_shape(out_sp)
+    @staticmethod
+    def tile_coords(ot: OutputTile, shape: Sequence[int], rag_o: bool, rag_i: bool,
+                    base: str = "") -> List[str]:
+        """A thread's element coordinates in a panel of ``shape``, from its
+        ``ob`` and ``cb``: for each row ``t`` of its tile, ``o<t>`` (``ob +
+        groups * t``) and the panel coordinates ``p<q>_<t>`` of that position;
+        for each column ``u``, ``c<u>`` (``cb + lanes * u``) and the innermost
+        coordinate ``p<n - 1>_<u>``, ``base`` more.  Where the tile overshoots
+        the positions (``rag_o``) or the innermost axis (``rag_i``), an
+        element past the panel takes the last one's coordinates."""
         n = len(shape)
-        ops = lg.programs[(out_sp.name, 0, 0)]
-        last = f"p{n - 1}"
-        rt = ot.register_tile(n)
-        io = _TileIO(self.tap, self.bounds, self.tile_checks)
-        pn = self.kg.panels
-        # passes over the outer positions and over the innermost axis (a
-        # panel group's tile covers its panel in as few as it can; any
-        # other group's threads loop until the panel is covered)
-        p_o = -(-ot.outer // (ot.groups * ot.rows))
-        p_i = -(-ot.inner // (ot.lanes * ot.cols))
-        rag_o = p_o * ot.groups * ot.rows != ot.outer
-        rag_i = p_i * ot.lanes * ot.cols != ot.inner
-        body: List[str] = []
+        out: List[str] = []
         for t in range(ot.rows):
-            body.append(f"const int o{t} = ob + {ot.groups * t};")
+            out.append(f"const int o{t} = ob + {ot.groups * t};")
             oc = f"min(o{t}, {ot.outer - 1})" if rag_o else f"o{t}"
             inner_ext = 1
             for q in range(n - 2, -1, -1):
@@ -2224,12 +2274,34 @@ class _GroupEmitter:
                     val = div
                 else:
                     val = f"({div}) % {shape[q]}"
-                body.append(f"const int p{q}_{t} = {val};")
+                out.append(f"const int p{q}_{t} = {val};")
                 inner_ext *= shape[q]
         for u in range(ot.cols):
-            body.append(f"const int c{u} = cb + {ot.lanes * u};")
-            body.append(f"const int {last}_{u} = "
-                        + (f"min(c{u}, {ot.inner - 1});" if rag_i else f"c{u};"))
+            out.append(f"const int c{u} = cb + {ot.lanes * u};")
+            out.append(f"const int p{n - 1}_{u} = {base}"
+                       + (f"min(c{u}, {ot.inner - 1});" if rag_i else f"c{u};"))
+        return out
+
+    def tiled_output(self) -> List[str]:
+        """The output panel in register tiles (``output_tile``): each
+        thread's ``rows`` x ``cols`` programs by ``tile_program``, or a
+        panel-staged weight's chain by ``panel_chain``."""
+        lg, ot = self.lg, self.tile
+        out_sp = self.kg.output
+        shape = lg.panel_shape(out_sp)
+        n = len(shape)
+        ops = lg.programs[(out_sp.name, 0, 0)]
+        rt = ot.register_tile(n)
+        io = _TileIO(self.tap, self.bounds, self.tile_checks)
+        pn = self.kg.panels
+        # passes over the outer positions and over the innermost axis (a
+        # panel group's tile covers its panel in as few as it can; any
+        # other group's threads loop until the panel is covered)
+        p_o = -(-ot.outer // (ot.groups * ot.rows))
+        p_i = -(-ot.inner // (ot.lanes * ot.cols))
+        rag_o = p_o * ot.groups * ot.rows != ot.outer
+        rag_i = p_i * ot.lanes * ot.cols != ot.inner
+        body = self.tile_coords(ot, shape, rag_o, rag_i)
         self.rng = self.block_ranges(shape)
         lines, vals = (self.tile_program if pn is None else self.panel_chain)(rt, io, ops)
         body += lines
@@ -2335,8 +2407,10 @@ class _GroupEmitter:
                 f"// carries nothing: staged {[(st.buffer, st.strides) for st in self.staged.values()]}"
                 + (f", {kg.panels.count} panels of {kg.panels.block}" if kg.panels else "")
                 + (f", hidden chain {list(kg.chain.hidden)} -> {kg.chain.consumer}: "
-                   f"{kg.chain.count} panels of {kg.chain.block}, consumer tile "
-                   f"{chain_tile(lg).rows} x {chain_tile(lg).cols}" if kg.chain else "")
+                   f"{kg.chain.count} panels of {kg.chain.block}, hidden tile "
+                   f"{kg.chain.tile[0]} x {kg.chain.tile[1]}, consumer tile "
+                   f"{chain_tile(lg).rows} x {chain_tile(lg).cols}, panels reused "
+                   f"{list(kg.chain.reuse)}" if kg.chain else "")
                 + (f", output tile {ot.rows} x {ot.cols} a thread, {ot.lanes} lanes along the "
                    f"innermost axis, {ot.groups} groups" if ot is not None else "")
             )
@@ -2567,6 +2641,7 @@ __all__ = [
     "block_threads",
     "carries_nothing",
     "chain_tile",
+    "hidden_tile",
     "element_map",
     "emit_kernel",
     "emit_library",

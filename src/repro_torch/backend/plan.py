@@ -183,7 +183,14 @@ class HiddenChain:
     in shared memory, every other grid-invariant input staged whole, but
     those read only by the stages before the chain (``unstaged``, e.g. the
     depthwise weights): evaluated once a block, they read global memory,
-    and the shared memory goes to the chain, which walks its panels."""
+    and the shared memory goes to the chain, which walks its panels.
+
+    Each thread evaluates a register tile of the hidden panel, ``tile =
+    (rows, cols)``: ``rows`` positions by ``cols`` entries of the hidden
+    axis, their reductions' chains side by side (:func:`hidden_tile_shape`).
+    A fused panel that no stage reads once the chain has begun gives its
+    words to a panel written from the consumer on (``reuse``: ``(taker,
+    dead)`` pairs, e.g. the consumer's sums in the depthwise panel)."""
 
     hidden: Tuple[str, ...]
     consumer: str
@@ -191,10 +198,17 @@ class HiddenChain:
     block: int
     staged: Tuple[Tuple[int, int], ...]
     unstaged: Tuple[str, ...] = ()
+    tile: Tuple[int, int] = (1, 1)
+    reuse: Tuple[Tuple[str, str], ...] = ()
 
     @property
     def count(self) -> int:
         return self.extent // self.block
+
+    @property
+    def takers(self) -> Tuple[str, ...]:
+        """The fused stages whose panels lie in a dead panel's words."""
+        return tuple(t for t, _d in self.reuse)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -218,6 +232,28 @@ def chain_tile_shape(outer: int, inner: int) -> Optional[Tuple[int, int, int, in
         key = (rows + cols, groups * rows * lanes * cols - outer * inner, lanes)
         if best is None or key < best[0]:
             best = (key, (lanes, cols, groups, rows))
+    return None if best is None else best[1]
+
+
+def hidden_tile_shape(outer: int, inner: int) -> Optional[Tuple[int, int]]:
+    """How a chained group's ``CHAIN_THREADS`` threads evaluate a hidden
+    panel of ``outer`` positions by ``inner`` entries of the hidden axis in
+    one pass, each thread a register tile of at least two and at most
+    ``CHAIN_TILE_MAX`` elements: ``(rows, cols)``, ``ceil(inner / cols)``
+    lanes along the hidden axis, each ``cols`` entries that far apart, by
+    ``ceil(outer / rows)`` groups of threads of ``rows`` positions each; of
+    those, the fewest loads a term (``rows + cols``), then the fewest idle
+    elements, then the fewest columns (each position's row a broadcast to
+    the lanes).  None where no such tile exists."""
+    best = None
+    for rows in range(1, min(outer, CHAIN_TILE_MAX) + 1):
+        for cols in range(1, min(inner, CHAIN_TILE_MAX // rows) + 1):
+            lanes, groups = _cdiv(inner, cols), _cdiv(outer, rows)
+            if rows * cols < 2 or lanes * groups > CHAIN_THREADS:
+                continue
+            key = (rows + cols, groups * rows * lanes * cols - outer * inner, cols)
+            if best is None or key < best[0]:
+                best = (key, (rows, cols))
     return None if best is None else best[1]
 
 
@@ -949,12 +985,17 @@ class KernelGroup:
                 r.ring_shape(self.bh, self.bw), (),
                 r.ring_bytes(self.bh, self.bw), double_buffered=False,
             ))
+        taken = dict(self.chain.reuse) if self.chain is not None else {}
         for sp, key in self.scratch_entries():
             tag = "ring" if key is None else str(key)
             shape = self.scratch_shape(sp, key)
+            if sp.name in taken:
+                # in a dead panel's words, counted there
+                tag += f" in {taken[sp.name]}"
             streams.append(StreamPlan(
                 f"scratch:{sp.name}@{tag}", shape, (),
-                ELEM_BYTES * math.prod(shape), double_buffered=False,
+                0 if sp.name in taken else ELEM_BYTES * math.prod(shape),
+                double_buffered=False,
             ))
         out = self.output
         if self.panels is not None or self.chain is not None:
@@ -1003,7 +1044,7 @@ class KernelGroup:
             )
         if self.chain is not None:
             ch = self.chain
-            notes["hidden_chain"] = (ch.hidden, ch.consumer, ch.block, ch.count)
+            notes["hidden_chain"] = (ch.hidden, ch.consumer, ch.block, ch.count, ch.tile)
         resident = [g.buffer for g in self.groups if g.resident]
         if resident:
             notes["red_resident"] = tuple(resident)
@@ -1862,12 +1903,14 @@ def _hidden_chain(
     hidden axis cut to one panel (in rows of 16-byte words where the cut is
     on a leading axis), none of the inputs only the stages before the chain
     read (``fixed``), under ``bytes_per_row * bh + fixed <=
-    vmem_budget``.  The block height is the largest (at most
-    ``block_h``) whose consumer panel the block's threads hold in
+    vmem_budget``; a panel that takes a dead panel's words
+    (:func:`chain_reuse`) counts nothing.  The block height is the largest
+    (at most ``block_h``) whose consumer panel the block's threads hold in
     registers (:func:`chain_tile_shape`) and at which some panel fits; the
     panel then the widest divisor of the hidden extent that fits and whose
-    hidden panel ``CHAIN_THREADS`` threads evaluate in one pass, else the
-    widest that fits.  Returns the chain, the working set and the block
+    hidden panel a register tile of two or more elements a thread covers in
+    one pass (:func:`hidden_tile_shape`), else the widest that fits, one
+    element a thread.  Returns the chain, the working set and the block
     height."""
     stages = [plans[ns.name] for ns, _, _ in members]
     if rings or red_grid is not None or any(sp.line_buffer is not None for sp in stages):
@@ -1885,12 +1928,14 @@ def _hidden_chain(
     extent = cons.red_extents[0]
     cut = {groups[gi].buffer: a for gi, a in staged}
     e0 = cons.pure_extents[0]
+    reuse = chain_reuse(stages, consumer, hidden)
+    takers = {t for t, _d in reuse}
 
     def row_bytes(block: int) -> int:
         return ELEM_BYTES * sum(
             math.prod(ns.pure_extents[1:-1]) * block if ns.name in hidden
             else math.prod(ns.pure_extents[1:])
-            for ns, _, _ in members[:-1]
+            for ns, _, _ in members[:-1] if ns.name not in takers
         )
 
     def fixed_bytes(block: int) -> int:
@@ -1903,18 +1948,53 @@ def _hidden_chain(
     blocks = [d for d in range(extent, 0, -1) if extent % d == 0]
     top = e0 if block_h is None else min(block_h, e0)
     for bh in range(top, 0, -1) if block_h is None else (top,):
-        if chain_tile_shape(bh * math.prod(cons.pure_extents[1:-1]),
-                            cons.pure_extents[-1]) is None:
+        outer = bh * math.prod(cons.pure_extents[1:-1])
+        if chain_tile_shape(outer, cons.pure_extents[-1]) is None:
             continue
         fits = [b for b in blocks if row_bytes(b) * bh + fixed_bytes(b) <= vmem_budget]
         if not fits:
             continue
-        one_pass = [b for b in fits
-                    if bh * math.prod(cons.pure_extents[1:-1]) * b <= CHAIN_THREADS]
-        block = (one_pass or fits)[0]
-        return (HiddenChain(hidden, consumer, extent, block, staged, unstaged),
+        block = next((b for b in fits if hidden_tile_shape(outer, b) is not None), fits[0])
+        tile = hidden_tile_shape(outer, block) or (1, 1)
+        return (HiddenChain(hidden, consumer, extent, block, staged, unstaged, tile, reuse),
                 row_bytes(block), fixed_bytes(block), bh)
     return None
+
+
+def chain_times(names: Sequence[str], consumer: str, hidden: Sequence[str]) -> Dict[str, int]:
+    """When a chained group's kernel evaluates each fused stage of
+    ``names`` (in order), as the index of its turn: each stage in its own
+    turn, a barrier after it, but the hidden stages, evaluated a panel at a
+    time inside the consumer's turn, and the output, after every turn."""
+    at = {n: i for i, n in enumerate(names)}
+    return {n: at[consumer] if n in hidden else at[n] for n in names}
+
+
+def chain_reuse(
+    stages: Sequence[StagePlan], consumer: str, hidden: Sequence[str],
+) -> Tuple[Tuple[str, str], ...]:
+    """Which fused panels of a chained group take a dead panel's words: the
+    consumer and each fused stage after it, in turn, take those of the
+    smallest panel that holds theirs, neither hidden nor taken nor a taker,
+    whose readers all run in turns before the taker's (:func:`chain_times`).
+    The stages before the consumer keep their places."""
+    names = [sp.name for sp in stages[:-1]]
+    times = chain_times(names, consumer, hidden)
+    size = {sp.name: math.prod(sp.nstage.pure_extents[1:]) for sp in stages[:-1]}
+    last = {n: max((times.get(sp.name, len(names)) for sp in stages
+                    if n in sp.scratch_producer), default=-1) for n in names}
+    out: List[Tuple[str, str]] = []
+    used: Set[str] = set()
+    for t in names[names.index(consumer):]:
+        if t in hidden:
+            continue
+        free = [d for d in names if d not in hidden and d not in used and d != t
+                and last[d] < times[t] and size[d] >= size[t]]
+        if free:
+            d = min(free, key=lambda d: (size[d], names.index(d)))
+            out.append((t, d))
+            used |= {t, d}
+    return tuple(out)
 
 
 def _build_kernel_group(
@@ -2864,8 +2944,11 @@ __all__ = [
     "HiddenChain",
     "CHAIN_THREADS",
     "CHAIN_TILE_MAX",
+    "chain_reuse",
     "chain_shape",
     "chain_tile_shape",
+    "chain_times",
+    "hidden_tile_shape",
     "staged_bytes",
     "staged_strides",
     "PaddedGrid",

@@ -456,8 +456,10 @@ def compile_pipeline(
     plan's :meth:`~repro_torch.backend.plan.PipelinePlan.spill_bytes` to
     ``compile.spill_bytes_per_img``, its groups that chain two reductions
     through a hidden axis (``KernelGroup.chain``) to
-    ``compile.chain_groups`` and the hidden panels a block of those walks
-    to ``compile.chain_panels``; a hit adds nothing."""
+    ``compile.chain_groups``, those whose hidden panel takes a register
+    tile of two or more elements a thread to ``compile.chain_tiled_groups``
+    and the hidden panels a block of those walks to
+    ``compile.chain_panels``; a hit adds nothing."""
     if verify not in (True, False, "auto"):
         raise ValueError(f"verify must be True, False, or 'auto': {verify!r}")
     dev = _check_contract(device, kernels)
@@ -523,6 +525,8 @@ def compile_pipeline(
     telemetry.add("compile.spill_bytes_per_img", plan.spill_bytes())
     chains = [kg.chain for kg in plan.kernels if kg.chain is not None]
     telemetry.add("compile.chain_groups", len(chains))
+    telemetry.add("compile.chain_tiled_groups",
+                  sum(ch.tile[0] * ch.tile[1] >= 2 for ch in chains))
     telemetry.add("compile.chain_panels", sum(ch.count for ch in chains))
     if plan_kwargs.get("line_buffer") is True:
         _warn_lane_carry_degrades(plan)

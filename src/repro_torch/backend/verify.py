@@ -78,7 +78,9 @@ from .plan import (
     KernelGroup,
     PipelinePlan,
     RingStream,
+    CHAIN_TILE_MAX,
     chain_tile_shape,
+    chain_times,
     StagePlan,
     ViewGroup,
 )
@@ -112,8 +114,9 @@ RULES: Dict[str, str] = {
     "UB404": "weight panels: a group planned against shared memory carries "
              "nothing and its panels cut its reduction's weight axis evenly",
     "UB405": "hidden chain: a chained group carries nothing, only its chain "
-             "reads its hidden stages, and its panels cut the hidden axis and "
-             "every input staged along it evenly",
+             "reads its hidden stages, its panels cut the hidden axis and "
+             "every input staged along it evenly, and a panel takes only the "
+             "words of one no later stage reads",
     "UB501": "batch grid: leading dim, unit block, occupancy and notes agree",
     "UB502": "batch isolation: no ring/line-buffer state crosses a batch step",
     "UB503": "per-batch exactly-once: each slot evaluates the full per-tile rows",
@@ -1143,10 +1146,14 @@ def _staged_copies(kg: KernelGroup) -> int:
 
 def _scratch_rows(kg: KernelGroup) -> int:
     """Elements of one panel row of every recompute-mode scratch entry; a
-    chain's hidden stage holds one panel of its innermost axis."""
+    chain's hidden stage holds one panel of its innermost axis, and a panel
+    that takes a dead panel's words holds none of its own."""
     hidden = kg.chain.hidden if kg.chain is not None else ()
+    takers = kg.chain.takers if kg.chain is not None else ()
     rows = 0
     for sp in kg.stages[:-1]:
+        if sp.name in takers:
+            continue
         sh = list(sp.nstage.pure_extents[1:])
         if sp.name in hidden and sh:
             sh[-1] = kg.chain.block
@@ -1327,8 +1334,14 @@ def _check_chain(kg: KernelGroup, out: List[PlanViolation]) -> None:
     grid-invariant, its buffer's only view, spans the hidden extent from 0
     on its axis and is read only by the chain along it; each input left
     unstaged is grid-invariant and read only by stages before the chain;
-    and the consumer's sums fit the block's registers
-    (``plan.chain_tile_shape``)."""
+    the consumer's sums fit the block's registers
+    (``plan.chain_tile_shape``), and so does the hidden panel's tile of a
+    thread (at most ``CHAIN_TILE_MAX`` elements); and a panel that takes a
+    dead panel's words (``reuse``) is a fused stage no larger than it, each
+    panel given or taken once, and every stage that reads the dead panel
+    runs in a turn before the taker's first write (``plan.chain_times``:
+    the hidden stages in the consumer's turn, the output after every
+    turn)."""
     ch = kg.chain
     if ch is None:
         return
@@ -1360,6 +1373,10 @@ def _check_chain(kg: KernelGroup, out: List[PlanViolation]) -> None:
     if chain_tile_shape(outer, cns.pure_extents[-1]) is None:
         bad(f"the consumer's {outer} x {cns.pure_extents[-1]} sums a block fit no "
             f"register tile", outer, cns.pure_extents[-1])
+    rows, cols = ch.tile
+    if rows < 1 or cols < 1 or rows * cols > CHAIN_TILE_MAX:
+        bad(f"a hidden tile of {rows} x {cols} elements a thread", rows, cols)
+    _check_reuse(kg, bad)
     for h in ch.hidden:
         hs = kg.stage_plan(h).nstage
         if hs.pure_extents[-1] != ch.extent or hs.pure_extents[:-1] != cns.pure_extents[:-1]:
@@ -1416,6 +1433,35 @@ def _check_chain(kg: KernelGroup, out: List[PlanViolation]) -> None:
                 if not ok:
                     bad(f"stage {sp.name!r} reads panel buffer {g.buffer!r} other than "
                         f"along the hidden axis")
+
+
+def _check_reuse(kg: KernelGroup, bad) -> None:
+    """UB405's rule for a chain's ``reuse``: each ``(taker, dead)`` pair
+    two distinct fused stages, the taker's panel no larger than the dead
+    one's, no panel in two pairs, and every reader of the dead panel in a
+    turn before the taker's."""
+    ch = kg.chain
+    if not ch.reuse:
+        return
+    fused = [sp.name for sp in kg.stages[:-1]]
+    times = chain_times(fused, ch.consumer, ch.hidden)
+    seen: Set[str] = set()
+    for taker, dead in ch.reuse:
+        if taker not in fused or dead not in fused or taker == dead:
+            bad(f"panel {taker!r} takes the words of {dead!r}, not another fused panel")
+            continue
+        if {taker, dead} & seen:
+            bad(f"panel {taker!r} or {dead!r} given or taken twice")
+        seen |= {taker, dead}
+        size = {n: math.prod(kg.scratch_shape(kg.stage_plan(n), 0)) for n in (taker, dead)}
+        if size[taker] > size[dead]:
+            bad(f"panel {taker!r} of {size[taker]} floats does not fit the {size[dead]} "
+                f"of {dead!r}", size[taker], size[dead])
+        late = [sp.name for sp in kg.stages if dead in sp.scratch_producer
+                and times.get(sp.name, len(fused)) >= times[taker]]
+        if late:
+            bad(f"panel {taker!r} takes the words of {dead!r}, which {late} still read",
+                times[taker])
 
 
 def _check_budget(

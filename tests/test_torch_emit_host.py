@@ -37,7 +37,7 @@ from repro_torch.apps import make_app
 from repro_torch.backend import cuda_codegen
 from repro_torch.backend.build import CSRC
 from repro_torch.backend.cuda_codegen import (
-    carries_nothing, element_map, emit_library, lane_layout, launch_dims, output_shape,
+    carries_nothing, element_map, emit_library, hidden_tile, lane_layout, launch_dims, output_shape,
     output_tile, row_bands, shared_bytes, shift_panels, smem_layout, staged_inputs,
 )
 from repro_torch.backend.eager import EagerKernel, LoweredGroup
@@ -129,16 +129,22 @@ CASES = [
 # working set: the hidden stages evaluated one panel of the hidden axis at a
 # time into shared memory, the consumer's sums in registers across the
 # panels, the depthwise and LayerNorm weights read from global memory.
-# Eight panels of 4 on four rows a block (fc1's reduction four terms a
-# 16-byte load); twelve of 2 on a padded grid (5 = 2 x 4 - 3, every stage's
-# tail rows masked); four of 10 in batch slots, the last padded
+# Each thread evaluates a register tile of the hidden panel (two positions,
+# or two hidden entries), and the consumer's sums take the depthwise panel's
+# words.  Eight panels of 4 on four rows a block (fc1's reduction four terms
+# a 16-byte load for both positions of a tile); twelve of 2 on a padded grid
+# (5 = 2 x 4 - 3, every stage's tail rows masked); four of 10 in batch
+# slots, the last padded, two hidden entries a thread; four of 3 on nine
+# positions, tiles of two positions, the last tile's second past the panel
 CHAIN_CASES = [
     ("convnext-chain", "convnext", {"img": 4, "dim": 8, "hidden": 32},
      {"vmem_budget": 3000}, False, None),
     ("convnext-chain-padded", "convnext", {"img": 5, "dim": 8, "hidden": 24},
-     {"vmem_budget": 3000}, False, None),
+     {"vmem_budget": 2200}, False, None),
     ("convnext-chain-batched", "convnext", {"img": 3, "dim": 6, "hidden": 40},
      {"vmem_budget": 3000, "batch": 3, "batch_capacity": 4}, False, None),
+    ("convnext-chain-ragged", "convnext", {"img": 3, "dim": 8, "hidden": 12},
+     {"vmem_budget": 1300}, False, None),
 ]
 # element-parallel groups on the two-axis tile (cuda_codegen.element_map:
 # runs of thread-axis positions by the tile, the weights or A staged a
@@ -434,6 +440,10 @@ def test_chained_group_equals_plain_version_bit_for_bit(libraries, cid, monkeypa
     (lg,) = lowered
     ch = lg.kg.chain
     assert ch is not None and ch.count > 1 and ch.hidden == ("fc1", "gelu")
+    assert ch.tile[0] * ch.tile[1] == 2 and ch.reuse == (("fc2", "dw_conv"),)
+    ht = hidden_tile(lg)
+    ragged = ht.groups * ht.rows > ht.outer or ht.lanes * ht.cols > ht.inner
+    assert ragged == (cid == "convnext-chain-ragged")
     # the first case's fc1 reads its reduction four terms a 16-byte load
     vector = "reinterpret_cast<const float4*>" in emit_library(lowered)
     assert vector == (cid == "convnext-chain")
