@@ -47,14 +47,19 @@ served through ``repro_torch.backend.PipelineServer``.  Phases:
    stage-3 block (one group, its MLP's hidden axis walked in panels,
    printed with its chain) against the benchmark's plain reference
    (``F.conv2d``, ``F.layer_norm``, ``F.linear``, ``F.gelu``; 1e-5 of
+   each slot's widest output), and Swin-T's stage-3 block pair (batch 32,
+   its cell's; eleven groups, each held bit for bit against its plain
+   version) by its output against the benchmark's plain reference
+   (``torch.roll``, window partition, ``F.softmax`` and the rest; 1e-5 of
    each slot's widest output).  The DNN configurations
    take integers in [0, 16), so every sum stays below 2**24 and any
-   summation order gives the same f32 result; ConvNeXt takes its
-   configuration's draws (normal ifmap, He-normal weights).
+   summation order gives the same f32 result; ConvNeXt and Swin take their
+   configurations' draws (normal ifmap, He-normal weights).
 5. serve: per configuration a ``PipelineServer(pipe, batch_slots=8)``
    answers 20 seeded requests (three dispatches, the last ragged); every
    served tile must equal the per-tile pipeline's result, and ConvNeXt's
-   answers the plain reference's within 1e-5 of each one's widest output.  After one
+   and Swin's answers the plain reference's within 1e-5 of each one's
+   widest output.  After one
    warm-up round, every kernel's launch count is zeroed just before the
    timed round and read just after; CUDA events around each dispatch's
    kernels give their share of the wall time.
@@ -305,7 +310,18 @@ FULL = [
     # ConvNeXt-T's stage-3 block: one group whose MLP chains its two
     # reductions through the 1536-wide hidden axis, a panel at a time
     ("convnext", "convnext", {"img": 14, "dim": 384, "hidden": 1536}, False),
+    # Swin-T's stage-3 block pair: each block's window-attention groups (the
+    # score tile in shared memory, the max combiner, expf), the LayerNorm
+    # groups, the one-hot rolls of the shifted block and the chained MLP
+    ("swin", "swin", {"img": 14, "dim": 384, "heads": 12, "window": 7, "hidden": 1536,
+                      "shift": 3}, False),
 ]
+# phase 4's batch slots where a configuration's cell runs another batch than
+# BATCH (Swin's cell dispatches 32 images)
+FULL_BATCH = {"swin": 32}
+# Swin's inputs are drawn as its benchmark configuration draws them (each
+# slot its own weights)
+SWIN_CONFIG = Path(__file__).resolve().parent / "portbench" / "configs" / "swin-t-stage3-14x384.json"
 # ConvNeXt's inputs as its benchmark configuration draws them, (mean, std)
 # of a normal draw: a signed ifmap, He-normal weights, small biases,
 # LayerNorm's affine near (1, 0), a layer scale near 1
@@ -348,6 +364,12 @@ def inputs_for(app, rng, batch=None, integer=False):
         if app.name == "convnext":
             mean, std = CONVNEXT_DRAWS[name]
             arr = mean + std * rng.standard_normal(shape)
+        elif app.name == "swin":
+            d = json.loads(SWIN_CONFIG.read_text())["inputs"][name]
+            if d["draw"] == "uniform":
+                arr = rng.uniform(d["low"], d["high"], shape)
+            else:
+                arr = d["std"] * rng.standard_normal(shape)
         elif integer:
             arr = rng.integers(0, 16, shape)
         else:
@@ -547,10 +569,11 @@ def bytes_and_ops(k) -> tuple:
     return nbytes, ops
 
 
-def library_check(label: str, bufs, out):
+def library_check(label: str, bufs, out, kname: str = ""):
     """The one PyTorch call computing the same function where there is one
-    (timed as ``library_ms``), else None, and a check of ``out`` against a
-    computation sharing no code with the port: ``(call, ok, message)``."""
+    (timed as ``library_ms``), else None, and a check of ``out`` (kernel
+    ``kname``'s output) against a computation sharing no code with the
+    port: ``(call, ok, message)``."""
     import torch
     import torch.nn.functional as F
 
@@ -606,6 +629,21 @@ def library_check(label: str, bufs, out):
                      / want.abs().flatten(1).amax(1)).max())
         return None, gap <= 1e-5, (f"max|cuda - F.conv2d, F.layer_norm, F.linear, F.gelu| / "
                                    f"max|want| = {gap!r} (1e-5 a slot; several calls)")
+    if label == "swin":
+        if kname != "swin":
+            # an inner group of the pair has no separate oracle: it is held
+            # bit for bit against its plain version, the pair's output below
+            return None, True, "inner group: the pair's output is held against the reference"
+        # the benchmark's plain reference (torch.roll, window partition,
+        # F.layer_norm, F.linear, F.softmax, F.gelu a slot, TF32 off), at
+        # the cell's limit
+        from portbench.reference import swin
+
+        want = swin.reference(bufs)["swin"]
+        gap = float(((out - want).abs().flatten(1).amax(1)
+                     / want.abs().flatten(1).amax(1)).max())
+        return None, gap <= 1e-5, (f"max|cuda - Swin's modules in torch| / max|want| = {gap!r} "
+                                   f"(1e-5 a slot, {out.shape[0]} slots; several calls)")
     return None, None, None
 
 
@@ -2573,6 +2611,9 @@ def main() -> int:
         full_apps[label] = app
         configs.append((app.pipeline, {"batch": BATCH, "batch_capacity": BATCH}))
         configs.append((app.pipeline, {}))
+        if label in FULL_BATCH:
+            nb = FULL_BATCH[label]
+            configs.append((app.pipeline, {"batch": nb, "batch_capacity": nb}))
     # the demo's apps (phase 8), planned as the demo compiles them
     for name, kw in DEMO_APPS:
         configs.append((make_demo_app(name, kw).pipeline, {}))
@@ -2625,9 +2666,10 @@ def main() -> int:
     for label, name, _kw, integer in FULL:
         app = full_apps[label]
         t0 = time.perf_counter()
-        pp = compile_pipeline(app.pipeline, batch=BATCH, batch_capacity=BATCH, cache=True)
+        nb = FULL_BATCH.get(label, BATCH)
+        pp = compile_pipeline(app.pipeline, batch=nb, batch_capacity=nb, cache=True)
         compile_s = time.perf_counter() - t0
-        ins = inputs_for(app, rng, batch=BATCH, integer=integer)
+        ins = inputs_for(app, rng, batch=nb, integer=integer)
         bufs = {n: torch.from_numpy(a).cuda() for n, a in ins.items()}
         lib_src = emit_library([k.lg for k in pp.kernels])
         nvcc_s = build_secs.get(digest(lib_src))
@@ -2664,7 +2706,7 @@ def main() -> int:
             t_ops = 1e3 * ops / PEAK_F32_FLOPS
             # the one PyTorch call computing the same function, where there is
             # one: it is also a check that shares no code with the port
-            library, lib_ok, msg = library_check(label, bufs, out)
+            library, lib_ok, msg = library_check(label, bufs, out, k.name)
             library_ms = library_device_ms = None
             if library is not None:
                 library_ms = time_ms(library, 10)
@@ -2680,11 +2722,11 @@ def main() -> int:
                 # the last slot, whole image, held against the app's math
                 # written as whole-image torch expressions
                 (src,) = app.input_extents
-                want = independent(name, bufs[src][BATCH - 1])[k.name]
-                got = out[BATCH - 1]
+                want = independent(name, bufs[src][nb - 1])[k.name]
+                got = out[nb - 1]
                 lib_err = float((got - want).abs().max())
                 lib_ok = got.shape == want.shape and torch.allclose(got, want, rtol=1e-4, atol=1e-3)
-                msg = (f"slot {BATCH - 1}: max|cuda - torch expression| = {lib_err!r} "
+                msg = (f"slot {nb - 1}: max|cuda - torch expression| = {lib_err!r} "
                        "(rtol=1e-4 atol=1e-3)")
             log(f"[full] {label}/{k.name} {msg} {'ok' if lib_ok else 'FAIL'}")
             if not lib_ok:
@@ -2814,15 +2856,15 @@ def main() -> int:
             for kname, arr in req.outputs.items():
                 if not np.array_equal(arr, want[kname].cpu().numpy()):
                     raise AssertionError(f"{label}/{kname}: served tile differs from the per-tile pipeline")
-        if label == "convnext":
+        if label in ("convnext", "swin"):
             # the served answers against the benchmark's plain reference
-            from portbench.reference import convnext
+            from portbench import reference
 
             gaps = []
             for req, ins in zip(done, reqs):
                 one = {n: torch.from_numpy(a[None]).cuda() for n, a in ins.items()}
-                want = convnext.reference(one)["convnext"][0]
-                got = torch.from_numpy(req.outputs["convnext"]).cuda()
+                want = reference.get(label)(one)[label][0]
+                got = torch.from_numpy(req.outputs[label]).cuda()
                 gaps.append(float((got - want).abs().max() / want.abs().max()))
             if max(gaps) > 1e-5:
                 raise AssertionError(f"{label}: served answers off the reference by {max(gaps)}")

@@ -18,10 +18,11 @@ Conventions:
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Tuple
 
-from repro_torch.frontend.expr import Const, IterVal, Select, erf, maximum, minimum, sqrt
+from repro_torch.frontend.expr import Const, IterVal, Select, erf, exp, maximum, minimum, sqrt
 from repro_torch.frontend.func import Func, RDom, Var
 from repro_torch.frontend.lower import Pipeline, lower_pipeline
 
@@ -533,9 +534,268 @@ def build_convnext(
 
 
 # ---------------------------------------------------------------------------
+# swin — Swin Transformer's block pair: windowed multi-head self-attention
+# with a relative position bias (W-MSA), then the same over windows shifted
+# by half a window (SW-MSA), each followed by a GELU MLP; channels last
+# ---------------------------------------------------------------------------
+
+
+def build_swin(
+    img: int = 4, dim: int = 16, heads: int = 2, window: int = 2, hidden: int = 64,
+    shift: int = 1, tiles: int = 4,
+) -> AppBundle:
+    """Two consecutive blocks of Swin Transformer (Liu et al., "Swin
+    Transformer: Hierarchical Vision Transformer using Shifted Windows",
+    arXiv:2103.14030, §3.1–3.3) on an ``img`` x ``img`` map of ``dim``
+    channels, ``heads`` heads of ``dim // heads``, ``window`` x ``window``
+    windows; the first block attends within the regular windows, the second
+    within windows shifted by ``shift``, each block::
+
+        x = x + proj(WindowAttention(LN1(x)))     # LN eps 1e-5
+        x = x + fc2(GELU(fc1(LN2(x))))            # exact erf GELU
+
+    Each window and head computes ``softmax(q . k^T / sqrt(d) + B + mask)
+    . v``, ``B`` the relative position bias read from a ``(2 window - 1)^2``
+    x ``heads`` table at the query's and key's offset inside the window.
+
+    The index language is affine, with one pure variable an axis, so every
+    map is held with its rows and columns split into (window, position):
+    ``ifmap`` and the output are ``[wy][py][wx][px][c]``, row ``window * wy
+    + py``, a view of the ``[y][x][c]`` map (the same bytes).  A window's
+    query and keys are then read at affine positions.  The shifted block
+    runs on the map rolled by ``(-shift, -shift)``, as Swin's module does
+    (``torch.roll``), and rolls its output back; a roll wraps, so it is a
+    reduction over the rows (then the columns) of one-hot terms, exact in
+    f32 (one term is the value, the others +0).  Swin's region mask (-100
+    on a pair of positions from different regions of a shifted window) is
+    computed from the positions, as the scores' initial value.  Weights
+    are views of Swin's and ``nn.Linear``'s: ``qkv_w`` [3 heads][d][dim] of
+    the (3 dim, dim) weight, ``rel_bias`` [2M-1][2M-1][heads] of the
+    (2M-1)^2 x heads table (row ``(qy - ky + M - 1) (2M - 1) + qx - kx + M
+    - 1``), ``fc1_w`` and ``fc2_w`` as they are; ``proj_w`` [heads][d][dim]
+    is input-major, the transpose of the (dim, dim) weight, so that threads
+    along the output channels read consecutive words.  Inside a block the per-pixel
+    stages run rows position-major (``[py][wy][px][wx][c]``) and the
+    attention head-major (``[h][wy][wx][py][px]...``), so that a block of
+    the generated kernels takes a few rows or a few heads.  The defaults are
+    tiny: the reference interpreter is pointwise Python."""
+    if img % window or dim % heads or not 0 < shift < window:
+        raise ValueError(f"swin: img {img} a multiple of window {window}, dim {dim} of "
+                         f"heads {heads}, 0 < shift {shift} < window")
+    n, M, hd = img // window, window, dim // heads
+    wx, px, wy, py = Var("wx"), Var("px"), Var("wy"), Var("py")
+    kx, ky, h, d, h3 = Var("kx"), Var("ky"), Var("h"), Var("d"), Var("h3")
+    inp = Func.input("ifmap", 5)          # [c, px, wx, py, wy]
+    funcs: List[Func] = [inp]
+    input_extents: Dict[str, Tuple[int, ...]] = {"ifmap": (n, M, n, M, dim)}
+
+    def pix(f: Func, c):
+        """``f`` (a per-pixel stage) at the current pixel, channel ``c``."""
+        return f[c, wx, px, wy, py]
+
+    def weight(name: str, ndim: int, extents: Tuple[int, ...]) -> Func:
+        f = Func.input(name, ndim)
+        funcs.append(f)
+        input_extents[name] = extents
+        return f
+
+    def stage(name: str) -> Func:
+        f = Func(name)
+        funcs.append(f)
+        return f
+
+    def layer_norm(pre: str, x) -> Func:
+        """LayerNorm over the channels of a pixel, eps 1e-5: ``x(c)`` is
+        the input at the current pixel."""
+        lw = weight(f"{pre}_weight", 1, (dim,))
+        lb = weight(f"{pre}_bias", 1, (dim,))
+
+        def channel_sum(name: str, term) -> Func:
+            r = RDom(dim, name="q")
+            f = stage(name)
+            f[wx, px, wy, py] = 0
+            f.update((wx, px, wy, py), f[wx, px, wy, py] + term(r[0]), r)
+            f.unroll(r[0], dim)
+            f.store_root()
+            return f
+
+        ssum = channel_sum(f"{pre}_sum", x)
+        mean = stage(f"{pre}_mean")
+        mean[wx, px, wy, py] = ssum[wx, px, wy, py] / dim
+        mean.store_root()
+        centred = stage(f"{pre}_centred")     # inlined
+        centred[ch, wx, px, wy, py] = x(ch) - mean[wx, px, wy, py]
+        vsum = channel_sum(f"{pre}_var_sum",
+                           lambda q: centred[q, wx, px, wy, py] * centred[q, wx, px, wy, py])
+        rstd = stage(f"{pre}_rstd")
+        rstd[wx, px, wy, py] = Const(1) / sqrt(vsum[wx, px, wy, py] / dim + 1e-5)
+        rstd.store_root()
+        ln = stage(pre)
+        ln[ch, wx, px, wy, py] = (centred[ch, wx, px, wy, py] * rstd[wx, px, wy, py]
+                                  * lw[ch] + lb[ch])
+        ln.store_root()
+        return ln
+
+    def region(pos):
+        """The region of Swin's shifted-window mask a rolled row (or
+        column) ``pos`` falls in: 0, 1 or 2 (``img - M`` and ``img - shift``
+        start the second and third)."""
+        return (pos > img - M - 1) + (pos > img - shift - 1)
+
+    def block(b: int, x, shifted: bool) -> Func:
+        """One block on ``x(c)``, the input at the current pixel."""
+        pre = f"b{b}"
+        ln1 = layer_norm(f"{pre}_ln1", x)
+        wqkv = weight(f"{pre}_qkv_w", 3, (3 * heads, hd, dim))    # [c, d, h3]
+        bqkv = weight(f"{pre}_qkv_b", 2, (3 * heads, hd))        # [d, h3]
+        rq = RDom(dim, name="q")
+        qkv = stage(f"{pre}_qkv")             # [d, px, py, wx, wy, h3]: head-major
+        qkv[d, px, py, wx, wy, h3] = 0
+        qkv.update((d, px, py, wx, wy, h3), qkv[d, px, py, wx, wy, h3]
+                   + ln1[rq[0], wx, px, wy, py] * wqkv[rq[0], d, h3], rq)
+        qkv.unroll(rq[0], dim)
+        qkv.store_root()
+
+        # scores: the query at (py, px) of window (wy, wx), the key at (ky, kx)
+        rd = RDom(hd, name="e")
+        e = rd[0]
+        score = stage(f"{pre}_score")         # [kx, ky, px, py, wx, wy, h]
+        q_ = (qkv[e, px, py, wx, wy, h] + bqkv[e, h]) * (hd ** -0.5)
+        k_ = qkv[e, kx, ky, wx, wy, h + heads] + bqkv[e, h + heads]
+        if shifted:
+            # Swin's mask of the shifted windows, from the positions alone:
+            # -100 where the query and the key lie in different regions; the
+            # scores' initial value, so each pair's is added once
+            qlab = (region(M * IterVal("wy") + IterVal("py")) * 3
+                    + region(M * IterVal("wx") + IterVal("px")))
+            klab = (region(M * IterVal("wy") + IterVal("ky")) * 3
+                    + region(M * IterVal("wx") + IterVal("kx")))
+            score[kx, ky, px, py, wx, wy, h] = Select(qlab - klab, Const(-100.0), Const(0.0))
+        else:
+            score[kx, ky, px, py, wx, wy, h] = 0
+        score.update((kx, ky, px, py, wx, wy, h),
+                     score[kx, ky, px, py, wx, wy, h] + q_ * k_, rd)
+        score.unroll(e, hd)
+        score.store_root()
+        rb = weight(f"{pre}_rel_bias", 3, (2 * M - 1, 2 * M - 1, heads))   # [h, dx, dy]
+
+        def logit(rk):
+            """The key (ky, kx) = ``rk``'s score (its mask included) with
+            its relative position bias."""
+            ry, rx = rk[0], rk[1]
+            return (score[rx, ry, px, py, wx, wy, h]
+                    + rb[h, px - rx + (M - 1), py - ry + (M - 1)])
+
+        rk = RDom(M, M, name="k")             # (ky, kx): the window's keys
+        mx = stage(f"{pre}_max")
+        mx[px, py, wx, wy, h] = Const(-math.inf)
+        mx.update((px, py, wx, wy, h), maximum(mx[px, py, wx, wy, h], logit(rk)), rk)
+        mx.store_root()
+        rk = RDom(M, M, name="k")
+        den = stage(f"{pre}_den")
+        den[px, py, wx, wy, h] = 0
+        den.update((px, py, wx, wy, h),
+                   den[px, py, wx, wy, h] + exp(logit(rk) - mx[px, py, wx, wy, h]), rk)
+        den.store_root()
+        rk = RDom(M, M, name="k")
+        attn = stage(f"{pre}_attn")           # [d, px, py, wx, wy, h]
+        p_ = exp(logit(rk) - mx[px, py, wx, wy, h]) / den[px, py, wx, wy, h]
+        v_ = qkv[d, rk[1], rk[0], wx, wy, h + 2 * heads] + bqkv[d, h + 2 * heads]
+        attn[d, px, py, wx, wy, h] = 0
+        attn.update((d, px, py, wx, wy, h), attn[d, px, py, wx, wy, h] + p_ * v_, rk)
+        attn.store_root()
+
+        wproj = weight(f"{pre}_proj_w", 3, (heads, hd, dim))     # [co, d, h]: input-major
+        bproj = weight(f"{pre}_proj_b", 1, (dim,))
+        rp = RDom(heads, hd, name="p")
+        proj = stage(f"{pre}_proj")
+        proj[co, wx, px, wy, py] = 0
+        proj.update((co, wx, px, wy, py), proj[co, wx, px, wy, py]
+                    + attn[rp[1], px, py, wx, wy, rp[0]] * wproj[co, rp[1], rp[0]], rp)
+        proj.unroll(rp[1], hd)
+        proj.store_root()
+        res = stage(f"{pre}_res")             # the first residual
+        res[ch, wx, px, wy, py] = x(ch) + (pix(proj, ch) + bproj[ch])
+        res.store_root()
+
+        ln2 = layer_norm(f"{pre}_ln2", lambda c: pix(res, c))
+        w1 = weight(f"{pre}_fc1_w", 2, (hidden, dim))            # [c, hc]
+        b1 = weight(f"{pre}_fc1_b", 1, (hidden,))
+        w2 = weight(f"{pre}_fc2_w", 2, (dim, hidden))            # [hc, co]
+        b2 = weight(f"{pre}_fc2_b", 1, (dim,))
+        rq = RDom(dim, name="q")
+        fc1 = stage(f"{pre}_fc1")
+        fc1[hc, wx, px, wy, py] = 0
+        fc1.update((hc, wx, px, wy, py), fc1[hc, wx, px, wy, py]
+                   + pix(ln2, rq[0]) * w1[rq[0], hc], rq)
+        fc1.unroll(rq[0], dim)
+        fc1.store_root()
+        z = pix(fc1, hc) + b1[hc]
+        act = stage(f"{pre}_gelu")
+        act[hc, wx, px, wy, py] = z * 0.5 * (1 + erf(z * 0.7071067811865476))
+        act.store_root()
+        rh = RDom(hidden, name="h")
+        fc2 = stage(f"{pre}_fc2")
+        fc2[co, wx, px, wy, py] = 0
+        fc2.update((co, wx, px, wy, py), fc2[co, wx, px, wy, py]
+                   + pix(act, rh[0]) * w2[rh[0], co], rh)
+        fc2.unroll(rh[0], hidden)
+        fc2.store_root()
+        out = stage(f"{pre}_out")
+        out[co, wx, px, wy, py] = pix(res, co) + (pix(fc2, co) + b2[co])
+        out.store_root()
+        return out
+
+    def wrong(rr, w_: str, p_: str, by: int):
+        """Nonzero unless the source row (column) ``rr`` is ``(r + by) mod
+        img``, ``r`` the stage's own: ``t (t + img)``, ``t`` the source less
+        ``r + by``, which is 0 or ``-img`` where they match."""
+        t = M * IterVal(rr[0].name) + IterVal(rr[1].name) - (M * IterVal(w_) + IterVal(p_) + by)
+        return t * (t + img)
+
+    def roll(name: str, src, by: int, axis: str, index) -> Func:
+        """``src`` rolled by ``-by`` along ``axis`` (``"y"`` or ``"x"``):
+        the value at row (column) ``r`` is the source's at ``(r + by) mod
+        img``, a reduction over the source's (window, position) of one-hot
+        terms.  ``src(c, w, p)`` reads the source at the current pixel with
+        that axis's window and position replaced; ``index`` is the stage's
+        own index order."""
+        rr = RDom(n, M, name=f"r{axis}")
+        w_, p_ = ("wy", "py") if axis == "y" else ("wx", "px")
+        f = stage(name)
+        f[index] = 0
+        f.update(index, f[index] + Select(wrong(rr, w_, p_, by), Const(0.0),
+                                          src(rr[0], rr[1])), rr)
+        f.store_root()
+        return f
+
+    own = (ch, wx, px, wy, py)
+    x1 = block(1, lambda c: inp[c, px, wx, py, wy], shifted=False)
+    ry = roll("roll_y", lambda w_, p_: x1[ch, wx, px, w_, p_], shift, "y", own)
+    rx = roll("roll_x", lambda w_, p_: ry[ch, w_, p_, wy, py], shift, "x", own)
+    x2 = block(2, lambda c: pix(rx, c), shifted=True)
+    uy = roll("unroll_y", lambda w_, p_: x2[ch, wx, px, w_, p_], img - shift, "y", own)
+    out = Func("swin")                    # [c, px, wx, py, wy]: the map's layout
+    funcs.append(out)
+    rr = RDom(n, M, name="rx")
+    out[ch, px, wx, py, wy] = 0
+    out.update((ch, px, wx, py, wy), out[ch, px, wx, py, wy] + Select(
+        wrong(rr, "wx", "px", img - shift), Const(0.0), uy[ch, rr[0], rr[1], wy, py]), rr)
+    out.hw_accelerate()
+
+    ext = {"ch": dim, "px": M, "wx": n, "py": M, "wy": n}
+    pipe = lower_pipeline(out, funcs, ext)
+    return AppBundle(
+        "swin", "dnn", pipe, funcs, out, ext, input_extents,
+        tile_count=tiles,
+        description="Swin block pair: W-MSA and SW-MSA with relative position bias, GELU MLPs",
+    )
+
+
+# ---------------------------------------------------------------------------
 ALL_APPS = ["gaussian", "harris", "upsample", "unsharp", "camera", "resnet", "mobilenet"]
 # additional backend workloads, not part of the paper's Table III set
-EXTRA_APPS = ["matmul", "convnext"]
+EXTRA_APPS = ["matmul", "convnext", "swin"]
 
 
 def make_app(name: str, **kw) -> AppBundle:
@@ -549,6 +809,7 @@ def make_app(name: str, **kw) -> AppBundle:
         "mobilenet": build_mobilenet,
         "matmul": build_matmul,
         "convnext": build_convnext,
+        "swin": build_swin,
     }
     if name not in builders:
         raise ValueError(f"no app {name!r}; the apps are {sorted(builders)}")

@@ -220,6 +220,11 @@ TILED_SMEM_MAX = 48 * 1024
 # is emitted as a loop, unrolled ROLL_UNROLL times
 ROLL_MIN = 8
 ROLL_UNROLL = 4
+# a fused panel of a group that carries nothing is emitted one element a
+# thread with its chain rolled where the chain has at least ROLL_PANEL_MIN
+# terms; a shorter one (a stencil's taps, a 7x7 depthwise window) stays
+# straight-line code
+ROLL_PANEL_MIN = 64
 # a chain read four terms a 16-byte load unrolls VECTOR_UNROLL such steps of
 # one element's chain, shared by the elements of a thread's tile (at least one)
 VECTOR_UNROLL = 2
@@ -231,6 +236,9 @@ OUT_TILE_MAX = 16
 # a group whose weight is staged in panels keeps every accumulator of its
 # tile across the panels: at most this many a thread
 PANEL_TILE_MAX = 32
+# blocks an SM a window-attention group's kernel asks registers for
+# (``__launch_bounds__``'s second argument)
+WINDOW_BLOCKS = 2
 
 # the TPU kernel this emitter replaces, for reports
 REPLACES = "src/repro/backend/codegen.py:755"
@@ -244,10 +252,10 @@ _BIN_FN = {
     "gt": "ub_gt",
 }
 _BIN_INFIX = {"add": "+", "sub": "-", "mul": "*"}
-# the device library's square root (IEEE, as torch's) and erf (within 2 ulp
-# of the exact value, as the library documents; torch's CUDA erf calls the
-# same function)
-_UN_FN = {"sqrt": "sqrtf", "erf": "erff"}
+# the device library's square root (IEEE, as torch's), erf and exp (within 2
+# ulp of the exact value, as the library documents; torch's CUDA erf and exp
+# call the same functions; not the intrinsic ``__expf``)
+_UN_FN = {"sqrt": "sqrtf", "erf": "erff", "exp": "expf"}
 
 
 def _flit(v: float) -> str:
@@ -1925,6 +1933,11 @@ class _GroupEmitter:
         lg, kg = self.lg, self.kg
         bh = kg.bh
         sync = "__syncthreads();"
+        # a group that carries nothing, but weight panels, rolls the chain of
+        # a window-attention group's fused panels (its score tile and row
+        # statistics) and of any other fused panel whose reduction is at
+        # least ROLL_PANEL_MIN terms long (a LayerNorm's channel sums)
+        rolled = carries_nothing(lg) and kg.panels is None
         out: List[str] = self.staging() if self.staged else []
         if kg.rings:
             # rotate the carried halo (or warm up at the first step), then
@@ -1960,6 +1973,9 @@ class _GroupEmitter:
                     sp, lb.hi, 0,
                     lambda sh, v, n=name, d=dims, o={0: h}: [f"{self.at(n, d, sh, o)} = {v};"],
                 ))
+            elif rolled and not isinstance(key, tuple) and (
+                    kg.window is not None or self.long_chain(sp, key)):
+                out += self.rolled_panel(si)
             else:
                 s, t = key if isinstance(key, tuple) else (key, 0)
                 out += self.loop(*self.panel(sp, s, t, lambda sh, v, n=name: [f"{n}[e] = {v};"]))
@@ -1968,6 +1984,12 @@ class _GroupEmitter:
         if lg.row_carried:
             out.append(sync)
         return out
+
+    def long_chain(self, sp, key) -> bool:
+        """Whether the panel of stage ``sp`` computes a reduction's chain of
+        at least ``ROLL_PANEL_MIN`` terms."""
+        ch = _chain(self.lg.programs[(sp.name, key, 0)])
+        return ch is not None and len(ch[1]) >= ROLL_PANEL_MIN
 
     def rolled_panel(self, si: int) -> List[str]:
         """Scratch entry ``si``'s panel, one element a thread at a time, a
@@ -2414,14 +2436,27 @@ class _GroupEmitter:
                 + (f", output tile {ot.rows} x {ot.cols} a thread, {ot.lanes} lanes along the "
                    f"innermost axis, {ot.groups} groups" if ot is not None else "")
             )
+        # a window-attention group's parameters carry its mark, which the
+        # profiler's kernel name shows
+        params = f"UbWindowParams{t}" if kg.window is not None else f"UbParams{t}"
+        # a window tile's block asks for registers that leave room for a
+        # second block an SM (its fully written maximum would take all)
+        bounds = f"{self.nt}, {WINDOW_BLOCKS}" if kg.window is not None else f"{self.nt}"
+        if kg.window is not None:
+            wa = kg.window
+            lines.append(
+                f"// window attention: score tile {wa.score!r} and statistics {list(wa.stats)} "
+                f"in shared memory, {kg.bh} head(s) a block, {wa.windows} windows of "
+                f"{wa.keys} keys a head, {wa.masked} masked"
+            )
         lines += [
-            f"struct UbParams{t} {{",
+            f"struct {params} {{",
             f"  const float* in[{nb}];",
             "  float* out;",
             f"  int dims[{nb}][{R}];",
             "};",
             "",
-            f"__global__ void __launch_bounds__({self.nt}) ub_kernel_{t}(const UbParams{t} P) {{",
+            f"__global__ void __launch_bounds__({bounds}) ub_kernel_{t}(const {params} P) {{",
             "  extern __shared__ float ub_smem[];",
             "  const int slot = blockIdx.y;",
         ]
@@ -2477,7 +2512,7 @@ class _GroupEmitter:
         lines += [
             f'extern "C" int ub_launch_{t}(const void* const* in, void* out, '
             "const long long* dims, void* stream) {",
-            f"  UbParams{t} p;",
+            f"  {params} p;",
             f"  for (int b = 0; b < {nb}; ++b) {{",
             f"    p.in[b] = b < {len(lg.buffer_order)} ? (const float*)in[b] : nullptr;",
             f"    for (int a = 0; a < {R}; ++a) p.dims[b][a] = (int)dims[b * {R} + a];",

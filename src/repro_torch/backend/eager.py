@@ -125,7 +125,7 @@ class Tap:
 #   ("iter", AxisIndex)        the index as f32
 #   ("tap", Tap)               one load
 #   ("bin", op, a, b)          add|sub|mul|div|min|max|shr|lt|gt
-#   ("un", op, a)              sqrt|erf
+#   ("un", op, a)              sqrt|erf|exp
 #   ("sel", c, t, f)           c != 0 ? t : f
 #   ("mask", a, Bounds)        a where every bound holds, else 0.0
 #   ("acc",)                   the running accumulator (a reduction chunk)
@@ -409,10 +409,11 @@ class LoweredGroup:
             elif isinstance(e, IterVal):
                 lo = lower.get(e.name, 0)
                 if e.name in ns.red_dims:
-                    if rg is not None and e.name == rg.dim:
-                        ops.append(("iter", AxisIndex(None, rho[e.name] + lo, kstep=rg.chunk)))
-                    else:
-                        ops.append(("const", float(rho[e.name] + lo)))
+                    # an index, not a constant: a reduction's terms that read
+                    # their own variable differ in index constants alone,
+                    # which the emitter rolls into a loop
+                    kstep = rg.chunk if rg is not None and e.name == rg.dim else 0
+                    ops.append(("iter", AxisIndex(None, rho[e.name] + lo, kstep=kstep)))
                 else:
                     q = pure_pos[e.name]
                     if row and q == 0:
@@ -464,7 +465,7 @@ class LoweredGroup:
             ranges = [range(ex) for ex in ns.red_extents]
             for combo in itertools.product(*ranges):
                 term = emit(ns.value, dict(zip(ns.red_dims, combo)), [0])
-                ops.append(("bin", "add", acc, term))
+                ops.append(("bin", ns.combiner, acc, term))
                 acc = len(ops) - 1
         else:
             emit(ns.value, {}, [0])
@@ -497,15 +498,16 @@ class LoweredGroup:
                 tail = AxisIndex(None, rho[rg.dim], kstep=rg.chunk)
                 ops.append(("mask", len(ops) - 1, ((tail, rg.extent),)))
             self._masked(sp, ops)
-            ops.append(("bin", "add", acc, len(ops) - 1))
+            ops.append(("bin", ns.combiner, acc, len(ops) - 1))
             acc = len(ops) - 1
         return tuple(ops)
 
 
 _BINOPS = ("add", "sub", "mul", "div", "min", "max", "shr", "lt", "gt")
 # torch's square root is IEEE's, as CUDA's ``sqrtf`` and the host's are; its
-# ``erf`` is the device library's own, within a few ulp of any other
-_UNOPS = {"sqrt": torch.sqrt, "erf": torch.erf}
+# ``erf`` and ``exp`` are the device library's own, within a few ulp of any
+# other
+_UNOPS = {"sqrt": torch.sqrt, "erf": torch.erf, "exp": torch.exp}
 
 
 # ---------------------------------------------------------------------------

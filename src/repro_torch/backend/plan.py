@@ -61,6 +61,8 @@ Planning passes, in order:
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Set, Tuple
@@ -76,7 +78,7 @@ from repro_torch.core.ubplan import (
     lane_width_candidates,
     plan_affine_stage,
 )
-from repro_torch.frontend.expr import expr_depth, refs_in
+from repro_torch.frontend.expr import eval_expr, expr_depth, refs_in
 from repro_torch.frontend.lower import NormalizedStage, Pipeline, normalize_pipeline
 
 from .access import LoadAccess, UnsupportedAccessError, decompose_stage
@@ -255,6 +257,33 @@ def hidden_tile_shape(outer: int, inner: int) -> Optional[Tuple[int, int]]:
             if best is None or key < best[0]:
                 best = (key, (rows, cols))
     return None if best is None else best[1]
+
+
+@dataclass(frozen=True)
+class WindowAttention:
+    """A fused group that keeps a window-attention score tile in shared
+    memory, planned against shared memory as the CUDA kernel fills it (Swin
+    Transformer's W-MSA and SW-MSA: per window and head ``softmax(q . k^T +
+    bias + mask) . v``).  The fused stage ``score`` is the tile: its pure
+    axes are the block's rows (the heads), the window and query axes
+    (``rows`` after the first) and then the key axes; each other fused
+    stage of ``stats`` (a row's maximum, then its sum of ``exp``) and the
+    output reduce over the keys, reading the tile at their own row and the
+    keys' reduction variables, the statistics at their own position.  No
+    score, probability or statistic leaves shared memory: a block evaluates
+    the tile, then each statistic, then the output, a barrier between them,
+    and stores the output straight to global memory; its row-blocked views
+    (the queries, keys and values of its heads) read global memory and its
+    grid-invariant inputs are staged whole.  ``keys`` is the keys a query
+    reduces over, ``windows`` the windows of one row (head) and ``masked``
+    those whose keys fall in more than one region of a mask the output's
+    terms select from the positions alone (a shifted window's)."""
+
+    score: str
+    stats: Tuple[str, ...]
+    keys: int
+    windows: int = 0
+    masked: int = 0
 
 
 @dataclass(frozen=True)
@@ -684,10 +713,20 @@ class KernelGroup:
     # planned against shared memory with two reductions chained through a
     # hidden axis walked in panels (see :class:`HiddenChain`)
     chain: Optional[HiddenChain] = None
+    # planned against shared memory with a window-attention score tile (see
+    # :class:`WindowAttention`)
+    window: Optional[WindowAttention] = None
 
     @property
     def output(self) -> StagePlan:
         return self.stages[-1]
+
+    @property
+    def smem_planned(self) -> bool:
+        """Planned against shared memory as the CUDA kernel fills it (weight
+        panels, a hidden chain or a window-attention tile): its views read
+        global memory or are staged, and its working set is allocated once."""
+        return self.panels is not None or self.chain is not None or self.window is not None
 
     def stage_plan(self, name: str) -> StagePlan:
         for sp in self.stages:
@@ -800,7 +839,7 @@ class KernelGroup:
         """Under :attr:`panels` or :attr:`chain`, the extents of each buffer
         the kernel stages in shared memory (:func:`_staged_hull`), a panel
         buffer's axis cut to one panel; empty for a Pallas-model plan."""
-        if self.panels is None and self.chain is None:
+        if not self.smem_planned:
             return {}
         cut = self.panel_axes()
         skip = self.chain.unstaged if self.chain is not None else ()
@@ -959,7 +998,7 @@ class KernelGroup:
                     if cond and ax < len(self.base_grid)
                 )
             blk = g.block_shape(self.bh, self.bw)
-            if self.panels is not None or self.chain is not None:
+            if self.smem_planned:
                 # read straight from global memory, or through the staged
                 # copy listed below: nothing of the view is resident
                 streams.append(StreamPlan(
@@ -998,7 +1037,7 @@ class KernelGroup:
                 double_buffered=False,
             ))
         out = self.output
-        if self.panels is not None or self.chain is not None:
+        if self.smem_planned:
             # evaluated in registers and stored straight to global memory
             streams.append(StreamPlan(
                 "out", out.panel_shape(self.bh), (bofs,), 0, double_buffered=False,
@@ -1045,6 +1084,9 @@ class KernelGroup:
         if self.chain is not None:
             ch = self.chain
             notes["hidden_chain"] = (ch.hidden, ch.consumer, ch.block, ch.count, ch.tile)
+        if self.window is not None:
+            wa = self.window
+            notes["window_attention"] = (wa.score, wa.stats, wa.keys, wa.windows, wa.masked)
         resident = [g.buffer for g in self.groups if g.resident]
         if resident:
             notes["red_resident"] = tuple(resident)
@@ -1354,8 +1396,10 @@ def _red_grid_candidate(
     ``chunk`` overrides the default chunk size (an autotuner knob — the
     chunk trades per-step VMEM residency against grid-step overhead); it
     is clamped to the extent, and a value of 1 declines the grid
-    reduction entirely (every chunk is one term — pure overhead)."""
-    if not ns.red_dims:
+    reduction entirely (every chunk is one term — pure overhead).  A
+    running maximum stays whole: a masked tail term reads 0.0, which only
+    a sum ignores."""
+    if not ns.red_dims or ns.combiner != "add":
         return None
     r = ns.red_dims[0]
     extent = ns.red_extents[0]
@@ -1730,7 +1774,7 @@ def _weight_panels(
         return None
     if any(g.pinned or g.lane_axis is not None or g.red_axis is not None for g in groups):
         return None
-    if len(out_ns.red_dims) != 1:
+    if len(out_ns.red_dims) != 1 or any(ns.combiner != "add" for ns, _, _ in members):
         return None
     red, extent = out_ns.red_dims[0], out_ns.red_extents[0]
     hull = _staged_hull(groups)
@@ -1919,6 +1963,8 @@ def _hidden_chain(
         return None
     if any(g.pinned or g.lane_axis is not None or g.red_axis is not None for g in groups):
         return None
+    if any(ns.combiner != "add" for ns, _, _ in members):
+        return None
     hull = _staged_hull(groups)
     found = chain_shape(stages, groups)
     if hull is None or found is None:
@@ -1959,6 +2005,121 @@ def _hidden_chain(
         return (HiddenChain(hidden, consumer, extent, block, staged, unstaged, tile, reuse),
                 row_bytes(block), fixed_bytes(block), bh)
     return None
+
+
+def window_shape(stages: Sequence[StagePlan]) -> Optional[Tuple[str, Tuple[str, ...]]]:
+    """The window-attention tile a fused group's stages hold, or None:
+    ``(score, stats)`` as :class:`WindowAttention` names them.  The output
+    is a sum over ``k`` reduction variables; the first fused stage, the
+    score tile, has the keys as its last ``k`` pure axes, of those extents,
+    and its other axes are each other fused stage's (the statistics'), and
+    lead the output's.  Every statistic and the output reduce over the
+    keys with the same extents, read the tile at their own position and
+    the keys' variables (stride 1, offset 0), and read each statistic at
+    their own position; the statistics read no other fused stage."""
+    out, fused = stages[-1], list(stages[:-1])
+    if len(fused) < 2 or not out.nstage.red_dims or out.nstage.combiner != "add":
+        return None
+    score = fused[0]
+    k = len(out.nstage.red_dims)
+    sp_dims, sp_ext = score.nstage.pure_dims, score.nstage.pure_extents
+    if len(sp_dims) <= k or tuple(sp_ext[-k:]) != tuple(out.nstage.red_extents):
+        return None
+    rows = sp_dims[:-k]
+    names = {sp.name for sp in fused}
+    for t in fused[1:] + [out]:
+        ns = t.nstage
+        if tuple(ns.red_extents) != tuple(sp_ext[-k:]) or ns.pure_dims[:len(rows)] != rows:
+            return None
+        if t is not out and ns.pure_dims != rows:
+            return None
+        red = ns.red_dims
+        for la, p in zip(t.accesses, t.scratch_producer):
+            if p is None:
+                continue
+            if p not in names:
+                return None
+            want = [(d, 1, (), 0) for d in rows]
+            if p == score.name:
+                want += [(None, 1, ((r, 1),), 0) for r in red]
+            if [(a.pure_dim, a.stride, a.red_coeffs, a.const) for a in la.axes] != want:
+                return None
+    if any(p is not None for p in score.scratch_producer):
+        return None
+    return score.name, tuple(sp.name for sp in fused[1:])
+
+
+def window_masked(kg: "KernelGroup") -> Tuple[int, int]:
+    """``(windows, masked)`` of a window-attention group: the windows of
+    one row (head), the values of the tile's axes after the first that its
+    key reads share, and those whose keys fall in more than one region of
+    the mask the tile starts from (its reduction's initial value, from the
+    positions alone; Swin's shifted windows): a window is masked where the
+    initial value takes more than one value over the keys of the window's
+    first query."""
+    score = kg.stage_plan(kg.window.score)
+    ns = score.nstage
+    k = len(kg.output.nstage.red_dims)
+    keys = ns.pure_dims[-k:]
+    keyed = [la for la in score.accesses if any(a.pure_dim in keys for a in la.axes)]
+    shared = {a.pure_dim for la in keyed for a in la.axes}
+    win = [d for d in ns.pure_dims[1:-k] if d in shared]
+    windows = math.prod(ns.extent(d) for d in win)
+    if ns.init is None or refs_in(ns.init):
+        return windows, 0
+    masked = 0
+    for w in itertools.product(*(range(ns.extent(d)) for d in win)):
+        point = {d: ns.lower_of(d) for d in ns.pure_dims}
+        point.update((d, v + ns.lower_of(d)) for d, v in zip(win, w))
+        seen = set()
+        for r in itertools.product(*(range(ns.extent(d)) for d in keys)):
+            point.update((d, v + ns.lower_of(d)) for d, v in zip(keys, r))
+            seen.add(eval_expr(ns.init, point, None))
+        masked += len(seen) > 1
+    return windows, masked
+
+
+def _window_attention(
+    members: List[Tuple[NormalizedStage, List[LoadAccess], bool]],
+    plans: Mapping[str, StagePlan],
+    groups: Sequence[ViewGroup],
+    rings: Sequence[RingStream],
+    red_grid: Optional[RedGrid],
+    *,
+    vmem_budget: int,
+    block_h: Optional[int],
+) -> Optional[Tuple[WindowAttention, int, int, int]]:
+    """Plan a fused group that holds a window-attention score tile
+    (:class:`WindowAttention`, :func:`window_shape`) against shared memory
+    as the CUDA kernel fills it, or None where the group holds no such tile
+    or cannot fit.  It carries nothing (no ring, line buffer or grid
+    reduction, no pinned, lane- or reduction-tiled view, every fused stage
+    at its consumers' rows).  Its working set is what the kernel
+    allocates, once: every fused panel's rows (``bytes_per_row``) and the
+    staged copies of the grid-invariant inputs (``fixed``), under
+    ``bytes_per_row * bh + fixed <= vmem_budget``.  The block height is
+    ``block_h`` or 1, one head a block: a block's heads share no load.
+    Returns the tile, the working set and the block height."""
+    stages = [plans[ns.name] for ns, _, _ in members]
+    if rings or red_grid is not None or any(sp.line_buffer is not None for sp in stages):
+        return None
+    if any(sp.shifts != (0,) or sp.lane_shifts != (0,) for sp in stages[:-1]):
+        return None
+    if any(g.pinned or g.lane_axis is not None or g.red_axis is not None for g in groups):
+        return None
+    hull = _staged_hull(groups)
+    found = window_shape(stages)
+    if hull is None or found is None:
+        return None
+    score, stats = found
+    e0 = stages[-1].nstage.pure_extents[0]
+    bh = min(block_h or 1, e0)
+    row = ELEM_BYTES * sum(math.prod(ns.pure_extents[1:]) for ns, _, _ in members[:-1])
+    fixed = sum(staged_bytes(ext) for ext in hull.values())
+    if row * bh + fixed > vmem_budget:
+        return None
+    keys = math.prod(stages[-1].nstage.red_extents)
+    return WindowAttention(score, stats, keys), row, fixed, bh
 
 
 def chain_times(names: Sequence[str], consumer: str, hidden: Sequence[str]) -> Dict[str, int]:
@@ -2472,7 +2633,12 @@ def _build_kernel_group(
 
         panels: Optional[WeightPanels] = None
         chain: Optional[HiddenChain] = None
-        if multi and 2 * bytes_per_row * bh + fixed_bytes > vmem_budget:
+        window: Optional[WindowAttention] = None
+        # a window-attention tile is planned against shared memory even where
+        # the working-set model could hold it: its kernel holds one head's
+        # tile, whatever the model would double-buffer
+        tile_shaped = multi and window_shape([plans[ns.name] for ns, _, _ in members]) is not None
+        if multi and (2 * bytes_per_row * bh + fixed_bytes > vmem_budget or tile_shaped):
             staged = None if lane else _weight_panels(
                 members, plans, groups, rings, red_grid,
                 vmem_budget=vmem_budget, block_h=block_h, cost=cost,
@@ -2485,11 +2651,18 @@ def _build_kernel_group(
                     members, plans, groups, rings, red_grid,
                     vmem_budget=vmem_budget, block_h=block_h,
                 )
-                if chained is None:
+                tiled = None if lane or chained is not None else _window_attention(
+                    members, plans, groups, rings, red_grid,
+                    vmem_budget=vmem_budget, block_h=block_h,
+                )
+                if chained is not None:
+                    chain, bytes_per_row, fixed_bytes, bh = chained
+                elif tiled is not None:
+                    window, bytes_per_row, fixed_bytes, bh = tiled
+                else:
                     raise FusionInfeasible(
                         f"group ending at {out_ns.name}: live range exceeds VMEM budget"
                     )
-                chain, bytes_per_row, fixed_bytes, bh = chained
 
         padded_grid: Optional[PaddedGrid] = None
         lane_grid: Optional[PaddedGrid] = None
@@ -2527,6 +2700,7 @@ def _build_kernel_group(
             ws=(bytes_per_row, fixed_bytes),
             panels=panels,
             chain=chain,
+            window=window,
         )
 
     # -- mode selection: recompute fusion vs cross-grid-step carry -----------
@@ -2737,8 +2911,9 @@ def _build_kernel_group(
 
     def overflows(kg: KernelGroup) -> bool:
         bpr, fixed = kg.ws
-        # a chain's working set counts what its kernel allocates, once
-        live = (1 if kg.chain is not None else 2) * bpr * kg.bh + fixed
+        # a chain's or window tile's working set counts what its kernel
+        # allocates, once
+        live = (1 if kg.chain is not None or kg.window is not None else 2) * bpr * kg.bh + fixed
         return kernel_streamed and live > vmem_budget
 
     kg_flat: Optional[KernelGroup] = None
@@ -2791,6 +2966,40 @@ def _build_kernel_group(
 # ---------------------------------------------------------------------------
 # Pipeline planning (fusion grouping + per-group builds)
 # ---------------------------------------------------------------------------
+
+
+# producers a fusion trial that fails may take along at once, where only
+# a chain they complete fits (:func:`_chain_lookahead`)
+CHAIN_LOOKAHEAD = 3
+
+
+def _chain_lookahead(trial: Set[str], order: Sequence[str], consumers: Mapping[str, List[str]],
+                     members: Mapping[str, List[str]], by_name: Mapping[str, Tuple],
+                     shapes: Mapping[str, Tuple[int, ...]], build_kw: Mapping[str, object],
+                     ) -> Optional[Set[str]]:
+    """A fusion trial that fails may fit once the producers of a chain join
+    it too: a chain's consumer alone beside its output overflows the
+    working-set model, while the whole chain walks its hidden axis in
+    panels (:class:`HiddenChain`; e.g. Swin's MLP, whose rows of 28
+    positions are twice ConvNeXt's).  Add, one at a time in reverse
+    topological order, up to ``CHAIN_LOOKAHEAD`` producers still alone in
+    their groups whose consumers all lie in the trial, and return the first
+    trial that plans as a chain, or None."""
+    trial = set(trial)
+    for _ in range(CHAIN_LOOKAHEAD):
+        nxt = next((n for n in reversed(order) if n not in trial and members.get(n) == [n]
+                    and consumers.get(n) and set(consumers[n]) <= trial
+                    and not by_name[n][0].on_host), None)
+        if nxt is None:
+            return None
+        trial.add(nxt)
+        try:
+            kg = _build_kernel_group([by_name[n] for n in order if n in trial], shapes, **build_kw)
+        except (FusionInfeasible, UnsupportedAccessError, ValueError):
+            continue
+        if kg.chain is not None:
+            return trial
+    return None
 
 
 def build_pipeline_plan(
@@ -2896,16 +3105,25 @@ def build_pipeline_plan(
                     shapes, **build_kw,
                 )
             except (FusionInfeasible, UnsupportedAccessError, ValueError):
-                continue
-            members[root].append(name)
-            assign[name] = root
-            del members[name]
+                trial = _chain_lookahead(trial, order, consumers, members, by_name,
+                                         shapes, build_kw)
+                if trial is None:
+                    continue
+            for n in trial - set(members[root]):
+                members[root].append(n)
+                assign[n] = root
+                del members[n]
 
     kernels = []
     for name in order:
         if assign[name] != name or name not in members:
             continue
         kernels.append(_build_kernel_group(group_infos(name), shapes, **build_kw))
+    # a window tile's windows, and those its mask splits into regions
+    for kg in kernels:
+        if kg.window is not None:
+            windows, masked = window_masked(kg)
+            kg.window = dataclasses.replace(kg.window, windows=windows, masked=masked)
     notes = {
         "fuse": fuse, "grid_reduction": grid_reduction,
         "cost_model": cost_model, "vmem_budget": vmem_budget,
@@ -2942,6 +3160,8 @@ __all__ = [
     "RedGrid",
     "WeightPanels",
     "HiddenChain",
+    "WindowAttention",
+    "window_shape",
     "CHAIN_THREADS",
     "CHAIN_TILE_MAX",
     "chain_reuse",

@@ -459,7 +459,12 @@ def compile_pipeline(
     ``compile.chain_groups``, those whose hidden panel takes a register
     tile of two or more elements a thread to ``compile.chain_tiled_groups``
     and the hidden panels a block of those walks to
-    ``compile.chain_panels``; a hit adds nothing."""
+    ``compile.chain_panels``, its groups that keep a window-attention score
+    tile in shared memory (``KernelGroup.window``) to
+    ``compile.window_groups``, the heads a block of those holds at once to
+    ``compile.window_heads`` and their windows whose keys fall in more than
+    one region of the mask to ``compile.masked_windows``; a hit adds
+    nothing."""
     if verify not in (True, False, "auto"):
         raise ValueError(f"verify must be True, False, or 'auto': {verify!r}")
     dev = _check_contract(device, kernels)
@@ -528,6 +533,10 @@ def compile_pipeline(
     telemetry.add("compile.chain_tiled_groups",
                   sum(ch.tile[0] * ch.tile[1] >= 2 for ch in chains))
     telemetry.add("compile.chain_panels", sum(ch.count for ch in chains))
+    windows = [kg for kg in plan.kernels if kg.window is not None]
+    telemetry.add("compile.window_groups", len(windows))
+    telemetry.add("compile.window_heads", sum(kg.bh for kg in windows))
+    telemetry.add("compile.masked_windows", sum(kg.window.masked for kg in windows))
     if plan_kwargs.get("line_buffer") is True:
         _warn_lane_carry_degrades(plan)
     if verify is not False:

@@ -117,6 +117,11 @@ RULES: Dict[str, str] = {
              "reads its hidden stages, its panels cut the hidden axis and "
              "every input staged along it evenly, and a panel takes only the "
              "words of one no later stage reads",
+    "UB406": "window attention: a window group carries nothing, its score "
+             "tile is its first fused stage, read only at the reader's own "
+             "row and the keys' reduction variables by statistics and an "
+             "output that reduce over the tile's key axes, and each "
+             "statistic only at its own position",
     "UB501": "batch grid: leading dim, unit block, occupancy and notes agree",
     "UB502": "batch isolation: no ring/line-buffer state crosses a batch step",
     "UB503": "per-batch exactly-once: each slot evaluates the full per-tile rows",
@@ -1112,8 +1117,10 @@ def _staged_copies(kg: KernelGroup) -> int:
     if kg.panels is not None:
         pn = kg.panels
         cuts = [(pn.group, pn.axis, pn.block)]
-    else:
+    elif kg.chain is not None:
         cuts = [(gi, a, kg.chain.block) for gi, a in kg.chain.staged]
+    else:
+        cuts = []
     # a chain's panel cut on a leading axis: rows of whole 16-byte words,
     # the innermost extent padded to 4 more than a multiple of 8
     words = set()
@@ -1166,9 +1173,9 @@ def _resummed_vmem_bytes(kg: KernelGroup) -> int:
     declared double-buffering rules: grid-advanced view streams are double
     buffered, pinned/resident views, rings, and scratch are single, the
     output panel is pipelined (double).  A group planned against shared
-    memory (``kg.panels``, ``kg.chain``) holds its scratch and its staged
-    copies only."""
-    if kg.panels is not None or kg.chain is not None:
+    memory (``kg.panels``, ``kg.chain``, ``kg.window``) holds its scratch
+    and its staged copies only."""
+    if kg.smem_planned:
         return kg.bh * _scratch_rows(kg) * ELEM_BYTES + _staged_copies(kg)
     total = 0
     for g in kg.groups:
@@ -1196,9 +1203,9 @@ def _resummed_ws(kg: KernelGroup) -> Tuple[int, int]:
     ``bytes_per_row`` (everything that scales with the block height: the
     output panel, blocked view streams, ring bodies, scratch rows) and
     ``fixed`` (pinned warm-ups, broadcast/resident views, carried halos).
-    For a group planned against shared memory (``kg.panels``, ``kg.chain``):
-    its scratch rows, and its staged copies."""
-    if kg.panels is not None or kg.chain is not None:
+    For a group planned against shared memory (``kg.panels``, ``kg.chain``,
+    ``kg.window``): its scratch rows, and its staged copies."""
+    if kg.smem_planned:
         return _scratch_rows(kg) * ELEM_BYTES, _staged_copies(kg)
     lane = kg.bw is not None
     out_ns = kg.output.nstage
@@ -1435,6 +1442,73 @@ def _check_chain(kg: KernelGroup, out: List[PlanViolation]) -> None:
                         f"along the hidden axis")
 
 
+def _check_window(kg: KernelGroup, out: List[PlanViolation]) -> None:
+    """UB406: a window-attention group (``kg.window``) is one the CUDA
+    kernel runs as planned: it carries nothing (as UB404 asks) and is
+    neither paneled nor chained; its score tile is its first fused stage,
+    which reads no fused stage, and its statistics the other fused stages;
+    the output and each statistic reduce over ``keys`` terms, over the
+    tile's last axes (as many as the output's reductions, of their
+    extents), and their pure axes start with the tile's others, a
+    statistic's are exactly those; they read the tile at their own
+    position on those axes and at the reduction variables, stride 1 and
+    offset 0, on the key axes, and a statistic at their own position; so
+    a block holds its rows' whole tile and statistics in shared memory and
+    nothing of them reaches global memory."""
+    wa = kg.window
+    if wa is None:
+        return
+
+    def bad(msg: str, *witness: int) -> None:
+        out.append(PlanViolation("UB406", kg.name, msg, witness=tuple(witness)))
+
+    if kg.panels is not None or kg.chain is not None:
+        bad("a window tile in a group with weight panels or a hidden chain")
+    if kg.rings or kg.line_buffered or kg.red_grid is not None or kg.lane_grid is not None:
+        bad("a window tile in a group that carries rows, columns or chunks")
+    if any(g.pinned or g.lane_axis is not None or g.red_axis is not None for g in kg.groups):
+        bad("a window tile beside a pinned, lane- or reduction-tiled view")
+    names = kg.stage_names
+    if names[:1] != [wa.score] or tuple(names[1:-1]) != wa.stats:
+        bad(f"tile {wa.score!r} and statistics {wa.stats} are not the group's fused "
+            f"stages {names[:-1]}")
+        return
+    score = kg.stage_plan(wa.score)
+    if any(p is not None for p in score.scratch_producer):
+        bad(f"tile {wa.score!r} reads a fused stage")
+    sdims, sext = score.nstage.pure_dims, score.nstage.pure_extents
+    k = len(kg.output.nstage.red_dims)
+    if not 0 < k < len(sdims):
+        bad(f"an output of {k} reductions over a tile of {len(sdims)} axes", k, len(sdims))
+        return
+    rows, keys = sdims[:-k], tuple(sext[-k:])
+    if math.prod(keys) != wa.keys:
+        bad(f"{wa.keys} keys, where the tile's key axes hold {keys}", wa.keys, *keys)
+    for sp in kg.stages[1:]:
+        ns = sp.nstage
+        if tuple(ns.red_extents) != keys or ns.combiner not in ("add", "max"):
+            bad(f"stage {sp.name!r} reduces over {ns.red_extents}, not the keys {keys}",
+                *ns.red_extents)
+            continue
+        if ns.pure_dims[:len(rows)] != rows or (sp is not kg.output and ns.pure_dims != rows):
+            bad(f"stage {sp.name!r} of axes {ns.pure_dims} does not run at the tile's "
+                f"rows {rows}")
+            continue
+        for la, prod in zip(sp.accesses, sp.scratch_producer):
+            if prod is None:
+                continue
+            ok = len(la.axes) == len(rows) + (k if prod == wa.score else 0) and all(
+                _along(ax, d, None) for ax, d in zip(la.axes, rows))
+            if prod == wa.score:
+                ok = ok and all(_along(ax, None, r)
+                                for ax, r in zip(la.axes[len(rows):], ns.red_dims))
+            elif prod not in wa.stats:
+                ok = False
+            if not ok:
+                bad(f"stage {sp.name!r} reads {prod!r} other than at its own position "
+                    f"and the keys")
+
+
 def _check_reuse(kg: KernelGroup, bad) -> None:
     """UB405's rule for a chain's ``reuse``: each ``(taker, dead)`` pair
     two distinct fused stages, the taker's panel no larger than the dead
@@ -1488,8 +1562,9 @@ def _check_budget(
             witness=(bpr, fixed),
         ))
     if kg.streamed:
-        # a chain's working set is what its kernel allocates, once
-        live = (1 if kg.chain is not None else 2) * bpr * kg.bh + fixed
+        # a chain's or window tile's working set is what its kernel
+        # allocates, once
+        live = (1 if kg.chain is not None or kg.window is not None else 2) * bpr * kg.bh + fixed
         if live > budget:
             out.append(PlanViolation(
                 "UB402", kg.name,
@@ -1608,6 +1683,7 @@ def verify_plan(plan: PipelinePlan) -> List[PlanViolation]:
         _check_batch(kg, plan.notes, out)
         _check_panels(kg, out)
         _check_chain(kg, out)
+        _check_window(kg, out)
         _check_budget(kg, budget, out)
     return out
 

@@ -3,7 +3,8 @@
 Index expressions are affine (``repro_torch.core.poly.AffineExpr``); *value*
 expressions are a small arithmetic AST whose leaves are constants and
 ``FuncRef`` s (reads of other funcs at affine indices), whose nodes are
-binary ops, unary ops (``sqrt``, ``erf``) and selects.  The AST supports:
+binary ops, unary ops (``sqrt``, ``erf``, ``exp``) and selects.  The AST
+supports:
 
   * numeric evaluation given a load callback (drives the reference
     interpreter and the cycle-accurate simulator),
@@ -26,6 +27,14 @@ Number = Union[int, float]
 def _sqrt(a: float) -> float:
     return math.sqrt(a) if a >= 0 else math.nan
 
+
+def _exp(a: float) -> float:
+    try:
+        return math.exp(a)
+    except OverflowError:
+        return math.inf
+
+
 _BINOPS: Dict[str, Callable[[float, float], float]] = {
     "add": lambda a, b: a + b,
     "sub": lambda a, b: a - b,
@@ -39,11 +48,12 @@ _BINOPS: Dict[str, Callable[[float, float], float]] = {
 }
 
 # unary ops: one f32 result of one operand (a square root for a norm's
-# scale, ``erf`` for the exact GELU); a negative square root is NaN, as
-# IEEE's is
+# scale, ``erf`` for the exact GELU, ``exp`` for a softmax); a negative
+# square root is NaN, as IEEE's is, and an ``exp`` past the range inf
 _UNOPS: Dict[str, Callable[[float], float]] = {
     "sqrt": _sqrt,
     "erf": math.erf,
+    "exp": _exp,
 }
 
 
@@ -141,6 +151,10 @@ def sqrt(a) -> Expr:
 
 def erf(a) -> Expr:
     return UnOp("erf", a if isinstance(a, Expr) else Const(a))
+
+
+def exp(a) -> Expr:
+    return UnOp("exp", a if isinstance(a, Expr) else Const(a))
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +299,7 @@ __all__ = [
     "maximum",
     "sqrt",
     "erf",
+    "exp",
     "eval_expr",
     "count_ops",
     "expr_depth",

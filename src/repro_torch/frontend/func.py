@@ -4,7 +4,8 @@ Mirrors the subset of Halide the paper relies on (§V-A):
 
   * pure function definitions over affine indices,
   * reduction updates (``update``) over an ``RDom`` — kept as a *single
-    combined statement* as the paper's frontend does,
+    combined statement* as the paper's frontend does; the combiner is a sum
+    (``f[...] + term``) or a running maximum (``maximum(f[...], term)``),
   * scheduling directives: ``store_root/compute_root`` (realize a buffer —
     everything else is inlined, Halide's default), ``unroll``,
     ``tile`` (selects the accelerator invocation extents),
@@ -21,6 +22,9 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.core.poly import AffineExpr
 from .expr import BinOp, Const, Expr, FuncRef
+
+# how a reduction combines its terms: the binary op of ``acc = op(acc, term)``
+COMBINERS = ("add", "max")
 
 
 class Var:
@@ -79,6 +83,7 @@ class Reduction:
     term: Expr                   # combined statement: acc = acc + term
     unrolled: bool = False       # fully-unrolled reductions trigger the
                                  # stencil scheduling policy (paper §V-B)
+    combiner: str = "add"        # or "max": acc = max(acc, term)
 
 
 class Func:
@@ -129,19 +134,21 @@ class Func:
         self.expr = value
 
     def update(self, idx: Sequence[Var], rhs: Expr, rdom: RDom) -> None:
-        """Reduction update ``f[idx] = f[idx] + term`` over ``rdom`` — stored
-        as the paper's combined single statement."""
+        """Reduction update ``f[idx] = f[idx] + term`` (or ``maximum(f[idx],
+        term)``) over ``rdom`` — stored as the paper's combined single
+        statement."""
         names = tuple(v.name for v in idx)
         if self.index_vars is None:
             self.index_vars = names
         if self.expr is None:
             self.expr = Const(0)
-        term = _extract_update_term(self.name, rhs)
+        combiner, term = _extract_update_term(self.name, rhs)
         self.reduction = Reduction(
             rvars=tuple(v.name for v in rdom.vars),
             rextents=rdom.extents,
             init=self.expr,
             term=term,
+            combiner=combiner,
         )
 
     # -- scheduling language ----------------------------------------------------------
@@ -196,14 +203,17 @@ class Func:
         return f"Func({self.name}, {kind}, realized={self.realized})"
 
 
-def _extract_update_term(name: str, rhs: Expr) -> Expr:
-    """Accept ``f[...] + term`` / ``term + f[...]`` and return ``term``."""
-    if isinstance(rhs, BinOp) and rhs.op == "add":
+def _extract_update_term(name: str, rhs: Expr) -> Tuple[str, Expr]:
+    """Accept ``f[...] + term`` / ``term + f[...]`` (a sum) or
+    ``maximum(f[...], term)`` / ``maximum(term, f[...])`` (a running
+    maximum) and return the combiner and ``term``."""
+    if isinstance(rhs, BinOp) and rhs.op in COMBINERS:
         if isinstance(rhs.a, FuncRef) and rhs.a.func == name:
-            return rhs.b
+            return rhs.op, rhs.b
         if isinstance(rhs.b, FuncRef) and rhs.b.func == name:
-            return rhs.a
-    raise ValueError("reduction update must have the form f[...] = f[...] + term")
+            return rhs.op, rhs.a
+    raise ValueError("reduction update must have the form f[...] = f[...] + term "
+                     "or f[...] = maximum(f[...], term)")
 
 
-__all__ = ["Var", "RDom", "Func", "Reduction"]
+__all__ = ["Var", "RDom", "Func", "Reduction", "COMBINERS"]

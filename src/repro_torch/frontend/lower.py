@@ -14,6 +14,7 @@ Performs the frontend work the paper describes in §V-A/§V-B's input:
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Set, Tuple
 
@@ -367,6 +368,7 @@ class NormalizedStage:
     loads: Tuple[Tuple[str, AffineMap], ...]   # zero-based access maps
     dim_lower: Tuple[Tuple[str, int], ...]
     on_host: bool = False
+    combiner: str = "add"               # a reduction's: acc = op(acc, term)
 
     @property
     def dims(self) -> Tuple[str, ...]:
@@ -395,10 +397,12 @@ def normalize_stage(stage: Stage, buffer_boxes: Mapping[str, Box]) -> Normalized
     red_dims: Tuple[str, ...] = ()
     red_extents: Tuple[int, ...] = ()
     init: Optional[Expr] = None
+    combiner = "add"
     if stage.reduction is not None:
         red_dims = tuple(stage.reduction.rvars)
         red_extents = tuple(stage.reduction.rextents)
         init = stage.reduction.init
+        combiner = stage.reduction.combiner
         for rv in red_dims:
             dim_lower[rv] = 0
     # the store map must be the identity on the pure dims for the rebasing
@@ -430,6 +434,7 @@ def normalize_stage(stage: Stage, buffer_boxes: Mapping[str, Box]) -> Normalized
         loads=tuple(loads),
         dim_lower=tuple(sorted(dim_lower.items())),
         on_host=stage.on_host,
+        combiner=combiner,
     )
 
 
@@ -478,12 +483,21 @@ def execute_pipeline(
                 tbl[st.store.eval(p)] = eval_expr(st.value, p, load)
         else:
             init = st.reduction.init
+            combine = _COMBINE[st.reduction.combiner]
             for p in st.domain.points():
                 e = st.store.eval(p)
                 if _first_rpoint(p, st.reduction):
                     tbl[e] = eval_expr(init, p, load)
-                tbl[e] = tbl[e] + eval_expr(st.value, p, load)
+                tbl[e] = combine(tbl[e], eval_expr(st.value, p, load))
     return values
+
+
+def _nan_max(a: float, b: float) -> float:
+    """The larger operand, NaN if either is (as torch's ``maximum``)."""
+    return math.nan if a != a or b != b else max(a, b)
+
+
+_COMBINE = {"add": lambda a, b: a + b, "max": _nan_max}
 
 
 def _first_rpoint(p: Mapping[str, int], red: Reduction) -> bool:

@@ -146,6 +146,18 @@ CHAIN_CASES = [
     ("convnext-chain-ragged", "convnext", {"img": 3, "dim": 8, "hidden": 12},
      {"vmem_budget": 1300}, False, None),
 ]
+# Swin's block pair (the window-attention tile of each block in shared
+# memory, its MLP chained) at a budget that forces the shared-memory plans
+# at test sizes: every group of the pipeline, the second block's windows
+# wrapping around the map and masked, once in batch slots, once with 64
+# channels (the LayerNorm groups' channel sums long enough to be rolled)
+WINDOW_CASES = [
+    ("swin-pair", "swin", {}, {"vmem_budget": 5000}, False, None),
+    ("swin-pair-batched", "swin", {"img": 4, "dim": 12, "heads": 3, "window": 2, "hidden": 24},
+     {"vmem_budget": 4000, "batch": 2, "batch_capacity": 3}, False, None),
+    ("swin-pair-wide", "swin", {"img": 4, "dim": 64, "heads": 2, "window": 2, "hidden": 64},
+     {"vmem_budget": 10000}, False, None),
+]
 # element-parallel groups on the two-axis tile (cuda_codegen.element_map:
 # runs of thread-axis positions by the tile, the weights or A staged a
 # block), which test sizes take where the launch need fill one SM with no
@@ -332,7 +344,7 @@ def libraries(gxx, tmp_path_factory):
     root = tmp_path_factory.mktemp("emit_host")
     (root / "cuda_runtime.h").write_text(SHIM)
     jobs = {}
-    for cid, name, kw, ckw, _ep, band in CASES + CHAIN_CASES:
+    for cid, name, kw, ckw, _ep, band in CASES + CHAIN_CASES + WINDOW_CASES:
         lowered = [LoweredGroup(kg) for kg in _plan(name, kw, ckw).kernels]
         src = root / f"{cid}.cpp"
         with pytest.MonkeyPatch.context() as mp:
@@ -413,13 +425,17 @@ def test_emitted_kernel_equals_plain_version_bit_for_bit(libraries, cid, name, k
         bufs[lg.kg.name] = got
 
 
-def _host_erf(t: torch.Tensor) -> torch.Tensor:
-    """``erf`` of each element by the host C library's ``erff``, the
-    function the g++-built kernel calls."""
-    fn = ctypes.CDLL(ctypes.util.find_library("m")).erff
+def _host_unop(fn_name: str):
+    """``fn_name`` (``erff``, ``expf``) of each element by the host C
+    library, the function the g++-built kernel calls."""
+    fn = getattr(ctypes.CDLL(ctypes.util.find_library("m")), fn_name)
     fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
-    return torch.tensor([fn(v) for v in t.reshape(-1).tolist()],
-                        dtype=torch.float32).reshape(t.shape)
+
+    def apply(t: torch.Tensor) -> torch.Tensor:
+        return torch.tensor([fn(v) for v in t.reshape(-1).tolist()],
+                            dtype=torch.float32).reshape(t.shape)
+
+    return apply
 
 
 @pytest.mark.parametrize("cid", [c[0] for c in CHAIN_CASES])
@@ -432,7 +448,7 @@ def test_chained_group_equals_plain_version_bit_for_bit(libraries, cid, monkeypa
     in several panels, and no group writes a hidden stage to memory."""
     from repro_torch.backend import eager
 
-    monkeypatch.setitem(eager._UNOPS, "erf", _host_erf)
+    monkeypatch.setitem(eager._UNOPS, "erf", _host_unop("erff"))
     lowered, lib = libraries[cid]
     (_c, name, kw, ckw, _ep, _band), = [c for c in CHAIN_CASES if c[0] == cid]
     app = make_app(name, **kw)
@@ -452,6 +468,41 @@ def test_chained_group_equals_plain_version_bit_for_bit(libraries, cid, monkeypa
     want = EagerKernel(lg)(bufs)
     diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
     assert diff == 0, f"{cid}: {diff} elements differ, max abs {float((got - want).abs().max())}"
+
+
+@pytest.mark.parametrize("cid", [c[0] for c in WINDOW_CASES])
+def test_window_groups_equal_plain_version_bit_for_bit(libraries, cid, monkeypatch):
+    """Every group of Swin's block pair, bit for bit with the plain version
+    where both call the same C library (``erff``, ``expf`` and ``sqrtf`` the
+    host's on both sides: torch's CPU square root of a vector is not always
+    the correctly rounded one, and a pair's LayerNorms take many): each
+    block's window-attention group holds its score tile and row statistics
+    in shared memory, one head a block, and its MLP is chained."""
+    from repro_torch.backend import eager
+
+    for op, fn in (("erf", "erff"), ("exp", "expf"), ("sqrt", "sqrtf")):
+        monkeypatch.setitem(eager._UNOPS, op, _host_unop(fn))
+    lowered, lib = libraries[cid]
+    (_c, name, kw, ckw, _ep, _band), = [c for c in WINDOW_CASES if c[0] == cid]
+    app = make_app(name, **kw)
+    bufs = random_inputs(app, 2, ckw.get("batch"), ckw.get("batch_capacity"))
+    windows = [lg.kg.window for lg in lowered if lg.kg.window is not None]
+    assert [w.score for w in windows] == ["b1_score", "b2_score"]
+    assert [w.masked for w in windows] == [0, 3]
+    assert sum(lg.kg.chain is not None for lg in lowered) == 2
+    # a LayerNorm group's channel sums are rolled from ROLL_PANEL_MIN terms
+    ln1 = next(lg for lg in lowered if lg.kg.name == "b1_ln1")
+    rolled = [sp.name for sp, key in ln1.entries
+              if len((cuda_codegen._chain(ln1.programs[(sp.name, key, 0)]) or (0, ()))[1])
+              >= cuda_codegen.ROLL_PANEL_MIN]
+    assert rolled == (["b1_ln1_sum", "b1_ln1_var_sum"] if cid == "swin-pair-wide" else [])
+    for i, lg in enumerate(lowered):
+        got = host_launch(lib, str(i), lg, bufs)
+        want = EagerKernel(lg)(bufs)
+        diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        assert diff == 0, (f"{cid}/{lg.kg.name}: {diff} elements differ, max abs "
+                           f"{float((got - want).abs().max())}")
+        bufs[lg.kg.name] = want
 
 
 @pytest.mark.parametrize("cid", [c[0] for c in TILED_CASES])
